@@ -1,0 +1,29 @@
+"""PyTorch/CUDA port of ``dsptoolbox_tpu``.
+
+The layout mirrors the JAX package module for module (``_config``,
+``standard.enums``, ``ops.*``, ``transfer_functions._backend``), so each
+function's counterpart is found by path. Public functions keep the JAX
+package's channels-first layout ``(..., T)``; the device is the device of
+the input tensor.
+
+Hand-written CUDA kernels replace the JAX package's Pallas kernels
+(`ops.cuda_framing`, `ops.cuda_iir`). They are compiled from ``csrc/`` at
+first use on a CUDA tensor; a CPU tensor always takes the plain PyTorch
+version, so importing this package needs neither ``nvcc`` nor a GPU.
+"""
+
+from ._config import (
+    default_complex,
+    default_float,
+    set_default_float,
+    set_framing_kernel,
+    set_iir_kernel,
+)
+
+__all__ = [
+    "default_complex",
+    "default_float",
+    "set_default_float",
+    "set_framing_kernel",
+    "set_iir_kernel",
+]

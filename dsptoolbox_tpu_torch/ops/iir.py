@@ -1,0 +1,55 @@
+"""SOS filtering entry points (`dsptoolbox_tpu/ops/iir.py`).
+
+``sosfilt`` runs the blocked state-space formulation (`ops.iir_block`);
+``sosfilt_zero_state`` routes long zero-state signals to exact frequency
+sampling (`ops.iir_freq`). Coefficient handling stays host-side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .iir_block import sosfilt_block
+from .iir_freq import plan_nfft, sosfilt_freq
+
+# Frequency-sampling window of `sosfilt_zero_state`: the JAX package's TPU
+# crossovers, kept for parity until they are measured on the H100.
+_FREQ_MIN_T = 4096
+_FREQ_MAX_T = 131072
+
+
+def sosfilt(sos: np.ndarray, x: torch.Tensor, zi=None):
+    """Second-order-sections filtering of ``x (..., T)``.
+
+    Mirrors ``scipy.signal.sosfilt``: ``sos (S, 6)`` host-side
+    coefficients; ``zi (..., S, 2)`` optional initial state. Returns
+    ``(y, zf)``.
+    """
+    return sosfilt_block(sos, x, zi=zi)
+
+
+def sosfilt_zero_state(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """Zero-state ``sosfilt`` returning ``y`` only, auto-dispatched.
+
+    Signals of 4096 to 131072 samples go to exact frequency sampling (two
+    FFTs) when the cascade's decay margin allows it; the rest, and
+    near-unstable cascades, take the blocked formulation.
+    """
+    T = x.shape[-1]
+    if _FREQ_MIN_T <= T <= _FREQ_MAX_T:
+        nfft = plan_nfft(np.asarray(sos), T)
+        if nfft is not None and nfft <= 4 * T:
+            return sosfilt_freq(sos, x, nfft=nfft)
+    return sosfilt_block(sos, x)[0]
+
+
+def sosfilt_zi(sos: np.ndarray) -> np.ndarray:
+    """Steady-state sosfilt initial conditions (host-side, scipy-equivalent).
+
+    Returns ``(S, 2)``: the state such that a unit-step input produces a
+    constant output from the first sample.
+    """
+    from scipy.signal import sosfilt_zi as _zi
+
+    return np.asarray(_zi(np.asarray(sos, dtype=np.float64)))
