@@ -2,17 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the measurement chain's shapes,
-drives the chain (`dsptoolbox_tpu_torch.headline.run`: 16 signals × 8 s at
-48 kHz, STFT + 4-band crossover + deconvolution) through the kernels, checks
-it against the same chain on the plain paths and against scipy/numpy in
-float64, and times kernels and chain with CUDA events.
+Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
+``nvcc`` per source, started together) and drives the port's two paths:
 
-Prints a JSON line of per-kernel results, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the exit code is non-zero; without a CUDA device it exits with
-code 2 before doing anything.
+- the measurement chain (`dsptoolbox_tpu_torch.headline.run`: 16 signals ×
+  8 s at 48 kHz, STFT + 4-band crossover + deconvolution): the framing (B1)
+  and IIR lead (B2) kernels are held against their plain PyTorch versions
+  at the chain's shapes, the chain against the same chain on the plain
+  paths and against scipy/numpy in float64;
+- the acoustic-camera DAS map (`dsptoolbox_tpu_torch.tools.camera`: 64 mics,
+  900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
+  a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
+  is held against its plain version on the full 513-bin sweep and ragged
+  shapes, the map against the plain path and the source's position.
+
+Kernels and paths are timed with CUDA events. Prints a JSON line of
+per-kernel results, the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
+is non-zero; without a CUDA device it exits with code 2 before doing
+anything.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 FS = 48000
 BATCH = 16
@@ -31,6 +40,12 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
+KERNELS = ("framing", "iir_lead", "das_map")
+# the DAS path: (seconds, sampling rate) of the two recordings
+CAMERA_RUNS = ((0.5, 16000), (10, 48000))
+# B5 at the full sweep (F, M, G) and two ragged shapes
+DAS_SWEEP = (513, 64, 900)
+DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
 
 
 def fail(msg: str) -> None:
@@ -54,6 +69,14 @@ def card_line() -> str:
     if r.returncode != 0 or not r.stdout.strip():
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def plain(fn):
+    """``fn()`` on the plain PyTorch paths: every kernel switched off."""
+    from dsptoolbox_tpu_torch import _config
+
+    with _config.kernels_off():
+        return fn()
 
 
 def time_pair(fa, fb, n=N_TIMED, warm=3):
@@ -92,7 +115,9 @@ def main() -> int:
     from scipy.signal import sosfilt_zi
 
     from dsptoolbox_tpu_torch import _config, _cuda, headline
-    from dsptoolbox_tpu_torch.ops import cuda_framing, cuda_iir
+    from dsptoolbox_tpu_torch.beamforming import SteeringVector, SteeringVectorType
+    from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir
+    from dsptoolbox_tpu_torch.tools import camera
     from dsptoolbox_tpu_torch.ops.framing import compute_number_frames
     from dsptoolbox_tpu_torch.ops.iir_block import (
         _block_operators,
@@ -113,13 +138,15 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     rng = np.random.default_rng(0)
 
-    # 2. build
-    for name in ("framing", "iir_lead"):
-        t0 = time.perf_counter()
-        _cuda.load(name)
-        log = _cuda.BUILD_LOG.get(name, {}).get("log", "")
-        print(f"build {name}.cu: {time.perf_counter() - t0:.2f} s")
-        for line in log.splitlines():
+    # 2. build every kernel, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_cuda.load, KERNELS))
+    print(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        entry = _cuda.BUILD_LOG.get(name, {})
+        print(f"build {name}.cu: {entry.get('seconds', 0.0):.2f} s")
+        for line in entry.get("log", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
@@ -197,13 +224,7 @@ def main() -> int:
     if not all(v > 0 for v in launches.values()):
         fail("the chain did not go through every kernel")
 
-    _config.set_framing_kernel("off")
-    _config.set_iir_kernel("off")
-    try:
-        ref = {bank: headline.run(x, exc, bank=bank) for bank in out}
-    finally:
-        _config.set_framing_kernel("auto")
-        _config.set_iir_kernel("auto")
+    ref = {bank: plain(lambda: headline.run(x, exc, bank=bank)) for bank in out}
     shapes = ((BATCH,), (BATCH, 4, T), (BATCH, T))
     for bank in out:
         for name, got, want, shape in zip(
@@ -248,35 +269,134 @@ def main() -> int:
               f"N={args[2].shape[0]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     print(f"time B2 lead, four bands: kernel {b2_ms:.4f} ms, plain {b2_plain:.4f} ms")
 
-    def plain_chain(bank):
-        _config.set_framing_kernel("off")
-        _config.set_iir_kernel("off")
-        try:
-            return headline.run(x, exc, bank=bank)
-        finally:
-            _config.set_framing_kernel("auto")
-            _config.set_iir_kernel("auto")
-
     audio_s = BATCH * SECONDS
     for bank in ("per_band", "banked"):
         k_ms, p_ms = time_pair(
-            lambda: headline.run(x, exc, bank=bank), lambda: plain_chain(bank)
+            lambda: headline.run(x, exc, bank=bank),
+            lambda: plain(lambda: headline.run(x, exc, bank=bank)),
         )
         print(f"time chain {bank}: kernels {k_ms:.4f} ms "
               f"({audio_s / (k_ms * 1e-3):.1f} audio-s/s), plain paths "
               f"{p_ms:.4f} ms ({audio_s / (p_ms * 1e-3):.1f} audio-s/s)")
 
+    # 7. B5 DAS map kernel vs plain: the full sweep of 513 bins x 64 mics x
+    # 900 points (random Hermitian C, amp in U(0.5, 1), diff of the camera's
+    # geometry, k on the rfft ramp of a 1024-point window at 48 kHz) and
+    # two ragged shapes
+    cam_grid = camera.grid()
+    geom_diff = SteeringVector(SteeringVectorType.TrueLocation).get_amp_diff(
+        cam_grid, camera.planar_array())[1]
+
+    def das_inputs(F, M, G):
+        C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
+        C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
+        amp = rng.uniform(0.5, 1.0, (M, G))
+        diff = geom_diff if (M, G) == geom_diff.shape else rng.uniform(-0.3, 0.3, (M, G))
+        k = np.arange(F) * (FS / 1024) * 2 * np.pi / 343
+        return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+                for a in (amp, diff, k, C.real, C.imag)]
+
+    b5_err = 0.0
+    das_args = {}
+    for F, M, G in (DAS_SWEEP,) + DAS_RAGGED:
+        args = das_inputs(F, M, G)
+        das_args[(F, M, G)] = args
+        yk = cuda_das.das_map_cuda(*args)
+        yp = cuda_das.das_map_plain(*args)
+        torch.cuda.synchronize()
+        if tuple(yk.shape) != (G, F) or not bool(torch.isfinite(yk).all()):
+            fail(f"DAS kernel shape {tuple(yk.shape)} or non-finite")
+        abs_err = float((yk - yp).abs().max())
+        err = rel_err(yk, yp)
+        b5_err = max(b5_err, abs_err)
+        print(f"B5 DAS map (F, M, G) = {(F, M, G)}: scale-rel err {err:.3e} "
+              f"(tol 5e-5), max abs err {abs_err:.3e}")
+        if not err <= 5e-5:
+            fail("DAS map kernel disagrees with its plain version")
+
+    # 8. the DAS path at full width (config 5 through the public API):
+    # counted, against the plain paths, and against the source's position
+    src_pos = camera.source_position(cam_grid)
+    das_launches = {"framing": 0, "das_map": 0}
+    cams = []
+    for seconds, fs in CAMERA_RUNS:
+        sig = camera.array_signal(seconds, fs, dev, cam_grid)
+        beam = camera.beamformer(sig, cam_grid)
+        torch.cuda.synchronize()
+        cuda_framing.launches = 0
+        cuda_das.launches = 0
+        m = beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION)
+        torch.cuda.synchronize()
+        launched = {"framing": cuda_framing.launches, "das_map": cuda_das.launches}
+        label = f"DAS path {seconds} s x {fs} Hz x 64 mics"
+        print(f"{label}: launches {launched}")
+        if not all(v > 0 for v in launched.values()):
+            fail("the DAS path did not go through the framing and DAS kernels")
+        for name, n in launched.items():
+            das_launches[name] += n
+        if tuple(m.shape) != (30, 30) or not bool(torch.isfinite(m).all()):
+            fail(f"{label}: map shape {tuple(m.shape)} or non-finite")
+        f_lo, f_hi = beam.f_range_hz
+        n_bins = int(round((f_hi - f_lo) / (fs / 1024))) + 1
+        with _config.kernels_off():
+            sig.get_csm(force_computation=True)
+            ref = beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION)
+        sig.get_csm(force_computation=True)  # the kernels' CSM again
+        err = rel_err(m, ref)
+        peak = camera.peak_position(m, cam_grid)
+        dx, dy = (abs(float(peak[i] - src_pos[i])) for i in (0, 1))
+        print(f"{label}: {n_bins} bins; map vs plain paths scale-rel {err:.3e} "
+              f"(tol 1e-4); peak at {peak[:2].round(3).tolist()}, source at "
+              f"{src_pos[:2].round(3).tolist()} (tol 0.11 m)")
+        if not err <= 1e-4:
+            fail(f"{label}: map disagrees with the plain paths")
+        if not (dx < 0.11 and dy < 0.11):
+            fail(f"{label}: the map's peak is not at the source")
+        cams.append((label, sig, beam, n_bins))
+
+    # 9. times: B5 at the full sweep, and the DAS path with and without
+    # the kernels, map alone (CSM cached) and CSM + map
+    F, M, G = DAS_SWEEP
+    args = das_args[DAS_SWEEP]
+    b5_ms, b5_plain = time_pair(
+        lambda: cuda_das.das_map_cuda(*args), lambda: cuda_das.das_map_plain(*args)
+    )
+    print(f"time B5 DAS map (F, M, G) = {DAS_SWEEP}: kernel {b5_ms:.4f} ms "
+          f"({G * F / (b5_ms * 1e-3):.4g} point-bins/s), plain {b5_plain:.4f} ms "
+          f"({G * F / (b5_plain * 1e-3):.4g} point-bins/s)")
+
+    for label, sig, beam, n_bins in cams:
+        def one_map():
+            return beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION)
+
+        def csm_and_map():
+            sig.get_csm(force_computation=True)
+            return one_map()
+
+        for what, fn in (("map, CSM cached", one_map), ("CSM + map", csm_and_map)):
+            k_ms, p_ms = time_pair(fn, lambda: plain(fn))
+            print(f"time {label}, {what}: kernels {k_ms:.4f} ms "
+                  f"({G * n_bins / (k_ms * 1e-3):.4g} point-bins/s), plain paths "
+                  f"{p_ms:.4f} ms ({G * n_bins / (p_ms * 1e-3):.4g} point-bins/s)")
+
     report = {"kernels": [
         {"name": "windowed_frames", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
-         "launches": launches["framing"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain},
+         "launches": launches["framing"] + das_launches["framing"],
+         "launches_by_path": {"chain": launches["framing"],
+                              "das": das_launches["framing"]},
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_lead.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": launches["iir_lead"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain},
+        {"name": "das_map", "route": "cuda",
+         "source": "dsptoolbox_tpu_torch/csrc/das_map.cu",
+         "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
+         "launches": das_launches["das_map"], "max_abs_err": b5_err,
+         "ms": b5_ms, "plain_ms": b5_plain},
     ]}
     print(json.dumps(report))
     print(card)

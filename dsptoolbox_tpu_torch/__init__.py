@@ -7,14 +7,16 @@ package's channels-first layout ``(..., T)``; the device is the device of
 the input tensor.
 
 Hand-written CUDA kernels replace the JAX package's Pallas kernels
-(`ops.cuda_framing`, `ops.cuda_iir`). They are compiled from ``csrc/`` at
-first use on a CUDA tensor; a CPU tensor always takes the plain PyTorch
-version, so importing this package needs neither ``nvcc`` nor a GPU.
+(`ops.cuda_framing`, `ops.cuda_iir`, `ops.cuda_das`). They are compiled
+from ``csrc/`` at first use on a CUDA tensor; a CPU tensor always takes the
+plain PyTorch version, so importing this package needs neither ``nvcc`` nor
+a GPU.
 """
 
 from ._config import (
     default_complex,
     default_float,
+    set_das_kernel,
     set_default_float,
     set_framing_kernel,
     set_iir_kernel,
@@ -23,6 +25,7 @@ from ._config import (
 __all__ = [
     "default_complex",
     "default_float",
+    "set_das_kernel",
     "set_default_float",
     "set_framing_kernel",
     "set_iir_kernel",

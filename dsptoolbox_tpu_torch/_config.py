@@ -14,6 +14,8 @@ Each hand-written kernel sits behind a switch with three values:
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 _FLOAT = torch.float32
@@ -44,6 +46,7 @@ def default_complex() -> torch.dtype:
 _MODES = ("auto", "on", "off")
 _FRAMING_KERNEL = "auto"
 _IIR_KERNEL = "auto"
+_DAS_KERNEL = "auto"
 
 
 def _check_mode(mode: str) -> str:
@@ -70,6 +73,30 @@ def set_iir_kernel(mode: str) -> None:
 
 def iir_kernel() -> str:
     return _IIR_KERNEL
+
+
+def set_das_kernel(mode: str) -> None:
+    """Switch for the fused DAS map kernel (`ops.cuda_das`); the port's
+    counterpart of the JAX package's ``set_pallas_das``."""
+    global _DAS_KERNEL
+    _DAS_KERNEL = _check_mode(mode)
+
+
+def das_kernel() -> str:
+    return _DAS_KERNEL
+
+
+@contextmanager
+def kernels_off():
+    """Every kernel switch "off" inside the block (the plain PyTorch
+    paths); the previous modes are restored after it."""
+    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL
+    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL)
+    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = "off"
+    try:
+        yield
+    finally:
+        _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL = saved
 
 
 def use_kernel(mode: str, x: torch.Tensor) -> bool:

@@ -1,14 +1,22 @@
-"""Where the measurement chain's time goes on a CUDA device.
+"""Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|all]
 
-At the chain's shapes (16 signals × 8 s at 48 kHz, float32) it profiles,
-with `torch.profiler`, the framing kernel, the IIR lead kernel on one
-crossover band (and each against its plain version), and the whole chain in
-both bank modes. For each it prints the device time per kernel and per call,
-the host time per call (calls issued without waiting), the wall time per
-call, and the device's busy share of the wall time. Needs a CUDA device;
-builds the kernels from ``csrc/`` first.
+``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
+float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
+lead kernel on one crossover band (and each against its plain version), and
+the whole chain in both bank modes.
+
+``das``: the DAS map kernel against its plain version on the full sweep
+(513 bins × 64 mics × 900 points), and the acoustic-camera map
+(`tools.camera`, 64 mics, 900 points, 2 kHz third octave) on a 0.5 s ×
+16 kHz and a 10 s × 48 kHz recording: the map with the CSM cached, and CSM +
+map, each through the kernels and on the plain paths.
+
+For each case it prints the device time per kernel and per call, the host
+time per call (calls issued without waiting), the wall time per call, and
+the device's idle share of the wall time. Needs a CUDA device; builds the
+kernels from ``csrc/`` first.
 """
 
 from __future__ import annotations
@@ -23,8 +31,8 @@ import torch
 from scipy.signal import sosfilt_zi
 from torch.profiler import ProfilerActivity, profile
 
-from .. import _cuda, headline
-from ..ops import cuda_framing, cuda_iir, iir_block
+from .. import _config, _cuda, headline
+from ..ops import cuda_das, cuda_framing, cuda_iir, iir_block
 from ..ops.windows import get_window
 from ..standard.enums import Window
 
@@ -80,9 +88,54 @@ def profile_call(label: str, fn, runs: int) -> None:
         print(f"  {us:10.1f} us  x{count:<3d} {key[:90]}")
 
 
+def plain_paths(fn):
+    """``fn`` with every kernel switched off."""
+    def run():
+        with _config.kernels_off():
+            return fn()
+    return run
+
+
+def profile_das(dev, runs: int) -> None:
+    from ..beamforming import SteeringVector
+    from . import camera
+
+    rng = np.random.default_rng(0)
+    F, M, G = 513, 64, 900
+    g = camera.grid()
+    C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
+    C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
+    amp = rng.uniform(0.5, 1.0, (M, G))
+    diff = SteeringVector().get_amp_diff(g, camera.planar_array())[1]
+    k = np.arange(F) * (FS / 1024) * 2 * np.pi / 343
+    das = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+           for a in (amp, diff, k, C.real, C.imag)]
+    profile_call("B5 DAS map kernel, 513 bins x 64 mics x 900 points",
+                 lambda: cuda_das.das_map_cuda(*das), runs)
+    profile_call("B5 DAS map plain, same shapes",
+                 lambda: cuda_das.das_map_plain(*das), runs)
+    for seconds, fs in ((0.5, 16000), (10, FS)):
+        sig = camera.array_signal(seconds, fs, dev, g)
+        beam = camera.beamformer(sig, g)
+
+        def one_map():
+            return beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION)
+
+        def csm_and_map():
+            sig.get_csm(force_computation=True)
+            return one_map()
+
+        label = f"DAS path {seconds} s x {fs} Hz x 64 mics"
+        profile_call(f"{label}, map (CSM cached), kernels", one_map, runs)
+        profile_call(f"{label}, map (CSM cached), plain paths", plain_paths(one_map), runs)
+        profile_call(f"{label}, CSM + map, kernels", csm_and_map, runs)
+        profile_call(f"{label}, CSM + map, plain paths", plain_paths(csm_and_map), runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per case")
+    ap.add_argument("--case", choices=("chain", "das", "all"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: needs a CUDA device", file=sys.stderr)
@@ -94,10 +147,14 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for name in ("framing", "iir_lead"):
+    for name in ("framing", "iir_lead", "das_map"):
         _cuda.load(name)
 
     dev = torch.device("cuda", 0)
+    if args.case in ("das", "all"):
+        profile_das(dev, args.runs)
+    if args.case == "das":
+        return 0
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((BATCH, T)).astype(np.float32)).to(dev)
     exc = torch.fft.rfft(

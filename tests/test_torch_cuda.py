@@ -13,7 +13,9 @@ import torch
 from scipy.signal import butter, sosfilt, sosfilt_zi
 
 from dsptoolbox_tpu_torch import _config, headline
-from dsptoolbox_tpu_torch.ops import cuda_framing, cuda_iir, iir_block
+from dsptoolbox_tpu_torch import beamforming as bf
+from dsptoolbox_tpu_torch.classes import Signal
+from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir, iir_block
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +136,72 @@ def test_switch_off_takes_plain_path_on_card(dev):
     finally:
         _config.set_framing_kernel("auto")
     assert cuda_framing.launches == before
+
+
+def _das_args(F, M, G, dev, dtype=torch.float32):
+    C = RNG.standard_normal((F, M, M)) + 1j * RNG.standard_normal((F, M, M))
+    arrays = (RNG.uniform(0.5, 1.0, (M, G)), RNG.uniform(-0.5, 0.5, (M, G)),
+              np.linspace(10.0, 400.0, F), C.real, C.imag)
+    return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+            for a in arrays]
+
+
+# (F, M, G): the ragged shapes of tests/test_pallas_das.py; M = 1 and every
+# mic-tile size (8, 16, 32, 64); M = 65 and 160 take several mic tiles (at
+# M = 160 the whole C_f does not fit in shared memory); G below, at and
+# above the 64-point block
+@pytest.mark.parametrize(
+    "F,M,G",
+    [(13, 9, 20), (5, 25, 130), (37, 64, 100), (2, 1, 5), (3, 8, 64),
+     (4, 16, 65), (3, 32, 1), (6, 65, 33), (3, 160, 70), (1, 64, 900)],
+)
+def test_das_kernel_matches_plain(dev, F, M, G):
+    args = _das_args(F, M, G, dev)
+    before = cuda_das.launches
+    got = cuda_das.das_map(*args)
+    want = cuda_das.das_map_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_das.launches == before + 1
+    assert got.shape == (G, F)
+    assert _rel(got, want) <= 5e-5
+
+
+def test_das_kernel_float64_and_switch_on_card(dev):
+    args = _das_args(5, 9, 20, dev, torch.float64)
+    before = cuda_das.launches
+    got = cuda_das.das_map(*args)  # float64 under "auto": plain version
+    assert got.dtype == torch.float64 and cuda_das.launches == before
+    _config.set_das_kernel("on")
+    try:
+        with pytest.raises(ValueError, match="float32"):
+            cuda_das.das_map(*args)
+    finally:
+        _config.set_das_kernel("auto")
+    _config.set_das_kernel("off")
+    try:
+        cuda_das.das_map(*(a.float() for a in args))
+    finally:
+        _config.set_das_kernel("auto")
+    assert cuda_das.launches == before
+
+
+def test_das_public_map_on_card_matches_cpu(dev):
+    x = np.arange(3) * 0.5
+    xx, yy = np.meshgrid(x, x, indexing="ij")
+    ma = bf.MicArray(dict(x=xx.flatten(), y=yy.flatten(), z=np.zeros(9)))
+    g = bf.Regular2DGrid(np.arange(-0.2, 0.21, 0.2), np.arange(-0.4, 0.5, 0.2),
+                         ["x", "y"], value3=0.5)
+    noise = (0.3 * RNG.standard_normal(3200)).astype(np.float32)
+    maps = {}
+    for where in ("cpu", dev):
+        src = bf.MonopoleSource(Signal(None, torch.from_numpy(noise).to(where), 16000),
+                                [0.0, 0.4, 0.5])
+        sig = src.get_signals_on_array(ma)
+        before = (cuda_framing.launches, cuda_das.launches)
+        maps[str(where)] = bf.BeamformerDASFrequency(
+            sig, ma, g, bf.SteeringVector()).get_beamformer_map(2000, 3)
+        after = (cuda_framing.launches, cuda_das.launches)
+        assert (after == before) == (where == "cpu")
+    got = maps[str(dev)]
+    assert got.is_cuda and got.shape == (3, 5)
+    assert _rel(got, maps["cpu"]) <= 1e-4

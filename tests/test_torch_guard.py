@@ -13,7 +13,8 @@ import torch
 
 import dsptoolbox_tpu_torch as dtt
 from dsptoolbox_tpu_torch import _config, headline
-from dsptoolbox_tpu_torch.ops import cuda_framing, cuda_iir
+from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir
+from dsptoolbox_tpu_torch.tools import camera
 
 torch.set_num_threads(1)
 
@@ -27,6 +28,8 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "sys.modules['triton'] = None  # importing triton now raises\n"
         "import dsptoolbox_tpu_torch, dsptoolbox_tpu_torch.headline\n"
         "import dsptoolbox_tpu_torch.ops.spectral, dsptoolbox_tpu_torch.ops.iir\n"
+        "import dsptoolbox_tpu_torch.beamforming, dsptoolbox_tpu_torch.classes\n"
+        "import dsptoolbox_tpu_torch.tools.camera\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
         "assert not bad, bad\n"
@@ -80,8 +83,13 @@ def test_cpu_tensors_never_launch_kernels():
     exc = torch.fft.rfft(torch.from_numpy(rng.standard_normal(T).astype(np.float32)))
     for bank in ("per_band", "banked"):
         headline.run(x, exc, bank=bank)
+    cuda_das.launches = 0
+    g = camera.grid()
+    sig = camera.array_signal(0.05, 16000, "cpu", g)
+    assert camera.beamformer(sig, g).get_beamformer_map(2000, 3).shape == (30, 30)
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
+    assert cuda_das.launches == 0
 
 
 def test_switch_on_refuses_cpu_tensor():
@@ -95,6 +103,18 @@ def test_switch_on_refuses_cpu_tensor():
         _config.set_framing_kernel("auto")
     with pytest.raises(ValueError):
         dtt.set_iir_kernel("fast")
+
+
+def test_kernels_off_restores_every_switch():
+    _config.set_iir_kernel("on")
+    try:
+        with _config.kernels_off():
+            assert (_config.framing_kernel(), _config.iir_kernel(),
+                    _config.das_kernel()) == ("off", "off", "off")
+        assert (_config.framing_kernel(), _config.iir_kernel(),
+                _config.das_kernel()) == ("auto", "on", "auto")
+    finally:
+        _config.set_iir_kernel("auto")
 
 
 def test_default_dtypes_and_float64_mode():
