@@ -14,10 +14,20 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
   a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
   is held against its plain version on the full 513-bin sweep and ragged
-  shapes, the map against the plain path and the source's position.
+  shapes, the map against the plain path and the source's position;
+- the transfer-function measurement (`dsptoolbox_tpu_torch.tools.measurement`:
+  a 5 s SyncLog sweep recorded by 16 microphones at 48 kHz, deconvolved,
+  windowed to 65,536 samples and 1/3-octave smoothed over 32,769 bins): the
+  banded smoothing kernel (B4) is held against its plain version at the
+  path's plan and ragged shapes, the path against the plain paths, a
+  float64 numpy deconvolution, the float64 host smoothing and the known
+  propagation delays; 1/6 octave and the MagnitudePhase and
+  EquivalentComplex domains against the float64 host smoothing too.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
-per-kernel results, the card's name and power limit, and as its last line
+per-kernel results (with each kernel's bound: the larger of its bytes over
+3.35 TB/s and its operations over 67 TFLOP/s fp32 or 34 TFLOP/s fp64, the
+H100 SXM's peaks), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero; without a CUDA device it exits with code 2 before doing
 anything.
@@ -40,12 +50,19 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
-KERNELS = ("framing", "iir_lead", "das_map")
+KERNELS = ("framing", "iir_lead", "das_map", "banded")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes
 DAS_SWEEP = (513, 64, 900)
 DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
+# B4 ragged shapes: (NB, TR, SPAN, C, F)
+BANDED_RAGGED = ((3, 128, 256, 5, 1000), (2, 50, 250, 33, 700))
+# H100 SXM peaks (NVIDIA data sheet): device memory, fp32 and fp64 outside
+# the tensor cores
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+FP64_FLOP_S = 34e12
 
 
 def fail(msg: str) -> None:
@@ -55,8 +72,10 @@ def fail(msg: str) -> None:
 def rel_err(got, want) -> float:
     import torch
 
-    got = torch.as_tensor(got).double().cpu()
-    want = torch.as_tensor(want).double().cpu()
+    got = torch.as_tensor(got).cpu()
+    want = torch.as_tensor(want).cpu()
+    dt = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    got, want = got.to(dt), want.to(dt)
     scale = float(want.abs().max()) or 1.0
     return float((got - want).abs().max()) / scale
 
@@ -69,6 +88,14 @@ def card_line() -> str:
     if r.returncode != 0 or not r.stdout.strip():
         fail(f"nvidia-smi failed: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def bound(n_bytes: float, fp32_flop: float, fp64_flop: float = 0.0) -> tuple:
+    """``(bound_ms, bound_by)``: the larger of the bytes' time at the
+    device-memory rate and the operations' time at the peak rates."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = fp32_flop / FP32_FLOP_S + fp64_flop / FP64_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def plain(fn):
@@ -100,6 +127,246 @@ def time_pair(fa, fb, n=N_TIMED, warm=3):
             end.synchronize()
             times[j].append(start.elapsed_time(end))
     return statistics.median(times[0]), statistics.median(times[1])
+
+
+def measurement_phase(dev, rng) -> dict:
+    """B4 and the transfer-function measurement path at full width; returns
+    B4's entry of the kernels report."""
+    import numpy as np
+    import torch
+    from scipy.fft import next_fast_len
+
+    from dsptoolbox_tpu_torch.ops import (
+        banded,
+        cuda_banded,
+        cuda_das,
+        cuda_framing,
+        cuda_iir,
+    )
+    from dsptoolbox_tpu_torch.helpers.other import unwrap
+    from dsptoolbox_tpu_torch.standard.enums import Window
+    from dsptoolbox_tpu_torch.tools import measurement
+    from dsptoolbox_tpu_torch.transfer_functions import (
+        SmoothingDomain,
+        complex_smoothing,
+    )
+    from dsptoolbox_tpu_torch.transfer_functions import _backend as bk
+    from dsptoolbox_tpu_torch.transfer_functions.transfer_functions import (
+        regularization_range,
+    )
+
+    # 10. the smoothing plan of the path's grid (32,769 bins, 1/3 octave):
+    # one-time host build and upload, set-up time
+    fs = measurement.FS
+    n_bins = measurement.IR_LENGTH // 2 + 1
+    freqs = np.fft.rfftfreq(measurement.IR_LENGTH, 1 / fs)
+    wy = Window.Hann(3000, True)
+
+    def build_plan(octave):
+        key = bk._plan_key(freqs, octave, wy)
+        t0 = time.perf_counter()
+        plan = bk.device_banded_plan(key, torch.float32, dev)
+        torch.cuda.synchronize()
+        n_w = sum(seg["slab"].numel() for seg in plan)
+        print(f"set-up: B4 plan, {n_bins} bins, 1/{octave} octave: host build and "
+              f"upload {time.perf_counter() - t0:.3f} s; spans "
+              f"{[seg['span'] for seg in plan]}, "
+              f"{sum(seg['slab'].shape[0] for seg in plan)} row tiles, "
+              f"{n_w * 4 / 1e6:.1f} MB of slab")
+        return plan
+
+    plan = build_plan(measurement.OCTAVE_FRACTION)
+
+    # 11. B4 vs plain at the path's plan (16 complex channels: 32 planes)
+    # and ragged shapes. Tolerance: fp32 sums of up to 6912 products
+    # (weights in [0, 1] summing to 1, unit-variance x) in two orders
+    C = 2 * measurement.CHANNELS
+    max_span = max(seg["span"] for seg in plan)
+    x_pad = torch.from_numpy(
+        rng.standard_normal((n_bins + max_span, C)).astype(np.float32)
+    ).to(dev)
+
+    yk = cuda_banded.banded_matmul_cuda(plan, x_pad)
+    yp = banded.banded_plan_plain(plan, x_pad)
+    torch.cuda.synchronize()
+    b4_err = float((yk - yp).abs().max())
+    print(f"B4 banded at the path's plan (x {tuple(x_pad.shape)}): max abs err "
+          f"{b4_err:.3e} (tol 1e-5)")
+    if not b4_err <= 1e-5:
+        fail("banded kernel disagrees with its plain version at the path's plan")
+    for nb, tr, span, c, f_len in BANDED_RAGGED:
+        seg = {"rows": nb * tr, "span": span,
+               "slab": torch.from_numpy(
+                   rng.standard_normal((nb, tr, span)).astype(np.float32)).to(dev),
+               "offsets": torch.from_numpy(
+                   rng.integers(0, f_len - span, nb).astype(np.int32)).to(dev)}
+        xr = torch.from_numpy(rng.standard_normal((f_len, c)).astype(np.float32)).to(dev)
+        err = float((cuda_banded.banded_matmul_cuda([seg], xr)
+                     - banded.banded_plan_plain([seg], xr)).abs().max())
+        torch.cuda.synchronize()
+        print(f"B4 banded ragged (NB, TR, SPAN, C) = {(nb, tr, span, c)}: max abs "
+              f"err {err:.3e} (tol 1e-4, as the JAX package's Pallas test)")
+        if not err <= 1e-4:
+            fail("banded kernel disagrees with its plain version (ragged)")
+
+    # 12. the measurement path at full width, counted
+    sweep = measurement.excitation()
+    irs, delays = measurement.room_irs()
+    rec = measurement.recording(sweep, irs)
+    torch.cuda.synchronize()
+    modules = {"framing": cuda_framing, "iir_lead": cuda_iir,
+               "das_map": cuda_das, "banded": cuda_banded}
+    for m in modules.values():
+        m.launches = 0
+    ir, win, starts, sm = measurement.run(rec, sweep)
+    torch.cuda.synchronize()
+    launched = {name: m.launches for name, m in modules.items()}
+    T = rec.length_samples
+    label = (f"TF path {measurement.CHANNELS} ch x {T} samples -> "
+             f"{measurement.IR_LENGTH} -> 1/{measurement.OCTAVE_FRACTION} octave")
+    print(f"{label}: launches {launched}")
+    if launched["banded"] == 0:
+        fail("the measurement path did not go through the banded kernel")
+    for name, got, shape in (("ir", ir.time_data, (T, measurement.CHANNELS)),
+                             ("windowed", win.time_data,
+                              (measurement.IR_LENGTH, measurement.CHANNELS)),
+                             ("smoothed", sm.spectral_data, (n_bins, measurement.CHANNELS))):
+        if tuple(got.shape) != shape or not bool(torch.isfinite(got).all()):
+            fail(f"{label} {name}: shape {tuple(got.shape)} or non-finite")
+    ref = plain(lambda: measurement.run(rec, sweep))
+    for name, got, want in (("ir", ir.time_data, ref[0].time_data),
+                            ("windowed", win.time_data, ref[1].time_data),
+                            ("smoothed", sm.spectral_data, ref[3].spectral_data)):
+        err = rel_err(got, want)
+        print(f"{label} {name} vs plain paths: scale-rel {err:.3e} (tol 1e-4)")
+        if not err <= 1e-4:
+            fail(f"{label}: {name} disagrees with the plain paths")
+    # the IR against a float64 numpy deconvolution with the same
+    # regularization window (the port's host float64 window function, on
+    # the range the port found on the device)
+    n_fft = next_fast_len(T, True)
+    f_full = np.fft.rfftfreq(n_fft, 1 / fs)
+    lo, hi = regularization_range(sweep._spectrum_fft()[1][0], f_full, -30.0)
+    eps = bk.regularization_window(
+        [lo / np.sqrt(2), lo, hi, min(hi * np.sqrt(2), fs / 2)], f_full)
+    num = np.fft.rfft(rec.time_data.double().cpu().numpy(), n=n_fft, axis=0)
+    den = np.fft.rfft(sweep.time_data[:, 0].double().cpu().numpy(), n=n_fft)
+    ir64 = np.fft.irfft(num * (np.conj(den) / (np.abs(den) ** 2 + eps))[:, None],
+                        n=T, axis=0)
+    err = rel_err(ir.time_data, ir64)
+    print(f"{label} ir vs numpy f64 deconvolution: scale-rel {err:.3e} (tol 2e-5)")
+    if not err <= 2e-5:
+        fail("the IR disagrees with the float64 deconvolution")
+    # the smoothing against the float64 host oracle on the port's window
+    sp64 = np.fft.rfft(win.time_data.double().cpu().numpy(), axis=0)
+    t0 = time.perf_counter()
+    sm64 = bk.complex_smoothing_host(sp64, freqs, measurement.OCTAVE_FRACTION, wy)
+    err = rel_err(sm.spectral_data, sm64)
+    print(f"{label} smoothed vs float64 host smoothing ({time.perf_counter() - t0:.1f} s "
+          f"on the host): scale-rel {err:.3e} (tol 1e-4)")
+    if not err <= 1e-4:
+        fail("the smoothed spectrum disagrees with the float64 host smoothing")
+    # physical check: each IR peaks at its channel's propagation delay
+    peaks = ir.time_data.abs().argmax(dim=0).cpu().numpy()
+    off = np.abs(peaks - delays)
+    print(f"{label} IR peaks at {peaks.tolist()}, delays {delays.tolist()} "
+          f"(tol 1 sample); window starts {starts.cpu().numpy().tolist()}")
+    if not off.max() <= 1:
+        fail("an IR does not peak at its propagation delay")
+
+    # 13. the same width at 1/6 octave and in two more domains, against the
+    # plain paths and the float64 host smoothing. Magnitudes are held at
+    # 1e-4 scale-relative. MagnitudePhase smooths the unwrapped phase
+    # itself, R ≈ 5e3 rad here: a float32 weighted sum of up to S terms of
+    # size ≤ R drifts by ~2^-24·R·sqrt(S) in a random walk, so each path's
+    # phase is held at twice that against the float64 smoothing of the
+    # phase it smoothed (its own float32 unwrap: at bins near zero the
+    # float32 and float64 spectra unwrap to different branches, a property
+    # of the domain on float32 data, not of the smoothing).
+    # EquivalentComplex takes the angle of the real/imaginary smoothing s1,
+    # which cancels where the phase turns within the band: its phase is
+    # held where |s1| ≥ 0.1·sqrt(smoothed power), at 2·2^-24·sqrt(S) / 0.1
+    # (the sum's relative error over that floor)
+    build_plan(6)
+    u32 = 2.0**-24
+    sp = win.get_spectrum()[1]
+    phi = unwrap(sp.angle(), dim=0)
+    R = float(phi.abs().max())
+    phi64 = np.unwrap(np.angle(sp64), axis=0)
+    branches = int((np.abs(phi.double().cpu().numpy() - phi64) > np.pi).sum())
+    print(f"phase: range {R:.1f} rad; the float32 unwrap takes another branch "
+          f"than the float64 one at {branches} of {phi64.size} bins")
+    power64 = bk.complex_smoothing_host(np.abs(sp64) ** 2, freqs, 3, wy)
+    cases = (
+        (6, SmoothingDomain.RealImaginary, None,
+         bk.complex_smoothing_host(sp64, freqs, 6, wy), None, None),
+        (3, SmoothingDomain.MagnitudePhase,
+         bk.complex_smoothing_host(np.abs(sp64), freqs, 3, wy),
+         bk.complex_smoothing_host(phi.double().cpu().numpy(), freqs, 3, wy),
+         None, 2 * u32 * R * np.sqrt(max_span)),
+        (3, SmoothingDomain.EquivalentComplex, np.sqrt(power64), np.angle(sm64),
+         np.abs(sm64) >= 0.1 * np.sqrt(power64), 2 * u32 * np.sqrt(max_span) / 0.1),
+    )
+    for octave, domain, mag64, ref64, held, tol in cases:
+        cuda_banded.launches = 0
+        got = complex_smoothing(win, octave, domain).spectral_data
+        torch.cuda.synchronize()
+        n = cuda_banded.launches
+        want = plain(lambda: complex_smoothing(win, octave, domain)).spectral_data
+        line = (f"smoothing 1/{octave} {domain.name}, {n} B4 launches: vs plain "
+                f"scale-rel {rel_err(got, want):.3e}")
+        ok = n > 0
+        for side, g in (("kernel", got), ("plain", want)):
+            if mag64 is None:  # RealImaginary: the complex values
+                err = rel_err(g, ref64)
+                line += f"; {side} vs float64 scale-rel {err:.3e} (tol 1e-4)"
+                ok = ok and err <= 1e-4
+                continue
+            g = g.cpu().numpy().astype(np.complex128)
+            m_err = rel_err(np.abs(g), mag64)
+            dphi = np.abs(np.angle(g * np.exp(-1j * ref64)))
+            dphi = dphi[held] if held is not None else dphi
+            line += (f"; {side} vs float64 magnitude {m_err:.3e} (tol 1e-4), "
+                     f"phase {dphi.max():.3e} rad (tol {tol:.3e})")
+            ok = ok and m_err <= 1e-4 and dphi.max() <= tol
+        if held is not None:
+            line += f"; phase held at {int(held.sum())} of {held.size} bins"
+        print(line)
+        if not ok:
+            fail(f"smoothing 1/{octave} {domain.name} disagrees with the float64 "
+                 "smoothing")
+
+    # 14. times: B4 kernel, plain and one library call (torch.bmm on the
+    # windows gathered beforehand: not the same function, a lower bound on
+    # what cuBLAS needs); the whole path with and without the kernel
+    b4_ms, b4_plain = time_pair(lambda: cuda_banded.banded_matmul_cuda(plan, x_pad),
+                                lambda: banded.banded_plan_plain(plan, x_pad))
+    xgs = [x_pad[seg["offsets"].long()[:, None]
+                 + torch.arange(seg["span"], device=dev)] for seg in plan]
+    lib_ms, _ = time_pair(
+        lambda: [torch.bmm(seg["slab"], g) for seg, g in zip(plan, xgs)],
+        lambda: cuda_banded.banded_matmul_cuda(plan, x_pad),
+    )
+    n_w = sum(seg["slab"].numel() for seg in plan)
+    n_out = sum(seg["slab"].shape[0] * seg["slab"].shape[1] for seg in plan)
+    b4_bound, b4_by = bound(4 * (n_w + x_pad.numel() + n_out * C + len(plan)),
+                            2.0 * n_w * C)
+    print(f"time B4 banded, {len(plan)} segments, {n_w} weights x {C} columns: "
+          f"kernel {b4_ms:.4f} ms ({4 * n_w / (b4_ms * 1e-3) / 1e12:.3f} TB/s of "
+          f"slab), plain {b4_plain:.4f} ms, library bmm (pre-gathered) "
+          f"{lib_ms:.4f} ms, bound {b4_bound:.4f} ms ({b4_by})")
+    k_ms, p_ms = time_pair(lambda: measurement.run(rec, sweep),
+                           lambda: plain(lambda: measurement.run(rec, sweep)))
+    audio_s = measurement.CHANNELS * T / fs
+    print(f"time {label}: kernels {k_ms:.4f} ms ({audio_s / (k_ms * 1e-3):.1f} "
+          f"audio-s/s), plain paths {p_ms:.4f} ms "
+          f"({audio_s / (p_ms * 1e-3):.1f} audio-s/s)")
+    return {"name": "banded_matmul", "route": "cuda",
+            "source": "dsptoolbox_tpu_torch/csrc/banded.cu",
+            "replaces": "dsptoolbox_tpu/ops/pallas_banded.py:43",
+            "launches": launched["banded"], "max_abs_err": b4_err,
+            "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound,
+            "bound_by": b4_by, "library_ms": lib_ms}
 
 
 def main() -> int:
@@ -379,6 +646,32 @@ def main() -> int:
                   f"({G * n_bins / (k_ms * 1e-3):.4g} point-bins/s), plain paths "
                   f"{p_ms:.4f} ms ({G * n_bins / (p_ms * 1e-3):.4g} point-bins/s)")
 
+    # 10-14. the transfer-function measurement path and B4
+    b4 = measurement_phase(dev, rng)
+
+    # bounds at the timed shapes. B1: x read, frames written, one multiply
+    # per frame sample. B2, per band: x·H in fp32, H lower-triangular
+    # Toeplitz, so L·(L+1)/2 FMAs per block; the state path in fp64 (x·M,
+    # the chain, s·G); x read, y written. B5: C (real and imaginary) read,
+    # the map written; Re(hᴴ C h) needs only C's Hermitian part, so
+    # 2·M² + 2·M FMAs per (point, bin) over its upper triangle, plus M² per
+    # bin to fold C into (C + Cᴴ)/2 once
+    b1_bound, b1_by = bound(4 * (x.numel() + BATCH * K * WINDOW + WINDOW),
+                            BATCH * K * WINDOW)
+    b2_bytes = b2_f32 = b2_f64 = 0.0
+    for args in lead_args:
+        Bb, Kb, Lb = args[4].shape
+        Nb = args[2].shape[0]
+        b2_bytes += 4 * 2 * Bb * Kb * Lb + 8 * Bb * Nb
+        b2_f32 += 2.0 * Bb * Kb * Lb * (Lb + 1) / 2
+        b2_f64 += 2.0 * Bb * Kb * (2 * Lb * Nb + Nb * Nb)
+    b2_bound, b2_by = bound(b2_bytes, b2_f32, b2_f64)
+    b5_bound, b5_by = bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
+                            2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
+    print(f"bounds (H100 SXM peaks): B1 {b1_bound:.4f} ms ({b1_by}), B2 four "
+          f"bands {b2_bound:.4f} ms ({b2_by}), B5 {b5_bound:.4f} ms ({b5_by}), "
+          f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
+
     report = {"kernels": [
         {"name": "windowed_frames", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
@@ -386,17 +679,21 @@ def main() -> int:
          "launches": launches["framing"] + das_launches["framing"],
          "launches_by_path": {"chain": launches["framing"],
                               "das": das_launches["framing"]},
-         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain},
+         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain,
+         "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_lead.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": launches["iir_lead"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain},
+         "ms": b2_ms, "plain_ms": b2_plain,
+         "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
         {"name": "das_map", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/das_map.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
          "launches": das_launches["das_map"], "max_abs_err": b5_err,
-         "ms": b5_ms, "plain_ms": b5_plain},
+         "ms": b5_ms, "plain_ms": b5_plain,
+         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": None},
+        b4,
     ]}
     print(json.dumps(report))
     print(card)

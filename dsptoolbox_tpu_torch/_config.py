@@ -4,6 +4,13 @@ Default dtypes are float32 / complex64, as in the JAX package; float64 mode
 (``set_default_float("float64")``) is for tight oracle comparisons and
 always takes the plain PyTorch paths, since the CUDA kernels are fp32 only.
 
+Default device: ``"cuda"``. A class built from numpy data (`Signal`,
+`ImpulseResponse`, `Spectrum`, the generators' signals) puts it on the
+``device`` it is given or, without one, on `default_device()`; a tensor
+keeps its own device. There is no fallback to the CPU: without a GPU,
+building from numpy without a device raises torch's own error unless
+``set_default_device("cpu")`` was called.
+
 Each hand-written kernel sits behind a switch with three values:
 
 - ``"auto"`` (default): a CUDA tensor goes to the kernel, a CPU tensor takes
@@ -43,10 +50,25 @@ def default_complex() -> torch.dtype:
     return _COMPLEX
 
 
+_DEVICE = "cuda"
+
+
+def set_default_device(device) -> None:
+    """Set the device that numpy data goes to when no device is given."""
+    global _DEVICE
+    _DEVICE = str(torch.device(device))
+
+
+def default_device() -> str:
+    """Device for numpy data built into a class without a device."""
+    return _DEVICE
+
+
 _MODES = ("auto", "on", "off")
 _FRAMING_KERNEL = "auto"
 _IIR_KERNEL = "auto"
 _DAS_KERNEL = "auto"
+_BANDED_KERNEL = "auto"
 
 
 def _check_mode(mode: str) -> str:
@@ -86,17 +108,29 @@ def das_kernel() -> str:
     return _DAS_KERNEL
 
 
+def set_banded_kernel(mode: str) -> None:
+    """Switch for the banded smoothing-operator kernel (`ops.cuda_banded`);
+    the port's counterpart of the JAX package's Pallas dispatch in
+    ``banded_apply``."""
+    global _BANDED_KERNEL
+    _BANDED_KERNEL = _check_mode(mode)
+
+
+def banded_kernel() -> str:
+    return _BANDED_KERNEL
+
+
 @contextmanager
 def kernels_off():
     """Every kernel switch "off" inside the block (the plain PyTorch
     paths); the previous modes are restored after it."""
-    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL
-    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL)
-    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = "off"
+    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL
+    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL)
+    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = _BANDED_KERNEL = "off"
     try:
         yield
     finally:
-        _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL = saved
+        _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL = saved
 
 
 def use_kernel(mode: str, x: torch.Tensor) -> bool:

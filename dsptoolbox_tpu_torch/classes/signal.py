@@ -1,27 +1,44 @@
 """Signal: the multichannel time-series container (`dsptoolbox_tpu/classes/signal.py`).
 
-A thin port: what the beamforming path needs. The time data lives on the
-device of the tensor it was given (numpy input lands on the CPU), stored
-channels-first ``(C, T)`` in the package's default float; the public
+A thin port: what the beamforming and transfer-function paths need. A
+tensor keeps its device; numpy data goes to the ``device`` given or, without
+one, to `_config.default_device()` ("cuda" unless changed). The data is
+stored channels-first ``(C, T)`` in the package's default float; the public
 ``time_data`` keeps the JAX package's ``(T, C)`` layout. The Welch CSM runs
 through `ops.spectral.csm_welch` (the framing kernel on a float32 CUDA
-tensor) and is cached on the spectrum parameters.
+tensor) and is cached on the spectrum parameters; `get_spectrum` computes
+the FFT (backward-normalised ``rfft``) or Welch spectrum on the data's
+device.
 
 Not ported yet: reading audio files (``path``), the lazy/deferred host
-returns, plots, the mesh-parallel CSM, and the spectrum methods other than
-Welch (`get_spectrum`, `get_spectrogram`, the FFT-method CSM).
+returns and the device-spectrum caches of a tunnelled backend, plots, the
+mesh-parallel CSM, the FFT-method CSM, spectrogram getters, and FFT spectra
+with ``smoothing != 0`` or a physical-unit scaling (they raise
+`NotImplementedError`).
 """
 
 from __future__ import annotations
 
+from copy import deepcopy
+from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
-from .._config import default_float
-from ..ops.spectral import csm_welch
+from .._config import default_complex, default_device, default_float
+from ..ops.fft_conv import next_fast_len
+from ..ops.spectral import csm_welch, welch
 from ..standard.enums import SpectrumMethod, SpectrumScaling, Window
+
+
+@lru_cache(maxsize=32)
+def rfft_freqs(n: int, sampling_rate_hz: int) -> np.ndarray:
+    """``np.fft.rfftfreq(n, 1 / fs)``, cached and read-only (a host build
+    of ``n // 2 + 1`` floats per spectrum otherwise)."""
+    f = np.fft.rfftfreq(n, 1 / sampling_rate_hz)
+    f.flags.writeable = False
+    return f
 
 
 class Signal:
@@ -39,7 +56,10 @@ class Signal:
         sampling_rate_hz: int | None = None,
         constrain_amplitude: bool = False,
         activate_cache: bool = False,
+        device=None,
     ):
+        """``device``: where numpy ``time_data`` goes (default:
+        `_config.default_device()`); a tensor keeps its own device."""
         if path is not None:
             raise NotImplementedError(
                 "reading audio files is not ported yet; pass time_data"
@@ -52,6 +72,7 @@ class Signal:
         self.constrain_amplitude = constrain_amplitude
         self.activate_cache = activate_cache
         self._cache: dict = {}
+        self._numpy_device = default_device() if device is None else device
         self.sampling_rate_hz = sampling_rate_hz
         self.time_data = time_data
         self.set_spectrum_parameters()
@@ -66,16 +87,20 @@ class Signal:
     @property
     def time_data(self) -> torch.Tensor:
         """Time data ``(T, C)``: a transposed view of the channels-first
-        tensor. Assign to ``time_data`` to change it; writing into the view
-        bypasses the CSM cache."""
+        tensor. Assign to ``time_data`` to change it (numpy data goes to
+        the signal's device); writing into the view bypasses the CSM
+        cache."""
         return self._x.T
 
     @time_data.setter
     def time_data(self, new_time_data):
         # the checks of the reference setter (`classes/signal.py:456-506`)
         if not isinstance(new_time_data, torch.Tensor):
-            new_time_data = np.ascontiguousarray(np.asarray(new_time_data))
-        td = torch.atleast_2d(torch.as_tensor(new_time_data)).squeeze()
+            arr = np.ascontiguousarray(np.asarray(new_time_data))
+            dev = self._x.device if hasattr(self, "_x") else self._numpy_device
+            dt = default_complex() if np.iscomplexobj(arr) else default_float()
+            new_time_data = torch.as_tensor(arr).to(device=dev, dtype=dt)
+        td = torch.atleast_2d(new_time_data).squeeze()
         assert td.ndim <= 2, (
             f"{td.ndim} are too many dimensions for time data. Dimensions "
             "should be [time samples, channels]"
@@ -140,6 +165,16 @@ class Signal:
         return self._x.shape[1]
 
     @property
+    def length_seconds(self) -> float:
+        return self.length_samples / self.sampling_rate_hz
+
+    @property
+    def time_vector_s(self) -> np.ndarray:
+        return np.linspace(
+            0, self.length_samples / self.sampling_rate_hz, self.length_samples
+        )
+
+    @property
     def device(self) -> torch.device:
         return self._x.device
 
@@ -183,6 +218,83 @@ class Signal:
     @property
     def spectrum_method(self) -> SpectrumMethod:
         return self._spectrum_parameters["method"]
+
+    @spectrum_method.setter
+    def spectrum_method(self, new_method: SpectrumMethod):
+        assert isinstance(new_method, SpectrumMethod)
+        self._spectrum_parameters["method"] = new_method
+
+    @property
+    def spectrum_scaling(self) -> SpectrumScaling:
+        return self._spectrum_parameters["scaling"]
+
+    @spectrum_scaling.setter
+    def spectrum_scaling(self, new_scaling: SpectrumScaling):
+        assert isinstance(new_scaling, SpectrumScaling)
+        self._spectrum_parameters["scaling"] = new_scaling
+
+    @property
+    def spectrum_smoothing(self) -> int:
+        return self._spectrum_parameters["smoothing"]
+
+    @spectrum_smoothing.setter
+    def spectrum_smoothing(self, new_smoothing):
+        self._spectrum_parameters["smoothing"] = new_smoothing
+
+    def clear_time_window(self) -> "Signal":
+        """Drop the time window an `ImpulseResponse` carries."""
+        if hasattr(self, "window"):
+            del self.window
+        return self
+
+    # ======== Spectrum ======================================================
+    def _spectrum_fft(self):
+        """``(freqs, spectrum (C, F))``: the backward-normalised rfft of the
+        real part (parity: the reference transforms ``self.time_data``, the
+        real part only, `classes/signal.py:906-911`), at
+        ``next_fast_len(T, True)`` when ``pad_to_fast_length`` is set."""
+        p = self._spectrum_parameters
+        if p["smoothing"] != 0:
+            raise NotImplementedError(
+                "spectrum smoothing (helpers/smoothing.py) is not ported yet"
+            )
+        if self.spectrum_scaling.has_physical_units():
+            raise NotImplementedError(
+                "physical-unit FFT scalings (spectrum_utilities.scale_spectrum) "
+                "are not ported yet"
+            )
+        n = (
+            next_fast_len(self.length_samples, True)
+            if p["pad_to_fast_length"]
+            else self.length_samples
+        )
+        sp = torch.fft.rfft(self._x, n=n, dim=-1,
+                            norm=self.spectrum_scaling.fft_norm())
+        return rfft_freqs(n, self.sampling_rate_hz), sp
+
+    def get_spectrum(self):
+        """``(freqs, spectrum)`` per the spectrum parameters
+        (`classes/signal.py:865-947`), on the data's device: the FFT method
+        gives a complex ``(F, C)`` spectrum; Welch a real one, ``(F,)`` for
+        a mono signal (parity: the reference's ``_welch`` squeezes its
+        input, `classes/signal.py:928-932`). Not cached."""
+        if self.spectrum_method == SpectrumMethod.FFT:
+            f, sp = self._spectrum_fft()
+            return f.copy(), sp.T
+        p = self._spectrum_parameters
+        sp = welch(
+            self._x,
+            sampling_rate_hz=self.sampling_rate_hz,
+            window_length_samples=p["window_length_samples"],
+            window_type=p["window_type"],
+            overlap_percent=p["overlap_percent"],
+            detrend=p["detrend"],
+            average=p["average"],
+            scaling=p["scaling"],
+        ).T
+        if self.number_of_channels == 1:
+            sp = sp[:, 0]
+        return rfft_freqs(p["window_length_samples"], self.sampling_rate_hz).copy(), sp
 
     def _spectrum_param_key(self) -> tuple:
         """Cache key of the CSM: the spectrum parameters (the cache is
@@ -235,11 +347,17 @@ class Signal:
         return f.copy(), csm.real, csm.imag
 
     # ======== Copies ========================================================
+    def copy(self) -> "Signal":
+        """A deep copy: the tensors are copied on their device."""
+        return deepcopy(self)
+
     def copy_with_new_time_data(self, new_time_data) -> "Signal":
         """A signal with this one's settings and new time data
-        (`classes/signal.py:1805`)."""
-        new_signal = Signal.from_time_data(
-            new_time_data, self.sampling_rate_hz, self.constrain_amplitude
+        (`classes/signal.py:1805`); numpy data goes to this signal's
+        device."""
+        new_signal = Signal(
+            None, new_time_data, self.sampling_rate_hz,
+            self.constrain_amplitude, device=self.device,
         )
         new_signal.activate_cache = self.activate_cache
         new_signal._spectrum_parameters = dict(self._spectrum_parameters)

@@ -1,4 +1,4 @@
-"""Typed option vocabulary of the spectral path, copied from
+"""Typed option vocabulary of the ported paths, copied from
 `dsptoolbox_tpu/standard/enums.py` (pure numpy/scipy, host-side).
 
 Members select code paths and host-side precomputation (window tables,
@@ -214,3 +214,23 @@ class Window(Enum):
         from scipy.signal.windows import get_window
 
         return get_window(self.to_scipy_format(), n_values, fftbins=not symmetric)
+
+
+class SpectrumType(Enum):
+    Power = auto()
+    Magnitude = auto()
+    Complex = auto()
+    Db = auto()
+
+
+class FrequencySpacing(Enum):
+    Logarithmic = auto()
+    Linear = auto()
+    Other = auto()
+
+
+class FadeType(Enum):
+    Linear = auto()
+    Exponential = auto()
+    Logarithmic = auto()
+    NoFade = auto()

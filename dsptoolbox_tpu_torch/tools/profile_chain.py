@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|tf|all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -12,6 +12,13 @@ the whole chain in both bank modes.
 (`tools.camera`, 64 mics, 900 points, 2 kHz third octave) on a 0.5 s ×
 16 kHz and a 10 s × 48 kHz recording: the map with the CSM cached, and CSM +
 map, each through the kernels and on the plain paths.
+
+``tf``: the transfer-function measurement path (`tools.measurement`: 16
+mics × 288,000 samples at 48 kHz → IRs → 65,536-sample windows → 1/3-octave
+smoothing over 32,769 bins): the plan's one-time host build and upload,
+the banded kernel (B4) against its plain version on the path's plan, and
+the whole path and its three steps, through the kernels and on the plain
+paths.
 
 For each case it prints the device time per kernel and per call, the host
 time per call (calls issued without waiting), the wall time per call, and
@@ -132,10 +139,53 @@ def profile_das(dev, runs: int) -> None:
         profile_call(f"{label}, CSM + map, plain paths", plain_paths(csm_and_map), runs)
 
 
+def profile_tf(dev, runs: int) -> None:
+    from ..ops import banded, cuda_banded
+    from ..standard.enums import Window
+    from ..transfer_functions import _backend as tf_backend
+    from ..transfer_functions import (
+        SmoothingDomain,
+        complex_smoothing,
+        spectral_deconvolve,
+        window_ir,
+    )
+    from . import measurement
+
+    freqs = np.fft.rfftfreq(measurement.IR_LENGTH, 1 / measurement.FS)
+    key = tf_backend._plan_key(freqs, measurement.OCTAVE_FRACTION, Window.Hann(3000, True))
+    t0 = time.perf_counter()
+    plan = tf_backend.device_banded_plan(key, torch.float32, dev)
+    torch.cuda.synchronize()
+    print(f"===== B4 plan (32769 bins, 1/3 octave): host build and upload "
+          f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (len(freqs) + max(seg["span"] for seg in plan), 2 * measurement.CHANNELS)
+    ).astype(np.float32)).to(dev)
+    for name, fn in (("kernel", cuda_banded.banded_matmul_cuda),
+                     ("plain", banded.banded_plan_plain)):
+        profile_call(f"B4 banded {name}, the path's plan (6 segments) x 32 columns",
+                     lambda fn=fn: fn(plan, x), runs)
+    sweep = measurement.excitation()
+    rec = measurement.recording(sweep, measurement.room_irs()[0])
+    ir = spectral_deconvolve(rec, sweep)
+    win, _ = window_ir(ir, measurement.IR_LENGTH, return_device=True)
+    steps = (
+        ("whole path", lambda: measurement.run(rec, sweep)),
+        ("spectral_deconvolve", lambda: spectral_deconvolve(rec, sweep)),
+        ("window_ir", lambda: window_ir(ir, measurement.IR_LENGTH, return_device=True)),
+        ("complex_smoothing", lambda: complex_smoothing(
+            win, measurement.OCTAVE_FRACTION, SmoothingDomain.RealImaginary)),
+    )
+    for label, fn in steps:
+        profile_call(f"TF {label}, kernels", fn, runs)
+        profile_call(f"TF {label}, plain paths", plain_paths(fn), runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "all"), default="all")
+    ap.add_argument("--case", choices=("chain", "das", "tf", "all"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: needs a CUDA device", file=sys.stderr)
@@ -147,13 +197,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for name in ("framing", "iir_lead", "das_map"):
+    for name in ("framing", "iir_lead", "das_map", "banded"):
         _cuda.load(name)
 
     dev = torch.device("cuda", 0)
     if args.case in ("das", "all"):
         profile_das(dev, args.runs)
-    if args.case == "das":
+    if args.case in ("tf", "all"):
+        profile_tf(dev, args.runs)
+    if args.case in ("das", "tf"):
         return 0
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((BATCH, T)).astype(np.float32)).to(dev)

@@ -31,6 +31,16 @@ from dsptoolbox_tpu_torch.standard.enums import SpectrumMethod, SpectrumScaling,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_default_device():
+    """The port's `Signal` puts numpy data on the default device, "cuda"
+    out of the box: these tests run on the CPU."""
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    yield
+    _config.set_default_device(old)
+
 FS = 16000
 FORMULATIONS = ["Classic", "Inverse", "TruePower", "TrueLocation"]
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (the measurement chain's shapes are covered by
-``chip_smoke.py``). Marked ``cuda``; they skip without a CUDA device.
+at small and ragged shapes, and B4 at the measurement path's plan (the
+paths' full widths are covered by ``chip_smoke.py``). Marked ``cuda``; they
+skip without a CUDA device.
 
 On a machine with a GPU (and without JAX, which tests/conftest.py imports):
 
@@ -15,7 +16,11 @@ from scipy.signal import butter, sosfilt, sosfilt_zi
 from dsptoolbox_tpu_torch import _config, headline
 from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.classes import Signal
-from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir, iir_block
+from dsptoolbox_tpu_torch.classes import ImpulseResponse
+from dsptoolbox_tpu_torch.ops import banded, cuda_banded, cuda_das, cuda_framing, cuda_iir, iir_block
+from dsptoolbox_tpu_torch.standard.enums import Window
+from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
+from dsptoolbox_tpu_torch.transfer_functions import _backend as tf_backend
 
 pytestmark = pytest.mark.cuda
 
@@ -32,8 +37,9 @@ def dev():
 
 
 def _rel(a, b):
-    a = torch.as_tensor(a).double().cpu()
-    b = torch.as_tensor(b).double().cpu()
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    dt = torch.complex128 if a.is_complex() or b.is_complex() else torch.float64
+    a, b = a.to(dt), b.to(dt)
     return float((a - b).abs().max()) / float(b.abs().max())
 
 
@@ -205,3 +211,121 @@ def test_das_public_map_on_card_matches_cpu(dev):
     got = maps[str(dev)]
     assert got.is_cuda and got.shape == (3, 5)
     assert _rel(got, maps["cpu"]) <= 1e-4
+
+
+def _segment(nb, tr, span, F, dev, rows=None):
+    return {"rows": nb * tr if rows is None else rows, "span": span,
+            "offsets": torch.from_numpy(
+                RNG.integers(0, F - span, nb).astype(np.int32)).to(dev),
+            "slab": torch.from_numpy(
+                RNG.standard_normal((nb, tr, span)).astype(np.float32)).to(dev)}
+
+
+# plans of (NB, TR, SPAN) segments on F x C: the JAX package's Pallas test
+# shape with C = 1, 2 and 5; SPAN not a multiple of 4 (4-byte copies); TR
+# not a multiple of the 64-row block; C above one 32-column block and not a
+# multiple of 4; a one-row tile; several segments, cut short, in one launch
+@pytest.mark.parametrize(
+    "segments,C,F",
+    [([(3, 128, 256)], 1, 1000), ([(3, 128, 256)], 2, 1000), ([(3, 128, 256)], 5, 1000),
+     ([(2, 50, 250)], 33, 700), ([(2, 128, 130)], 40, 500), ([(1, 1, 128)], 2, 300),
+     ([(4, 128, 640)], 32, 3000),
+     ([(2, 128, 256), (3, 128, 640), (1, 128, 384)], 32, 2000)],
+)
+def test_banded_kernel_matches_plain(dev, segments, C, F):
+    plan = [_segment(nb, tr, span, F, dev) for nb, tr, span in segments]
+    if len(plan) > 1:
+        plan[-1]["rows"] = 77
+    x = torch.from_numpy(RNG.standard_normal((F, C)).astype(np.float32)).to(dev)
+    before = cuda_banded.launches
+    got = banded.banded_apply(plan, x)
+    want = banded.banded_plan_plain(plan, x)
+    torch.cuda.synchronize()
+    assert cuda_banded.launches == before + 1
+    assert got.shape == want.shape == (sum(seg["rows"] for seg in plan), C)
+    # fp32 dot products of up to 640 terms in two summation orders: within
+    # 1e-5 of the sum of the terms' magnitudes (sqrt(640)·2^-24 ≈ 1.5e-6 per
+    # order, typically)
+    scale = banded.banded_plan_plain(
+        [dict(seg, slab=seg["slab"].abs()) for seg in plan], x.abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+
+
+def test_banded_wrapper_keeps_a_device_plans_launch_args(dev):
+    host = [{"rows": 300, "offsets": np.array([0, 40, 90], np.int32),
+             "slab": RNG.standard_normal((3, 128, 256)).astype(np.float32)}]
+    plan = banded.plan_to_torch(host, dev)
+    assert plan.launch_args is None
+    x = torch.from_numpy(RNG.standard_normal((400, 3)).astype(np.float32)).to(dev)
+    first = cuda_banded.banded_matmul_cuda(plan, x)
+    args = plan.launch_args
+    assert args is not None
+    second = cuda_banded.banded_matmul_cuda(plan, x * 2)
+    assert plan.launch_args is args
+    torch.cuda.synchronize()
+    assert torch.equal(second, 2 * first)
+    # the JAX package's Pallas-vs-XLA tolerance, as for the ragged shapes
+    assert float((first - banded.banded_plan_plain(plan, x)).abs().max()) <= 1e-4
+
+
+def test_banded_kernel_reads_past_x_as_zero(dev):
+    seg = {"rows": 4, "span": 256, "slab": torch.ones((1, 4, 256), device=dev),
+           "offsets": torch.tensor([50], dtype=torch.int32, device=dev)}
+    got = cuda_banded.banded_matmul_cuda([seg], torch.ones((100, 2), device=dev))
+    assert torch.equal(got, torch.full((4, 2), 50.0, device=dev))
+
+
+def test_banded_kernel_at_the_path_plan(dev):
+    """The plan of the measurement path's grid (32,769 bins, 1/3 octave:
+    six segments, 633 MB of slab) on 32 columns."""
+    freqs = np.fft.rfftfreq(65536, 1 / 48000)
+    key = tf_backend._plan_key(freqs, 3, Window.Hann(3000, True))
+    plan = tf_backend.device_banded_plan(key, torch.float32, dev)
+    assert [seg["span"] for seg in plan] == [640, 1152, 2048, 3968, 6912, 3584]
+    x = torch.from_numpy(
+        RNG.standard_normal((32769 + 6912, 32)).astype(np.float32)).to(dev)
+    got = cuda_banded.banded_matmul_cuda(plan, x)
+    want = banded.banded_plan_plain(plan, x)
+    torch.cuda.synchronize()
+    assert got.shape == (32769, 32)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_banded_switch_on_card(dev):
+    seg = _segment(1, 128, 128, 256, dev)
+    x = torch.ones(256, 2, device=dev)
+    before = cuda_banded.launches
+    _config.set_banded_kernel("on")
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            banded.banded_apply([{k: (v.cpu() if torch.is_tensor(v) else v)
+                                  for k, v in seg.items()}], x.cpu())
+        with pytest.raises(ValueError, match="float32"):
+            banded.banded_apply([dict(seg, slab=seg["slab"].double())], x.double())
+    finally:
+        _config.set_banded_kernel("auto")
+    _config.set_banded_kernel("off")
+    try:
+        out = banded.banded_apply([seg], x)
+    finally:
+        _config.set_banded_kernel("auto")
+    assert cuda_banded.launches == before and out.is_cuda
+    # float64 under "auto": the plain version
+    banded.banded_apply([dict(seg, slab=seg["slab"].double())], x.double())
+    assert cuda_banded.launches == before
+
+
+@pytest.mark.parametrize("domain", ["RealImaginary", "Magnitude", "EquivalentComplex"])
+def test_complex_smoothing_on_card_matches_cpu(dev, domain):
+    t = np.arange(16384)
+    td = 0.1 * RNG.standard_normal((16384, 3)) * np.exp(-t / 500.0)[:, None]
+    td[30] += 0.9
+    got_spec = {}
+    for where in ("cpu", dev):
+        ir = ImpulseResponse(None, torch.from_numpy(td.astype(np.float32)).to(where), 48000)
+        before = cuda_banded.launches
+        got_spec[str(where)] = complex_smoothing(ir, 3, getattr(SmoothingDomain, domain))
+        assert (cuda_banded.launches == before) == (where == "cpu")
+    got = got_spec[str(dev)].spectral_data
+    assert got.is_cuda and got.shape == (8193, 3)
+    assert _rel(got, got_spec["cpu"].spectral_data) <= 1e-4

@@ -13,8 +13,10 @@ import torch
 
 import dsptoolbox_tpu_torch as dtt
 from dsptoolbox_tpu_torch import _config, headline
-from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir
+from dsptoolbox_tpu_torch.classes import ImpulseResponse, Signal, Spectrum
+from dsptoolbox_tpu_torch.ops import banded, cuda_banded, cuda_das, cuda_framing, cuda_iir
 from dsptoolbox_tpu_torch.tools import camera
+from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
 
 torch.set_num_threads(1)
 
@@ -29,7 +31,8 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch, dsptoolbox_tpu_torch.headline\n"
         "import dsptoolbox_tpu_torch.ops.spectral, dsptoolbox_tpu_torch.ops.iir\n"
         "import dsptoolbox_tpu_torch.beamforming, dsptoolbox_tpu_torch.classes\n"
-        "import dsptoolbox_tpu_torch.tools.camera\n"
+        "import dsptoolbox_tpu_torch.tools.camera, dsptoolbox_tpu_torch.tools.measurement\n"
+        "import dsptoolbox_tpu_torch.transfer_functions, dsptoolbox_tpu_torch.generators\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
         "assert not bad, bad\n"
@@ -87,9 +90,13 @@ def test_cpu_tensors_never_launch_kernels():
     g = camera.grid()
     sig = camera.array_signal(0.05, 16000, "cpu", g)
     assert camera.beamformer(sig, g).get_beamformer_map(2000, 3).shape == (30, 30)
+    cuda_banded.launches = 0
+    ir = ImpulseResponse(None, torch.from_numpy(rng.standard_normal((8192, 2)) * 0.1), 48000)
+    assert complex_smoothing(ir, 3, SmoothingDomain.RealImaginary).spectral_data.shape == (4097, 2)
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
     assert cuda_das.launches == 0
+    assert cuda_banded.launches == 0
 
 
 def test_switch_on_refuses_cpu_tensor():
@@ -101,6 +108,17 @@ def test_switch_on_refuses_cpu_tensor():
             cuda_framing.windowed_frames(x, win, 32, False)
     finally:
         _config.set_framing_kernel("auto")
+    seg = {"rows": 128, "span": 128, "offsets": torch.zeros(1, dtype=torch.int32),
+           "slab": torch.ones(1, 128, 128)}
+    _config.set_banded_kernel("on")
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            banded.banded_apply([seg], torch.ones(256, 2))
+        with pytest.raises(ValueError, match="float32"):
+            banded.banded_apply([dict(seg, slab=seg["slab"].double())],
+                                torch.ones(256, 2, dtype=torch.float64))
+    finally:
+        _config.set_banded_kernel("auto")
     with pytest.raises(ValueError):
         dtt.set_iir_kernel("fast")
 
@@ -110,9 +128,10 @@ def test_kernels_off_restores_every_switch():
     try:
         with _config.kernels_off():
             assert (_config.framing_kernel(), _config.iir_kernel(),
-                    _config.das_kernel()) == ("off", "off", "off")
+                    _config.das_kernel(), _config.banded_kernel()) == ("off",) * 4
         assert (_config.framing_kernel(), _config.iir_kernel(),
-                _config.das_kernel()) == ("auto", "on", "auto")
+                _config.das_kernel(), _config.banded_kernel()) == (
+                    "auto", "on", "auto", "auto")
     finally:
         _config.set_iir_kernel("auto")
 
@@ -128,3 +147,26 @@ def test_default_dtypes_and_float64_mode():
         dtt.set_default_float("float32")
     with pytest.raises(ValueError):
         dtt.set_default_float("bfloat16")
+
+
+def test_default_device_is_cuda_and_numpy_follows_it():
+    assert dtt.default_device() == "cuda"
+    x = np.zeros((64, 2), np.float32)
+    x[3] = 0.5
+    dtt.set_default_device("cpu")
+    try:
+        assert Signal(None, x, 48000).device.type == "cpu"
+        assert ImpulseResponse(None, x, 48000).device.type == "cpu"
+        assert Spectrum(np.arange(64.0), x).device.type == "cpu"
+    finally:
+        dtt.set_default_device("cuda")
+    assert dtt.default_device() == "cuda"
+    # an explicit device ignores the default, and a tensor keeps its own
+    assert Signal(None, x, 48000, device="cpu").device.type == "cpu"
+    assert ImpulseResponse(None, x, 48000, device="cpu").device.type == "cpu"
+    assert Spectrum(np.arange(64.0), x, device="cpu").device.type == "cpu"
+    assert Signal(None, torch.from_numpy(x), 48000).device.type == "cpu"
+    if not torch.cuda.is_available():
+        # no fallback to the CPU: numpy data without a device goes to "cuda"
+        with pytest.raises((AssertionError, RuntimeError)):
+            Signal(None, x, 48000)
