@@ -3,13 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
-``nvcc`` per source, started together) and drives the port's two paths:
+``nvcc`` per source, started together) and drives the port's paths:
 
 - the measurement chain (`dsptoolbox_tpu_torch.headline.run`: 16 signals ×
-  8 s at 48 kHz, STFT + 4-band crossover + deconvolution): the framing (B1)
-  and IIR lead (B2) kernels are held against their plain PyTorch versions
-  at the chain's shapes, the chain against the same chain on the plain
-  paths and against scipy/numpy in float64;
+  8 s at 48 kHz, STFT + 4-band crossover + deconvolution; ``per_band``
+  runs B1 + B2, ``banked`` B1 + B3): the framing (B1) and IIR lead (B2)
+  kernels are held against their plain PyTorch versions at the chain's
+  shapes, the chain against the same chain on the plain paths and against
+  scipy/numpy in float64;
 - the acoustic-camera DAS map (`dsptoolbox_tpu_torch.tools.camera`: 64 mics,
   900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
   a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
@@ -22,12 +23,20 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   path's plan and ragged shapes, the path against the plain paths, a
   float64 numpy deconvolution, the float64 host smoothing and the known
   propagation delays; 1/6 octave and the MagnitudePhase and
-  EquivalentComplex domains against the float64 host smoothing too.
+  EquivalentComplex domains against the float64 host smoothing too;
+- the filter-bank path (`dsptoolbox_tpu_torch.tools.filterbank_chain`,
+  config 3: 64 channels × 10 s at 44.1 kHz through an LR crossover, the
+  16-band gammatone bank, resampling to fs/3 and the 28-band 1/3-octave
+  bank): the filter-bank kernel (B3) is held against its plain version at
+  both banks' shapes and ragged shapes, every band against scipy's float64
+  sosfilt on 4 channels, the path and a gammatone reconstruction against
+  the plain paths.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
-3.35 TB/s and its operations over 67 TFLOP/s fp32 or 34 TFLOP/s fp64, the
-H100 SXM's peaks), the card's name and power limit, and as its last line
+3.35 TB/s and its operations over 67 TFLOP/s fp32, 34 TFLOP/s fp64 or, for
+fp64 matrix products, 67 TFLOP/s on the fp64 tensor cores: the H100 SXM's
+peaks), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero; without a CUDA device it exits with code 2 before doing
 anything.
@@ -50,7 +59,7 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
-KERNELS = ("framing", "iir_lead", "das_map", "banded")
+KERNELS = ("framing", "iir_lead", "das_map", "banded", "iir_bank")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes
@@ -59,10 +68,11 @@ DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
 BANDED_RAGGED = ((3, 128, 256, 5, 1000), (2, 50, 250, 33, 700))
 # H100 SXM peaks (NVIDIA data sheet): device memory, fp32 and fp64 outside
-# the tensor cores
+# the tensor cores, fp64 on the tensor cores (dense matrix products)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 FP64_FLOP_S = 34e12
+FP64_TC_FLOP_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -90,11 +100,15 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def bound(n_bytes: float, fp32_flop: float, fp64_flop: float = 0.0) -> tuple:
+def bound(n_bytes: float, fp32_flop: float, fp64_flop: float = 0.0,
+          fp64_mm_flop: float = 0.0) -> tuple:
     """``(bound_ms, bound_by)``: the larger of the bytes' time at the
-    device-memory rate and the operations' time at the peak rates."""
+    device-memory rate and the operations' time at the peak rates;
+    ``fp64_mm_flop`` counts fp64 matrix products, at the tensor cores'
+    rate, ``fp64_flop`` the other fp64 work."""
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = fp32_flop / FP32_FLOP_S + fp64_flop / FP64_FLOP_S
+    t_ops = (fp32_flop / FP32_FLOP_S + fp64_flop / FP64_FLOP_S
+             + fp64_mm_flop / FP64_TC_FLOP_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -142,6 +156,7 @@ def measurement_phase(dev, rng) -> dict:
         cuda_das,
         cuda_framing,
         cuda_iir,
+        cuda_iir_bank,
     )
     from dsptoolbox_tpu_torch.helpers.other import unwrap
     from dsptoolbox_tpu_torch.standard.enums import Window
@@ -214,8 +229,8 @@ def measurement_phase(dev, rng) -> dict:
     irs, delays = measurement.room_irs()
     rec = measurement.recording(sweep, irs)
     torch.cuda.synchronize()
-    modules = {"framing": cuda_framing, "iir_lead": cuda_iir,
-               "das_map": cuda_das, "banded": cuda_banded}
+    modules = {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
+               "banded": cuda_banded, "iir_bank": cuda_iir_bank}
     for m in modules.values():
         m.launches = 0
     ir, win, starts, sm = measurement.run(rec, sweep)
@@ -369,6 +384,244 @@ def measurement_phase(dev, rng) -> dict:
             "bound_by": b4_by, "library_ms": lib_ms}
 
 
+def bank_ragged() -> list:
+    """B3's ragged cases ``(label, bank, R, T)``: B = 1 and 5 complex, R =
+    1 and 3, T = 3000 and 5000 (not multiples of 128), a 16-section real
+    bank (32 state lanes), a 6-section complex bank (24 lanes), a short
+    input (T = 1000, 7 blocks), and a 9-section complex bank (36 lanes: its
+    first 8 sections in one B3 stage, the last one per band in another)."""
+    import numpy as np
+    from scipy.signal import butter
+
+    def cplx(n_bands, sections, radius=0.95):
+        poles = radius * np.exp(1j * np.linspace(0.1, 1.0, n_bands * sections))
+        bank = np.zeros((n_bands, sections, 6), np.complex128)
+        bank[:, :, 0], bank[:, :, 3] = 0.3, 1.0
+        bank[:, :, 4] = -poles.reshape(n_bands, sections)
+        return bank
+
+    real16 = np.stack([np.concatenate([butter(2, f, output="sos")
+                                       for f in np.linspace(0.05 + 0.02 * b, 0.8, 16)])
+                       for b in range(2)])
+    return [("complex B=1", cplx(1, 4), 1, 3000), ("complex B=5", cplx(5, 4), 3, 5000),
+            ("real 16 sections", real16, 3, 3000), ("complex 6 sections", cplx(3, 6), 1, 5000),
+            ("complex T=1000", cplx(2, 4), 2, 1000),
+            ("complex 9 sections (split)", cplx(2, 9, 0.9), 2, 3077)]
+
+
+def bank_bound(ops: dict, R: int) -> tuple:
+    """Bytes, fp32, serial fp64 and fp64 matrix-product operations that B3
+    needs for the full blocks of ``R`` rows: x read and every band's planes
+    written once, plus the operators; x·h over the Toeplitz triangle,
+    L·(L+1)/2 FMAs per block and plane; in fp64 over the real state lanes,
+    the chain (Ns² FMAs per block, serial) and the products x·M and s·G
+    (dense, for the fp64 tensor cores)."""
+    k = ops["kernel"]
+    P, B, L = k["h"].shape
+    Ns = k["lanes"]
+    blocks = R * ops["n_full"]
+    n_bytes = (4 * blocks * L * (1 + P * B) + 4 * k["h"].numel()
+               + 8 * (k["M"].numel() + k["A"].numel() + k["G"].numel()))
+    fp32 = 2.0 * P * B * blocks * L * (L + 1) / 2
+    chain = 2.0 * B * blocks * Ns * Ns
+    products = 2.0 * B * blocks * (L * Ns + P * L * Ns)
+    return n_bytes, fp32, chain, products
+
+
+def filterbank_phase(dev, rng) -> dict:
+    """B3 and the filter-bank path (config 3) at full width; returns B3's
+    entry of the kernels report."""
+    import numpy as np
+    import torch
+    from scipy.signal import sosfilt as scipy_sosfilt
+
+    from dsptoolbox_tpu_torch.filterbanks import auditory_filters_gammatone
+    from dsptoolbox_tpu_torch.ops import (
+        cuda_banded,
+        cuda_das,
+        cuda_framing,
+        cuda_iir,
+        cuda_iir_bank,
+        iir_block,
+    )
+    from dsptoolbox_tpu_torch.classes.filterbank import _sos_bank_or_none
+    from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
+    from dsptoolbox_tpu_torch.tools import filterbank_chain as fc
+
+    # 15. the configuration: host designs (set-up) and the recording
+    fs = fc.FS
+    t0 = time.perf_counter()
+    lr, gt, third = fc.banks(fs)
+    sig = fc.signal(device=dev)
+    torch.cuda.synchronize()
+    C, T = sig.number_of_channels, sig.length_samples
+    print(f"set-up: config-3 banks and {C} x {T} recording: "
+          f"{time.perf_counter() - t0:.3f} s")
+    x = sig._x  # (C, T) float32
+
+    # 16. B3 vs plain at the path's two banks (64 x 441,000) and ragged
+    # shapes. Tolerance: B2's (fp32 Toeplitz sums in two orders, fp64 state)
+    banks = {"gammatone": _sos_bank_or_none(gt.filters),
+             "third_octave": _sos_bank_or_none(third.filters)}
+    b3_err = 0.0
+    b3_ops = {}
+
+    def check(label, bank, xin):
+        nonlocal b3_err
+        Tn = xin.shape[-1]
+        ops, rest = iir_block.bank_kernel_stages(bank, Tn, dev)
+        P = 2 if np.iscomplexobj(bank) else 1
+        lead = ops["n_full"] * ops["L"]
+        out_k = torch.empty((P, len(bank), xin.shape[0], Tn), device=dev)
+        out_p = torch.empty_like(out_k)
+        s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, xin, out_k)
+        s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, xin, out_p)
+        torch.cuda.synchronize()
+        y_err = float((out_k[..., :lead] - out_p[..., :lead]).abs().max())
+        y_scale = float(out_p[..., :lead].abs().max())
+        z_err = float((s_k - s_p).abs().max())
+        z_scale = max(1.0, float(s_p.abs().max()))
+        print(f"B3 bank {label} (P, B, R, T) = {tuple(out_k.shape)}, "
+              f"{ops['kernel']['lanes']} lanes: |dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
+              f"|dzf| {z_err:.3e} <= 1e-6*{z_scale:.3e}")
+        if not (y_err <= 1e-5 * y_scale and z_err <= 1e-6 * z_scale):
+            fail(f"bank kernel disagrees with its plain version ({label})")
+        b3_err = max(b3_err, y_err)
+        if rest:
+            # a split cascade: the whole route, every stage through B3,
+            # against the whole bank's plain version
+            whole = iir_block.bank_device_operators(bank, Tn, torch.float32, dev)
+            err = rel_err(iir_block.sosfilt_bank_apply(whole, xin),
+                          plain(lambda: iir_block.sosfilt_bank_apply(whole, xin)))
+            print(f"B3 bank {label}: {len(rest[0])} more stage(s) per band; route vs "
+                  f"plain scale-rel {err:.3e} (tol 1e-5)")
+            if not err <= 1e-5:
+                fail(f"the bank's staged route disagrees with its plain version ({label})")
+        return ops
+
+    for name, bank in banks.items():
+        b3_ops[name] = check(name, bank, x)
+    for label, bank, R, Tn in bank_ragged():
+        xr = torch.from_numpy(rng.standard_normal((R, Tn)).astype(np.float32)).to(dev)
+        check(label, bank, xr)
+
+    # 17. the path at full width, counted: every kernel's count set to 0
+    # just before and read just after
+    modules = {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
+               "banded": cuda_banded, "iir_bank": cuda_iir_bank}
+    for m in modules.values():
+        m.launches = 0
+    out = fc.run(sig, lr, gt, third)
+    torch.cuda.synchronize()
+    launched = {name: m.launches for name, m in modules.items()}
+    label = f"config-3 path {C} ch x {T} samples"
+    print(f"{label}: launches {launched}")
+    if launched["iir_bank"] < 2:
+        fail("the filter-bank path did not run the bank kernel for both banks")
+    lr_b, gt_b, res, third_b = out
+    shapes = (("LR", lr_b, 4, False), ("gammatone", gt_b, len(gt.filters), True),
+              ("1/3 octave", third_b, len(third.filters), False))
+    for name, mb, n, cplx in shapes:
+        if (mb.number_of_bands != n or mb.is_complex_signal != cplx
+                or tuple(mb.bands[0].time_data.shape) != (T, C)):
+            fail(f"{label} {name}: {mb.number_of_bands} bands, shape "
+                 f"{tuple(mb.bands[0].time_data.shape)}")
+        if not all(bool(torch.isfinite(b._x).all()) for b in mb.bands):
+            fail(f"{label} {name}: non-finite output")
+    if tuple(res.time_data.shape) != (T // 3, C) or res.sampling_rate_hz != fs // 3:
+        fail(f"{label} resample: shape {tuple(res.time_data.shape)}")
+
+    # every band against scipy's float64 sosfilt on 4 of the 64 channels
+    ch = sorted({0, C // 3, 2 * C // 3, C - 1})  # 0, 21, 42, 63 at 64 channels
+    x64 = x[ch].double().cpu().numpy()
+    t0 = time.perf_counter()
+    worst = {}
+    for name, mb, bank in (("gammatone", gt_b, banks["gammatone"]),
+                           ("1/3 octave", third_b, banks["third_octave"])):
+        for b, band in enumerate(mb.bands):
+            got = band._x[ch]
+            if band.is_complex_signal:
+                got = torch.complex(got, band._x_imag[ch])
+            err = rel_err(got, scipy_sosfilt(bank[b], x64, axis=-1))
+            worst[name] = max(worst.get(name, 0.0), err)
+    print(f"{label} bands vs scipy f64 sosfilt on channels {ch} "
+          f"({time.perf_counter() - t0:.1f} s on the host): worst scale-rel "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + " (tol 5e-6)")
+    if not max(worst.values()) <= 5e-6:
+        fail("a band disagrees with scipy's float64 sosfilt")
+
+    # the chain against the same chain on the plain paths
+    ref = plain(lambda: fc.run(sig, lr, gt, third))
+    for name, got, want in (
+        ("LR", lr_b, ref[0]), ("gammatone", gt_b, ref[1]), ("1/3 octave", third_b, ref[3]),
+    ):
+        err = max(rel_err(g._x if g._x_imag is None else torch.complex(g._x, g._x_imag),
+                          w._x if w._x_imag is None else torch.complex(w._x, w._x_imag))
+                  for g, w in zip(got.bands, want.bands))
+        print(f"{label} {name} vs plain paths: worst band scale-rel {err:.3e} (tol 2e-5)")
+        if not err <= 2e-5:
+            fail(f"{label}: {name} disagrees with the plain paths")
+    err = rel_err(res._x, ref[2]._x)
+    print(f"{label} resample vs plain paths: scale-rel {err:.3e} (tol 2e-5)")
+    if not err <= 2e-5:
+        fail(f"{label}: resample disagrees with the plain paths")
+    del ref
+
+    # 18. reconstruct. At 44.1 kHz the config's 500-4000 Hz bank has
+    # non-finite phase factors above ~2 kHz (the band responses' last
+    # samples underflow in float64), as in the JAX package and the
+    # reference, so its synthesis is not finite; the 10-band 500-2000 Hz
+    # bank's is, and is held against the plain paths at the bound of
+    # tests/test_filterbanks.py::TestGammatone::test_reconstruct_roundtrip
+    n_bad = int((~np.isfinite(gt._phase_factors)).sum())
+    print(f"gammatone 500-4000 Hz at {fs} Hz: {n_bad} of {len(gt.filters)} phase factors "
+          f"non-finite, gains finite: {bool(np.isfinite(gt._gains).all())}")
+    gt2 = auditory_filters_gammatone([500.0, 2000.0], sampling_rate_hz=fs)
+    rec = gt2.reconstruct(gt2.filter_signal(sig, FilterBankMode.Parallel))
+    rec_p = plain(lambda: gt2.reconstruct(gt2.filter_signal(sig, FilterBankMode.Parallel)))
+    err = rel_err(rec._x, rec_p._x)
+    finite = bool(torch.isfinite(rec._x).all())
+    print(f"gammatone 500-2000 Hz ({len(gt2.filters)} bands) reconstruct vs plain paths: "
+          f"scale-rel {err:.3e} (tol 2e-4), finite {finite}")
+    if not (err <= 2e-4 and finite):
+        fail("the gammatone reconstruction disagrees with the plain paths")
+
+    # 19. times: B3 and its plain version at the path's two banks; the
+    # chain through the kernels and on the plain paths
+    b3 = {"ms": 0.0, "plain_ms": 0.0}
+    n_bytes = fp32 = fp64 = fp64_mm = 0.0
+    for name, ops in b3_ops.items():
+        P = 2 if ops["HmatT"].is_complex() else 1
+        buf = torch.empty((P, ops["HmatT"].shape[0], C, T), device=dev)
+        k_ms, p_ms = time_pair(lambda: cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, buf),
+                               lambda: cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, buf),
+                               n=10, warm=2)
+        nb, f32, f64, f64_mm = bank_bound(ops, C)
+        one, by = bound(nb, f32, f64, f64_mm)
+        n_bytes, fp32, fp64, fp64_mm = n_bytes + nb, fp32 + f32, fp64 + f64, fp64_mm + f64_mm
+        b3["ms"] += k_ms
+        b3["plain_ms"] += p_ms
+        b3[f"ms_{name}"] = k_ms
+        print(f"time B3 bank {name} (P, B, R, K, L) = "
+              f"{(P, ops['HmatT'].shape[0], C, ops['n_full'], ops['L'])}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {one:.4f} ms ({by})")
+        del buf
+    b3_bound, b3_by = bound(n_bytes, fp32, fp64, fp64_mm)
+    k_ms, p_ms = time_pair(lambda: fc.run(sig, lr, gt, third),
+                           lambda: plain(lambda: fc.run(sig, lr, gt, third)), n=10, warm=2)
+    audio_s = C * T / fs
+    print(f"time {label} (LR + gammatone B3 + resample + 1/3 octave B3): kernels "
+          f"{k_ms:.4f} ms ({audio_s / (k_ms * 1e-3):.1f} audio-s/s), plain paths "
+          f"{p_ms:.4f} ms ({audio_s / (p_ms * 1e-3):.1f} audio-s/s)")
+    return {"name": "sosfilt_bank", "route": "cuda",
+            "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
+            "replaces": "dsptoolbox_tpu/ops/pallas_iir_bank.py:267",
+            "launches": launched["iir_bank"], "max_abs_err": b3_err,
+            "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3_bound,
+            "bound_by": b3_by, "library_ms": None,
+            "ms_by_bank": {k: b3[f"ms_{k}"] for k in b3_ops}}
+
+
 def main() -> int:
     import torch
 
@@ -383,7 +636,7 @@ def main() -> int:
 
     from dsptoolbox_tpu_torch import _config, _cuda, headline
     from dsptoolbox_tpu_torch.beamforming import SteeringVector, SteeringVectorType
-    from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir
+    from dsptoolbox_tpu_torch.ops import cuda_das, cuda_framing, cuda_iir, cuda_iir_bank
     from dsptoolbox_tpu_torch.tools import camera
     from dsptoolbox_tpu_torch.ops.framing import compute_number_frames
     from dsptoolbox_tpu_torch.ops.iir_block import (
@@ -482,14 +735,20 @@ def main() -> int:
     exc = torch.fft.rfft(
         torch.from_numpy(rng.standard_normal(T).astype(np.float32)).to(dev)
     )
-    cuda_framing.launches = 0
-    cuda_iir.launches = 0
-    out = {bank: headline.run(x, exc, bank=bank) for bank in ("per_band", "banked")}
-    torch.cuda.synchronize()
-    launches = {"framing": cuda_framing.launches, "iir_lead": cuda_iir.launches}
-    print(f"launches in the chain: {launches}")
-    if not all(v > 0 for v in launches.values()):
-        fail("the chain did not go through every kernel")
+    # per_band runs B1 + B2, banked B1 + B3
+    chain_kernels = {"per_band": ("framing", "iir_lead"), "banked": ("framing", "iir_bank")}
+    counted = {"framing": cuda_framing, "iir_lead": cuda_iir, "iir_bank": cuda_iir_bank}
+    out, chain_launches = {}, {}
+    for bank in chain_kernels:
+        for m in counted.values():
+            m.launches = 0
+        out[bank] = headline.run(x, exc, bank=bank)
+        torch.cuda.synchronize()
+        chain_launches[bank] = {name: m.launches for name, m in counted.items()}
+    launches = {name: sum(c[name] for c in chain_launches.values()) for name in counted}
+    print(f"launches in the chain: {chain_launches}")
+    if not all(chain_launches[bank][k] > 0 for bank, ks in chain_kernels.items() for k in ks):
+        fail("the chain did not go through every kernel (per_band: B1 + B2, banked: B1 + B3)")
 
     ref = {bank: plain(lambda: headline.run(x, exc, bank=bank)) for bank in out}
     shapes = ((BATCH,), (BATCH, 4, T), (BATCH, T))
@@ -537,12 +796,13 @@ def main() -> int:
     print(f"time B2 lead, four bands: kernel {b2_ms:.4f} ms, plain {b2_plain:.4f} ms")
 
     audio_s = BATCH * SECONDS
-    for bank in ("per_band", "banked"):
+    for bank, ks in chain_kernels.items():
         k_ms, p_ms = time_pair(
             lambda: headline.run(x, exc, bank=bank),
             lambda: plain(lambda: headline.run(x, exc, bank=bank)),
         )
-        print(f"time chain {bank}: kernels {k_ms:.4f} ms "
+        names = " + ".join({"framing": "B1", "iir_lead": "B2", "iir_bank": "B3"}[k] for k in ks)
+        print(f"time chain {bank} ({names}): kernels {k_ms:.4f} ms "
               f"({audio_s / (k_ms * 1e-3):.1f} audio-s/s), plain paths "
               f"{p_ms:.4f} ms ({audio_s / (p_ms * 1e-3):.1f} audio-s/s)")
 
@@ -649,28 +909,37 @@ def main() -> int:
     # 10-14. the transfer-function measurement path and B4
     b4 = measurement_phase(dev, rng)
 
+    # 15-19. the filter-bank path (config 3) and B3
+    b3 = filterbank_phase(dev, rng)
+    b3_chain = chain_launches["banked"]["iir_bank"]
+    b3["launches_by_path"] = {"chain_banked": b3_chain, "config3": b3["launches"]}
+    b3["launches"] += b3_chain
+
     # bounds at the timed shapes. B1: x read, frames written, one multiply
     # per frame sample. B2, per band: x·H in fp32, H lower-triangular
-    # Toeplitz, so L·(L+1)/2 FMAs per block; the state path in fp64 (x·M,
-    # the chain, s·G); x read, y written. B5: C (real and imaginary) read,
+    # Toeplitz, so L·(L+1)/2 FMAs per block; the state path in fp64 (the
+    # serial chain, and x·M and s·G as products for the fp64 tensor cores);
+    # x read, y written. B5: C (real and imaginary) read,
     # the map written; Re(hᴴ C h) needs only C's Hermitian part, so
     # 2·M² + 2·M FMAs per (point, bin) over its upper triangle, plus M² per
     # bin to fold C into (C + Cᴴ)/2 once
     b1_bound, b1_by = bound(4 * (x.numel() + BATCH * K * WINDOW + WINDOW),
                             BATCH * K * WINDOW)
-    b2_bytes = b2_f32 = b2_f64 = 0.0
+    b2_bytes = b2_f32 = b2_f64 = b2_f64_mm = 0.0
     for args in lead_args:
         Bb, Kb, Lb = args[4].shape
         Nb = args[2].shape[0]
         b2_bytes += 4 * 2 * Bb * Kb * Lb + 8 * Bb * Nb
         b2_f32 += 2.0 * Bb * Kb * Lb * (Lb + 1) / 2
-        b2_f64 += 2.0 * Bb * Kb * (2 * Lb * Nb + Nb * Nb)
-    b2_bound, b2_by = bound(b2_bytes, b2_f32, b2_f64)
+        b2_f64 += 2.0 * Bb * Kb * Nb * Nb
+        b2_f64_mm += 2.0 * Bb * Kb * 2 * Lb * Nb
+    b2_bound, b2_by = bound(b2_bytes, b2_f32, b2_f64, b2_f64_mm)
     b5_bound, b5_by = bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
                             2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
     print(f"bounds (H100 SXM peaks): B1 {b1_bound:.4f} ms ({b1_by}), B2 four "
           f"bands {b2_bound:.4f} ms ({b2_by}), B5 {b5_bound:.4f} ms ({b5_by}), "
-          f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']})")
+          f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']}), B3 two banks "
+          f"{b3['bound_ms']:.4f} ms ({b3['bound_by']})")
 
     report = {"kernels": [
         {"name": "windowed_frames", "route": "cuda",
@@ -687,6 +956,7 @@ def main() -> int:
          "launches": launches["iir_lead"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
+        b3,
         {"name": "das_map", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/das_map.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",

@@ -8,7 +8,8 @@ the input tensor. The classes put numpy data on ``device`` or, without
 one, on `default_device()` ("cuda" unless `set_default_device` changed it).
 
 Hand-written CUDA kernels replace the JAX package's Pallas kernels
-(`ops.cuda_framing`, `ops.cuda_iir`, `ops.cuda_das`, `ops.cuda_banded`). They are compiled
+(`ops.cuda_framing`, `ops.cuda_iir`, `ops.cuda_iir_bank`, `ops.cuda_das`,
+`ops.cuda_banded`). They are compiled
 from ``csrc/`` at first use on a CUDA tensor; a CPU tensor always takes the
 plain PyTorch version, so importing this package needs neither ``nvcc`` nor
 a GPU.
@@ -18,6 +19,7 @@ from ._config import (
     default_complex,
     default_device,
     default_float,
+    set_bank_kernel,
     set_banded_kernel,
     set_das_kernel,
     set_default_device,
@@ -30,6 +32,7 @@ __all__ = [
     "default_complex",
     "default_device",
     "default_float",
+    "set_bank_kernel",
     "set_banded_kernel",
     "set_das_kernel",
     "set_default_device",

@@ -2,7 +2,8 @@
 
 Default dtypes are float32 / complex64, as in the JAX package; float64 mode
 (``set_default_float("float64")``) is for tight oracle comparisons and
-always takes the plain PyTorch paths, since the CUDA kernels are fp32 only.
+takes the plain PyTorch paths, since the CUDA kernels are fp32 only; on a
+CUDA tensor the filter bank raises for it unless its switch is "off".
 
 Default device: ``"cuda"``. A class built from numpy data (`Signal`,
 `ImpulseResponse`, `Spectrum`, the generators' signals) puts it on the
@@ -69,6 +70,7 @@ _FRAMING_KERNEL = "auto"
 _IIR_KERNEL = "auto"
 _DAS_KERNEL = "auto"
 _BANDED_KERNEL = "auto"
+_BANK_KERNEL = "auto"
 
 
 def _check_mode(mode: str) -> str:
@@ -120,17 +122,29 @@ def banded_kernel() -> str:
     return _BANDED_KERNEL
 
 
+def set_bank_kernel(mode: str) -> None:
+    """Switch for the IIR filter-bank kernel (`ops.cuda_iir_bank`), the
+    route of `ops.iir_block.sosfilt_bank_apply` on a CUDA tensor."""
+    global _BANK_KERNEL
+    _BANK_KERNEL = _check_mode(mode)
+
+
+def bank_kernel() -> str:
+    return _BANK_KERNEL
+
+
 @contextmanager
 def kernels_off():
     """Every kernel switch "off" inside the block (the plain PyTorch
     paths); the previous modes are restored after it."""
-    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL
-    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL)
-    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = _BANDED_KERNEL = "off"
+    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL
+    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL)
+    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = _BANDED_KERNEL = _BANK_KERNEL = "off"
     try:
         yield
     finally:
-        _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL = saved
+        (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL,
+         _BANK_KERNEL) = saved
 
 
 def use_kernel(mode: str, x: torch.Tensor) -> bool:

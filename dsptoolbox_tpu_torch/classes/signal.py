@@ -8,7 +8,8 @@ stored channels-first ``(C, T)`` in the package's default float; the public
 through `ops.spectral.csm_welch` (the framing kernel on a float32 CUDA
 tensor) and is cached on the spectrum parameters; `get_spectrum` computes
 the FFT (backward-normalised ``rfft``) or Welch spectrum on the data's
-device.
+device. Time data may also come as a `DeviceTimeData` pair of real and
+imaginary tensors (a filter bank's band planes), kept as views.
 
 Not ported yet: reading audio files (``path``), the lazy/deferred host
 returns and the device-spectrum caches of a tunnelled backend, plots, the
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 from copy import deepcopy
 from functools import lru_cache
+from typing import NamedTuple
 from warnings import warn
 
 import numpy as np
@@ -30,6 +32,19 @@ from .._config import default_complex, default_device, default_float
 from ..ops.fft_conv import next_fast_len
 from ..ops.spectral import csm_welch, welch
 from ..standard.enums import SpectrumMethod, SpectrumScaling, Window
+
+
+class DeviceTimeData(NamedTuple):
+    """Time data given as a ``(real, imag)`` pair of ``(T, C)`` tensors
+    (``imag`` None for a real signal), e.g. one band of a filter bank's
+    output planes: the signal keeps views of them. ``peak``, when given, is
+    ``max(|real|, |imag|)``, computed beforehand (a filter bank reduces the
+    peaks of all its bands at once), so the amplitude constraint needs no
+    reduction of its own."""
+
+    real: torch.Tensor
+    imag: torch.Tensor | None = None
+    peak: float | None = None
 
 
 @lru_cache(maxsize=32)
@@ -92,15 +107,11 @@ class Signal:
         cache."""
         return self._x.T
 
-    @time_data.setter
-    def time_data(self, new_time_data):
-        # the checks of the reference setter (`classes/signal.py:456-506`)
-        if not isinstance(new_time_data, torch.Tensor):
-            arr = np.ascontiguousarray(np.asarray(new_time_data))
-            dev = self._x.device if hasattr(self, "_x") else self._numpy_device
-            dt = default_complex() if np.iscomplexobj(arr) else default_float()
-            new_time_data = torch.as_tensor(arr).to(device=dev, dtype=dt)
-        td = torch.atleast_2d(new_time_data).squeeze()
+    @staticmethod
+    def _as_columns(td: torch.Tensor) -> torch.Tensor:
+        """Time data as ``(T, C)``: the shape checks of the reference
+        setter (`classes/signal.py:456-506`)."""
+        td = torch.atleast_2d(td).squeeze()
         assert td.ndim <= 2, (
             f"{td.ndim} are too many dimensions for time data. Dimensions "
             "should be [time samples, channels]"
@@ -109,24 +120,40 @@ class Signal:
             td = td[..., None]
         if td.shape[1] > td.shape[0]:
             td = td.T
-        if td.is_complex():
-            td, td_imag = td.real, td.imag
+        return td
+
+    @time_data.setter
+    def time_data(self, new_time_data):
+        peak = None
+        if isinstance(new_time_data, tuple) and torch.is_tensor(new_time_data[0]):
+            # a (real, imag[, peak]) pair of tensors, as `DeviceTimeData`
+            td, td_imag, peak = DeviceTimeData(*new_time_data)
+            td = self._as_columns(td)
+            td_imag = None if td_imag is None else self._as_columns(td_imag)
         else:
-            td_imag = None
+            if not isinstance(new_time_data, torch.Tensor):
+                arr = np.ascontiguousarray(np.asarray(new_time_data))
+                dev = self._x.device if hasattr(self, "_x") else self._numpy_device
+                dt = default_complex() if np.iscomplexobj(arr) else default_float()
+                new_time_data = torch.as_tensor(arr).to(device=dev, dtype=dt)
+            td = self._as_columns(new_time_data)
+            td, td_imag = (td.real, td.imag) if td.is_complex() else (td, None)
         self._amplitude_scale_factor = 1.0
         if self.constrain_amplitude:
-            td_max = float(td.abs().max())
-            if td_imag is not None:
-                td_max = max(td_max, float(td_imag.abs().max()))
-            if td_max > 1.0:
-                td = td / td_max
+            if peak is None:
+                peak_t = td.abs().max()
                 if td_imag is not None:
-                    td_imag = td_imag / td_max
+                    peak_t = torch.maximum(peak_t, td_imag.abs().max())
+                peak = float(peak_t)
+            if peak > 1.0:
+                td = td / peak
+                if td_imag is not None:
+                    td_imag = td_imag / peak
                 warn(
                     "Signal was over 0 dBFS, normalizing to 0 dBFS "
                     "peak level was triggered"
                 )
-                self._amplitude_scale_factor = 1.0 / td_max
+                self._amplitude_scale_factor = 1.0 / peak
         dt = default_float()
         self._x = td.T.to(dt).contiguous()
         self._x_imag = None if td_imag is None else td_imag.T.to(dt).contiguous()
@@ -353,8 +380,10 @@ class Signal:
 
     def copy_with_new_time_data(self, new_time_data) -> "Signal":
         """A signal with this one's settings and new time data
-        (`classes/signal.py:1805`); numpy data goes to this signal's
-        device."""
+        (`classes/signal.py:1805`): numpy data (to this signal's device), a
+        real or complex tensor, or a `DeviceTimeData` / ``(real, imag)``
+        pair of tensors, which the signal keeps as they are (views stay
+        views)."""
         new_signal = Signal(
             None, new_time_data, self.sampling_rate_hz,
             self.constrain_amplitude, device=self.device,

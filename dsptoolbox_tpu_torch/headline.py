@@ -5,8 +5,9 @@ The chain of `__graft_entry__._make_fn` and `bench.py:build_pipeline` in the
 JAX package, as one function. ``bank="per_band"`` filters each band with
 `ops.iir.sosfilt` (the blocked-IIR lead kernel on a CUDA tensor);
 ``bank="banked"`` applies all four bands at once with
-`ops.iir_block.sosfilt_bank_apply`. The STFT runs through the framing kernel
-on a CUDA tensor either way.
+`ops.iir_block.sosfilt_bank_apply` (the filter-bank kernel on a CUDA
+tensor). The STFT runs through the framing kernel on a CUDA tensor either
+way.
 """
 
 from __future__ import annotations
@@ -18,11 +19,7 @@ import torch
 from scipy.signal import butter
 
 from .ops.iir import sosfilt
-from .ops.iir_block import (
-    operators_to_torch,
-    sosfilt_bank_apply,
-    sosfilt_bank_operators,
-)
+from .ops.iir_block import bank_device_operators, sosfilt_bank_apply, stack_sos_bank
 from .ops.spectral import stft
 from .transfer_functions._backend import spectral_deconvolve_core
 
@@ -44,16 +41,9 @@ def crossover_bank(fs: int = 48000) -> tuple:
 
 
 @lru_cache(maxsize=8)
-def _bank_operators(fs: int, T: int, dtype: torch.dtype, device: torch.device) -> dict:
-    """Band-stacked block operators on ``device``; cascades are padded to a
-    common section count with identity sections."""
-    bank = crossover_bank(fs)
-    max_s = max(s.shape[0] for s in bank)
-    identity = np.array([[1.0, 0, 0, 1.0, 0, 0]])
-    padded = [np.vstack([s] + [identity] * (max_s - s.shape[0])) for s in bank]
-    return operators_to_torch(
-        sosfilt_bank_operators(np.stack(padded), T), device, dtype
-    )
+def _stacked_bank(fs: int) -> np.ndarray:
+    """The crossover bands stacked ``(4, S, 6)``."""
+    return stack_sos_bank(crossover_bank(fs))
 
 
 def run(
@@ -86,7 +76,7 @@ def run(
     if bank == "per_band":
         bands = torch.stack([sosfilt(s, x)[0] for s in crossover_bank(fs)], dim=1)
     elif bank == "banked":
-        ops = _bank_operators(fs, T, x.dtype, x.device)
+        ops = bank_device_operators(_stacked_bank(fs), T, x.dtype, x.device)
         bands = sosfilt_bank_apply(ops, x).movedim(0, 1)
     else:
         raise ValueError(f"bank must be 'per_band' or 'banked', got {bank!r}")

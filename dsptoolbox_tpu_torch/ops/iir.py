@@ -2,7 +2,8 @@
 
 ``sosfilt`` runs the blocked state-space formulation (`ops.iir_block`);
 ``sosfilt_zero_state`` routes long zero-state signals to exact frequency
-sampling (`ops.iir_freq`). Coefficient handling stays host-side.
+sampling (`ops.iir_freq`); ``sosfiltfilt`` is the zero-phase
+forward-backward pass. Coefficient handling stays host-side.
 """
 
 from __future__ import annotations
@@ -53,3 +54,35 @@ def sosfilt_zi(sos: np.ndarray) -> np.ndarray:
     from scipy.signal import sosfilt_zi as _zi
 
     return np.asarray(_zi(np.asarray(sos, dtype=np.float64)))
+
+
+def _odd_ext(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Odd extension by ``n`` samples at both ends of the last axis
+    (``scipy.signal._arraytools.odd_ext``)."""
+    if n < 1:
+        return x
+    left = 2 * x[..., :1] - x[..., 1 : n + 1].flip(-1)
+    right = 2 * x[..., -1:] - x[..., -(n + 1) : -1].flip(-1)
+    return torch.cat([left, x, right], dim=-1)
+
+
+def sosfiltfilt(sos: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """Zero-phase forward-backward SOS filtering of ``x (..., T)``, matching
+    ``scipy.signal.sosfiltfilt`` (odd padding of 3·ntaps, steady-state
+    initial states scaled by the edge samples)."""
+    if np.iscomplexobj(sos):
+        raise TypeError("sosfiltfilt takes real second-order sections")
+    sos = np.asarray(sos, dtype=np.float64)
+    ntaps = 2 * sos.shape[0] + 1
+    ntaps -= min((sos[:, 2] == 0).sum(), (sos[:, 5] == 0).sum())
+    padlen = 3 * int(ntaps)
+    if x.shape[-1] <= padlen:
+        raise ValueError(
+            f"The length of the input vector x must be greater than padlen={padlen}."
+        )
+    zi0 = torch.as_tensor(sosfilt_zi(sos), dtype=x.dtype, device=x.device)  # (S, 2)
+    y = _odd_ext(x, padlen)
+    for _ in range(2):
+        y, _ = sosfilt(sos, y, zi=zi0 * y[..., :1, None])
+        y = y.flip(-1)
+    return y[..., padlen:-padlen]

@@ -32,7 +32,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .. import _config
+from . import cuda_iir_bank
 from .cuda_iir import MAX_STATES, sosfilt_lead, sosfilt_lead_plain, state_dtype
+from .cuda_iir_bank import MAX_LANES, sosfilt_bank_lead_cuda, sosfilt_bank_lead_plain
 
 
 def _tdf2_abcd(b: np.ndarray, a: np.ndarray):
@@ -121,8 +124,9 @@ def _pick_block(T: int) -> int:
     return 128
 
 
-# Minimum full blocks before the lead goes to the CUDA kernel; the JAX
-# package's TPU crossover, kept for parity until it is swept on the H100.
+# Minimum full blocks before `sosfilt_block`'s lead goes to the CUDA kernel
+# (B2); the JAX package's TPU crossover, kept for parity until it is swept
+# on the H100. The bank route has no such gate.
 _KERNEL_MIN_BLOCKS = 16
 
 # Sections per blocked cascade: the lead kernel's state chain holds
@@ -139,7 +143,8 @@ def operators_to_torch(ops: dict, device, dtype: torch.dtype) -> dict:
     `_block_operators` or `sosfilt_bank_operators`), ``rem_ops`` (the
     remainder-block list of `sosfilt_bank_operators`, or None) and ``zi``
     (an initial state in scipy's ``(..., S, 2)`` layout, or None). Integer
-    entries (``L``, ``n_full``, ``rem``) pass through. ``HmatT`` becomes
+    entries (``L``, ``n_full``, ``rem``), the host bank ``sos`` and the
+    bank kernel's operators (``kernel``) pass through. ``HmatT`` becomes
     ``dtype``; the state operators and ``zi`` become ``state_dtype(dtype)``.
     """
     sdt = state_dtype(dtype)
@@ -149,7 +154,7 @@ def operators_to_torch(ops: dict, device, dtype: torch.dtype) -> dict:
 
     out = {}
     for k, v in ops.items():
-        if v is None or isinstance(v, int):
+        if v is None or isinstance(v, (int, dict)) or k == "sos":
             out[k] = v
         elif k == "rem_ops":
             out[k] = [conv(m, dtype if i == 0 else sdt) for i, m in enumerate(v)]
@@ -287,6 +292,19 @@ def lfilter_block(
     return y, zf
 
 
+def stack_sos_bank(cascades) -> np.ndarray | None:
+    """SOS cascades ``(S_b, 6)`` stacked ``(B, S_max, 6)``, shorter ones
+    padded with identity sections; None when real and complex cascades mix
+    (no band is silently promoted)."""
+    cascades = [np.asarray(s) for s in cascades]
+    flags = [np.iscomplexobj(s) for s in cascades]
+    if any(flags) and not all(flags):
+        return None
+    identity = np.array([[1.0, 0, 0, 1.0, 0, 0]], np.complex128 if flags[0] else np.float64)
+    max_s = max(s.shape[0] for s in cascades)
+    return np.stack([np.vstack([s] + [identity] * (max_s - s.shape[0])) for s in cascades])
+
+
 def sosfilt_bank_operators(
     sos_bank: np.ndarray, T: int, block_size: int | None = None
 ):
@@ -294,18 +312,18 @@ def sosfilt_bank_operators(
 
     ``sos_bank (B, S, 6)`` → dict of host f64 (or c128 for complex
     cascades, e.g. gammatone) arrays: HmatT (B,L,L), GyT (B,N,L),
-    ALT (B,N,N), MT (B,L,N) plus the remainder-block variants.
+    ALT (B,N,N), MT (B,L,N) plus the remainder-block variants, as in the
+    JAX package, and ``sos``, the bank itself, from which the kernel's
+    route builds its stages (`bank_kernel_stages`).
     """
     sos_bank = np.asarray(sos_bank)
-    sos_bank = sos_bank.astype(
-        np.complex128 if np.iscomplexobj(sos_bank) else np.float64
-    )
+    sos_bank = sos_bank.astype(np.complex128 if np.iscomplexobj(sos_bank) else np.float64)
     if sos_bank.ndim != 3 or sos_bank.shape[-1] != 6:
         raise ValueError(f"sos_bank must be (B, S, 6), got {sos_bank.shape}")
     L = min(block_size or _pick_block(T), T)
     n_full = T // L
     rem = T - n_full * L
-    ops = {"L": L, "n_full": n_full, "rem": rem}
+    ops = {"L": L, "n_full": n_full, "rem": rem, "sos": sos_bank}
     for name in _OPERATOR_NAMES:
         ops[name] = []
     ops["rem_ops"] = [] if rem else None
@@ -328,60 +346,156 @@ def sosfilt_bank_operators(
     return ops
 
 
-def sosfilt_bank_apply(ops: dict, x: torch.Tensor) -> torch.Tensor:
-    """Apply a bank of blocked SOS cascades to ``x (..., T)`` in one batched
-    program → ``(B, ..., T)`` (zero initial state).
+@lru_cache(maxsize=16)
+def _bank_kernel_stages(key: bytes, shape: tuple, np_dtype: str, T: int, L: int,
+                        device: torch.device) -> tuple:
+    bank = np.frombuffer(key, dtype=np_dtype).reshape(shape)
+    cplx = np.iscomplexobj(bank)
+    per = MAX_LANES // (4 if cplx else 2)
+
+    def stage(part):
+        ops = operators_to_torch(sosfilt_bank_operators(part, T, L), device,
+                                 torch.complex64 if cplx else torch.float32)
+        ops["kernel"] = cuda_iir_bank.kernel_operators(ops)
+        return ops
+
+    rest = tuple(
+        tuple(stage(bank[b : b + 1, s : s + per]) for s in range(per, shape[1], per))
+        for b in range(shape[0])
+    ) if shape[1] > per else ()
+    return stage(bank[:, :per]), rest
+
+
+def bank_kernel_stages(sos_bank: np.ndarray, T: int, device, block_size: int | None = None):
+    """The bank's operators as the kernel runs them, on ``device``, built
+    once per (bank, T, L, device) and cached: ``(first, rest)``.
+
+    The kernel's chain holds at most `cuda_iir_bank.MAX_LANES` real state
+    lanes, 16 real or 8 complex sections. ``first`` covers the first
+    sections of every band on the shared input; ``rest[b]`` (empty unless a
+    cascade is longer) holds band b's further sections as single-band
+    stages, each run on that band's output. Exact: a cascade is its
+    sections in series. Each stage carries the kernel's real form
+    (``kernel``) and float32 signal dtype.
+    """
+    bank = np.ascontiguousarray(sos_bank)
+    T = int(T)
+    L = min(block_size or _pick_block(T), T)
+    return _bank_kernel_stages(bank.tobytes(), bank.shape, bank.dtype.str, T, L,
+                               torch.device(device))
+
+
+def _bank_stage(ops: dict, x2: torch.Tensor, lead) -> torch.Tensor:
+    """One bank's operators ``ops`` on real ``x2 (R, T)`` → planes
+    ``(P, B, R, T)``: the full blocks through ``lead`` (the kernel or its
+    plain version), the remainder tail as one more block product."""
+    L, n_full, rem = ops["L"], ops["n_full"], ops["rem"]
+    R, T = x2.shape
+    if n_full * L + rem != T:
+        raise ValueError("operators were built for another signal length")
+    complex_ops = ops["HmatT"].is_complex()
+    n_bands = ops["HmatT"].shape[0]
+    out = torch.empty((2 if complex_ops else 1, n_bands, R, T), dtype=x2.dtype,
+                      device=x2.device)
+    if n_full > 0:
+        s_end = lead(ops, x2, out)  # (B, R, N)
+    else:
+        s_end = ops["GyT"].new_zeros((n_bands, R, ops["GyT"].shape[1]))
+    if rem:
+        Hr, Gr, _, _ = ops["rem_ops"]
+        x_tail = x2[:, n_full * L :].to(Hr.dtype)
+        y_tail = torch.einsum("rl,blm->brm", x_tail, Hr).to(Gr.dtype) + (
+            torch.einsum("brn,bnl->brl", s_end, Gr)
+        )
+        tail = out[..., n_full * L :]
+        if complex_ops:
+            tail[0], tail[1] = y_tail.real, y_tail.imag
+        else:
+            tail[0] = y_tail
+    return out
+
+
+def _kernel_route(stages: tuple, x2: torch.Tensor) -> torch.Tensor:
+    """`bank_kernel_stages` on float32 ``x2 (R, T)`` on the card, every
+    stage's full blocks through the kernel → planes ``(P, B, R, T)``. A
+    complex stage on a band's complex output ``u + iv`` filters ``u`` and
+    ``v`` as real rows and recombines: ``F(u) + i·F(v)``."""
+    first, rest = stages
+    out = _bank_stage(first, x2, sosfilt_bank_lead_cuda)
+    R = x2.shape[0]
+    for b, band_stages in enumerate(rest):
+        for st in band_stages:
+            if out.shape[0] == 2:
+                p = _bank_stage(st, out[:, b].reshape(2 * R, -1), sosfilt_bank_lead_cuda)[:, 0]
+                out[0, b] = p[0, :R] - p[1, R:]
+                out[1, b] = p[1, :R] + p[0, R:]
+            else:
+                out[0, b] = _bank_stage(st, out[0, b], sosfilt_bank_lead_cuda)[0, 0]
+    return out
+
+
+def sosfilt_bank_apply_planes(ops: dict, x: torch.Tensor):
+    """Apply a bank of blocked SOS cascades to real ``x (..., T)`` (zero
+    initial state) → ``(real, imag)``, each ``(B, ..., T)``; ``imag`` is
+    None for a real bank. Both are views of one ``(2, B, ..., T)`` buffer,
+    so each band's planes are taken without a copy.
 
     ``ops`` comes from `sosfilt_bank_operators`, as numpy arrays or already
     converted by `operators_to_torch`. Same math as `sosfilt_block` with a
-    leading band axis: the per-block products become band-batched einsums
-    and the boundary-state recurrence keeps its log-depth doubling prefix.
+    leading band axis. Route: on a CUDA tensor (switch
+    `_config.set_bank_kernel` not "off") every full block goes through the
+    bank kernel, on the operators of `bank_kernel_stages`; the input must
+    then be float32. Otherwise the whole bank's operators run through the
+    kernel's plain version. The remainder tail is one more block product.
     """
-    complex_ops = (
-        ops["HmatT"].is_complex()
-        if torch.is_tensor(ops["HmatT"])
-        else np.iscomplexobj(ops["HmatT"])
-    )
-    compute_dtype = torch.promote_types(
-        x.dtype, torch.complex64 if complex_ops else x.dtype
-    )
-    x = x.to(compute_dtype)
-    ops = operators_to_torch(ops, x.device, compute_dtype)
-    HmatT, GyT, MT = ops["HmatT"], ops["GyT"], ops["MT"]  # (B,L,L) (B,N,L) (B,L,N)
-    L, n_full, rem = ops["L"], ops["n_full"], ops["rem"]
-    T = x.shape[-1]
-    if n_full * L + rem != T:
-        raise ValueError("operators were built for another signal length")
-    n_bands = HmatT.shape[0]
-
-    if n_full > 0:
-        xb = x[..., : n_full * L].reshape(x.shape[:-1] + (n_full, L))
-        y_free = torch.einsum("...kl,blm->b...km", xb, HmatT)
-        X = torch.einsum("...kl,bln->b...kn", xb.to(MT.dtype), MT)  # (B, ..., K, N)
-        # X_k = sum_{j<=k} A^{k-j} v_j: the log-depth doubling prefix
-        ALt_pow = ops["ALT"]  # (B, N, N)
-        shift = 1
-        while shift < n_full:
-            upd = torch.einsum("b...kn,bnm->b...km", X[..., :-shift, :], ALt_pow)
-            X = torch.cat([X[..., :shift, :], X[..., shift:, :] + upd], dim=-2)
-            ALt_pow = torch.einsum("bnm,bmp->bnp", ALt_pow, ALt_pow)
-            shift *= 2
-        # zero initial state: block k sees X_{k-1} (zeros for k=0)
-        s_starts = torch.cat(
-            [torch.zeros_like(X[..., :1, :]), X[..., :-1, :]], dim=-2
-        )
-        s_end = X[..., -1, :]  # (B, ..., N)
-        y = y_free.to(GyT.dtype) + torch.einsum("b...kn,bnl->b...kl", s_starts, GyT)
-        y = y.to(compute_dtype).reshape((n_bands,) + x.shape[:-1] + (n_full * L,))
+    if x.is_complex():
+        raise TypeError("the bank filters real input")
+    batch, T = x.shape[:-1], x.shape[-1]
+    R = math.prod(batch)
+    x2 = x.reshape(R, T).contiguous()
+    if _config.use_kernel(_config.bank_kernel(), x):
+        if x.dtype != torch.float32:
+            raise TypeError(
+                f"the bank kernel takes float32 input, got {x.dtype}; switch it "
+                "'off' (`set_bank_kernel`) to filter other dtypes on the card"
+            )
+        out = _kernel_route(bank_kernel_stages(ops["sos"], T, x.device, ops["L"]), x2)
     else:
-        s_end = GyT.new_zeros((n_bands,) + x.shape[:-1] + (GyT.shape[1],))
-        y = x.new_zeros((n_bands,) + x.shape[:-1] + (0,))
-
-    if rem:
-        Hr, Gr, _, _ = ops["rem_ops"]
-        x_tail = x[..., n_full * L :]
-        y_tail = torch.einsum("...l,blm->b...m", x_tail, Hr).to(Gr.dtype) + (
-            torch.einsum("b...n,bnl->b...l", s_end, Gr)
+        complex_ops = (
+            ops["HmatT"].is_complex()
+            if torch.is_tensor(ops["HmatT"])
+            else np.iscomplexobj(ops["HmatT"])
         )
-        y = torch.cat([y, y_tail.to(compute_dtype)], dim=-1)
-    return y
+        compute_dtype = torch.promote_types(
+            x.dtype, torch.complex64 if complex_ops else x.dtype
+        )
+        ops = operators_to_torch(ops, x.device, compute_dtype)
+        out = _bank_stage(ops, x2, sosfilt_bank_lead_plain)
+    out = out.reshape(out.shape[:2] + batch + (T,))
+    return out[0], (out[1] if out.shape[0] == 2 else None)
+
+
+def sosfilt_bank_apply(ops: dict, x: torch.Tensor) -> torch.Tensor:
+    """`sosfilt_bank_apply_planes` as one tensor ``(B, ..., T)``: complex
+    for a complex bank."""
+    re, im = sosfilt_bank_apply_planes(ops, x)
+    return re if im is None else torch.complex(re, im)
+
+
+@lru_cache(maxsize=16)
+def _bank_device_operators(key: bytes, shape: tuple, np_dtype: str, T: int,
+                           dtype: torch.dtype, device: torch.device) -> dict:
+    bank = np.frombuffer(key, dtype=np_dtype).reshape(shape)
+    compute_dtype = torch.promote_types(
+        dtype, torch.complex64 if np.iscomplexobj(bank) else dtype
+    )
+    return operators_to_torch(sosfilt_bank_operators(bank, T), device, compute_dtype)
+
+
+def bank_device_operators(sos_bank: np.ndarray, T: int, dtype: torch.dtype, device) -> dict:
+    """`sosfilt_bank_operators` of ``sos_bank`` for real signals of length
+    ``T`` and ``dtype``, on ``device``, built once per (bank, T, dtype,
+    device) and cached."""
+    bank = np.ascontiguousarray(sos_bank)
+    return _bank_device_operators(bank.tobytes(), bank.shape, bank.dtype.str, int(T),
+                                  dtype, torch.device(device))

@@ -1,7 +1,8 @@
 """Static designs of the `standard` backend (`dsptoolbox_tpu/standard/backend.py`).
 
 Host float64 numpy, copied as they are: the Kaiser-windowed-sinc fractional
-delay filters that the beamforming module's projections are built from.
+delay filters that the beamforming module's projections are built from, and
+the IEC fractional-octave center frequencies of the filter banks.
 """
 
 from __future__ import annotations
@@ -94,3 +95,50 @@ def fractional_delay_filter_batch(
     )
     kaiser = np.real(bessel_first_mod(0, Z)) / bessel_first_mod(0, beta)
     return (delay_int + M_opt).astype(np.int64), sinc * kaiser
+
+
+def center_frequencies_fractional_octaves_iec(num_fractions: int):
+    """IEC 61260-1:2014 nominal and exact center frequencies of octave and
+    third-octave bands (`dsptoolbox_tpu/standard/backend.py:91`)."""
+    if num_fractions == 1:
+        nominal = np.array(
+            [31.5, 63, 125, 250, 500, 1e3, 2e3, 4e3, 8e3, 16e3], dtype=float
+        )
+    elif num_fractions == 3:
+        nominal = np.array(
+            [25, 31.5, 40, 50, 63, 80, 100, 125, 160, 200, 250, 315, 400,
+             500, 630, 800, 1000, 1250, 1600, 2000, 2500, 3150, 4000, 5000,
+             6300, 8000, 10000, 12500, 16000, 20000],
+            dtype=float,
+        )
+    else:
+        raise ValueError("Nominal frequencies only for fractions 1 and 3")
+    reference_freq = 1e3
+    octave_ratio = 10 ** (3 / 10)
+    if num_fractions % 2 != 0:
+        indices = np.around(
+            num_fractions * np.log(nominal / reference_freq) / np.log(octave_ratio)
+        )
+        exponent = indices / num_fractions
+    else:
+        indices = (
+            np.around(
+                2.0 * num_fractions * np.log(nominal / reference_freq)
+                / np.log(octave_ratio) - 1
+            )
+            / 2
+        )
+        exponent = (2 * indices + 1) / num_fractions / 2
+    return nominal, reference_freq * octave_ratio**exponent
+
+
+def exact_center_frequencies_fractional_octaves(
+    num_fractions: int, frequency_range
+) -> np.ndarray:
+    """Center frequencies of arbitrary fractional-octave bands
+    (`dsptoolbox_tpu/standard/backend.py:132`)."""
+    ref_freq = 1e3
+    Nmax = np.around(num_fractions * np.log2(frequency_range[1] / ref_freq))
+    Nmin = np.around(num_fractions * np.log2(ref_freq / frequency_range[0]))
+    indices = np.arange(-Nmin, Nmax + 1)
+    return ref_freq * 2 ** (indices / num_fractions)

@@ -234,3 +234,54 @@ class FadeType(Enum):
     Exponential = auto()
     Logarithmic = auto()
     NoFade = auto()
+
+
+class FilterCoefficientsType(Enum):
+    """LTI filter representations: zeros-poles-gain, second-order sections or
+    transfer-function (b, a) polynomials."""
+
+    Zpk = auto()
+    Sos = auto()
+    Ba = auto()
+
+
+class FilterBankMode(Enum):
+    """Parallel (→ MultiBandSignal), Sequential (chained) or Summed
+    application of a filter bank."""
+
+    Parallel = auto()
+    Sequential = auto()
+    Summed = auto()
+
+
+class FilterPassType(Enum):
+    Lowpass = auto()
+    Highpass = auto()
+    Bandpass = auto()
+    Bandstop = auto()
+
+    def __str__(self) -> str:
+        return self.name.lower()
+
+    def to_str(self) -> str:
+        return str(self)
+
+
+class IirDesignMethod(Enum):
+    """IIR design prototypes (the design runs on the host through scipy;
+    only the application runs on the device)."""
+
+    Bessel = auto()
+    Butterworth = auto()
+    Chebyshev1 = auto()
+    Chebyshev2 = auto()
+    Elliptic = auto()
+
+    def to_scipy_str(self) -> str:
+        return {
+            IirDesignMethod.Bessel: "bessel",
+            IirDesignMethod.Butterworth: "butter",
+            IirDesignMethod.Chebyshev1: "cheby1",
+            IirDesignMethod.Chebyshev2: "cheby2",
+            IirDesignMethod.Elliptic: "ellip",
+        }[self]

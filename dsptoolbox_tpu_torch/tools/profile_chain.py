@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|tf|all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|tf|fb|all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -19,6 +19,12 @@ smoothing over 32,769 bins): the plan's one-time host build and upload,
 the banded kernel (B4) against its plain version on the path's plan, and
 the whole path and its three steps, through the kernels and on the plain
 paths.
+
+``fb``: the filter-bank path (`tools.filterbank_chain`, config 3: 64
+channels × 10 s at 44.1 kHz): the filter-bank kernel (B3) against its
+plain version at the gammatone and 1/3-octave banks, and the whole path and
+its four steps (LR crossover, gammatone, resampling, 1/3 octave), through
+the kernels and on the plain paths.
 
 For each case it prints the device time per kernel and per call, the host
 time per call (calls issued without waiting), the wall time per call, and
@@ -182,10 +188,42 @@ def profile_tf(dev, runs: int) -> None:
         profile_call(f"TF {label}, plain paths", plain_paths(fn), runs)
 
 
+def profile_fb(dev, runs: int) -> None:
+    from ..classes.filterbank import _sos_bank_or_none
+    from ..ops import cuda_iir_bank
+    from ..standard.enums import FilterBankMode
+    from ..standard.resampling import resample
+    from . import filterbank_chain as fc
+
+    lr, gt, third = fc.banks()
+    sig = fc.signal(device=dev)
+    x = sig._x
+    for name, fb in (("gammatone (16 complex bands)", gt), ("1/3 octave (28 bands)", third)):
+        bank = _sos_bank_or_none(fb.filters)
+        ops, _ = iir_block.bank_kernel_stages(bank, x.shape[-1], dev)
+        P = 2 if np.iscomplexobj(bank) else 1
+        out = torch.empty((P, len(bank)) + tuple(x.shape), device=dev)
+        for label, fn in (("kernel", cuda_iir_bank.sosfilt_bank_lead_cuda),
+                          ("plain", cuda_iir_bank.sosfilt_bank_lead_plain)):
+            profile_call(f"B3 bank {label}, {name}, 64 x 441000",
+                         lambda fn=fn: fn(ops, x, out), runs)
+        del out
+    steps = (
+        ("whole path", lambda: fc.run(sig, lr, gt, third)),
+        ("LR crossover", lambda: lr.filter_signal(sig, FilterBankMode.Parallel)),
+        ("gammatone", lambda: gt.filter_signal(sig, FilterBankMode.Parallel)),
+        ("resample", lambda: resample(sig, fc.FS // 3)),
+        ("1/3 octave", lambda: third.filter_signal(sig, FilterBankMode.Parallel)),
+    )
+    for label, fn in steps:
+        profile_call(f"config-3 {label}, kernels", fn, runs)
+        profile_call(f"config-3 {label}, plain paths", plain_paths(fn), runs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=5, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "tf", "all"), default="all")
+    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "all"), default="all")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: needs a CUDA device", file=sys.stderr)
@@ -197,7 +235,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for name in ("framing", "iir_lead", "das_map", "banded"):
+    for name in ("framing", "iir_lead", "das_map", "banded", "iir_bank"):
         _cuda.load(name)
 
     dev = torch.device("cuda", 0)
@@ -205,7 +243,9 @@ def main(argv=None) -> int:
         profile_das(dev, args.runs)
     if args.case in ("tf", "all"):
         profile_tf(dev, args.runs)
-    if args.case in ("das", "tf"):
+    if args.case in ("fb", "all"):
+        profile_fb(dev, args.runs)
+    if args.case in ("das", "tf", "fb"):
         return 0
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((BATCH, T)).astype(np.float32)).to(dev)
@@ -234,7 +274,9 @@ def main(argv=None) -> int:
     profile_call("B2 lead plain, band 1", lambda: cuda_iir.sosfilt_lead_plain(*lead),
                  args.runs)
     for bank in ("per_band", "banked"):
-        profile_call(f"chain {bank}", lambda: headline.run(x, exc, bank=bank), args.runs)
+        kernels = "B1 + B2" if bank == "per_band" else "B1 + B3"
+        profile_call(f"chain {bank} ({kernels})", lambda: headline.run(x, exc, bank=bank),
+                     args.runs)
     return 0
 
 

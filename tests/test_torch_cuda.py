@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes, and B4 at the measurement path's plan (the
+at small and ragged shapes (B3 also against scipy's float64 sosfilt), and B4
+at the measurement path's plan (the
 paths' full widths are covered by ``chip_smoke.py``). Marked ``cuda``; they
 skip without a CUDA device.
 
@@ -17,7 +18,9 @@ from dsptoolbox_tpu_torch import _config, headline
 from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.classes import Signal
 from dsptoolbox_tpu_torch.classes import ImpulseResponse
-from dsptoolbox_tpu_torch.ops import banded, cuda_banded, cuda_das, cuda_framing, cuda_iir, iir_block
+from dsptoolbox_tpu_torch.ops import (
+    banded, cuda_banded, cuda_das, cuda_framing, cuda_iir, cuda_iir_bank, iir_block,
+)
 from dsptoolbox_tpu_torch.standard.enums import Window
 from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
 from dsptoolbox_tpu_torch.transfer_functions import _backend as tf_backend
@@ -329,3 +332,154 @@ def test_complex_smoothing_on_card_matches_cpu(dev, domain):
     got = got_spec[str(dev)].spectral_data
     assert got.is_cuda and got.shape == (8193, 3)
     assert _rel(got, got_spec["cpu"].spectral_data) <= 1e-4
+
+
+def _complex_bank(n_bands, sections, radius=0.95):
+    poles = radius * np.exp(1j * np.linspace(0.1, 1.0, n_bands * sections))
+    bank = np.zeros((n_bands, sections, 6), np.complex128)
+    bank[:, :, 0] = 0.3
+    bank[:, :, 3] = 1.0
+    bank[:, :, 4] = -poles.reshape(n_bands, sections)
+    return bank
+
+
+def _real_bank(n_bands, sections):
+    return np.stack([
+        np.concatenate([butter(2, f, output="sos")
+                        for f in np.linspace(0.05 + 0.02 * b, 0.8, sections)])
+        for b in range(n_bands)
+    ])
+
+
+# (bank, R, T): B = 1 and 5 complex; R = 1 and 3; T = 3000 and 5000 (not
+# multiples of 128); a 16-section real bank (32 state lanes, the kernel's
+# widest); a 6-section complex bank (24 lanes); the 4-band crossover of the
+# headline chain; a short input (T = 1000, 7 blocks)
+_B3_CASES = {
+    "complex-B2-R2-T1000": (_complex_bank(2, 4), 2, 1000),
+    "complex-B1-R1-T3000": (_complex_bank(1, 4), 1, 3000),
+    "complex-B5-R3-T5000": (_complex_bank(5, 4), 3, 5000),
+    "real16-B2-R3-T3000": (_real_bank(2, 16), 3, 3000),
+    "complex6-B3-R1-T5000": (_complex_bank(3, 6), 1, 5000),
+    "crossover-B4-R2-T5000": (headline._stacked_bank(48000), 2, 5000),
+}
+
+
+@pytest.mark.parametrize("case", list(_B3_CASES))
+def test_bank_kernel_matches_plain(dev, case):
+    bank, R, T = _B3_CASES[case]
+    x = torch.from_numpy(RNG.standard_normal((R, T)).astype(np.float32)).to(dev)
+    ops, rest = iir_block.bank_kernel_stages(bank, T, dev)
+    assert not rest
+    P = 2 if np.iscomplexobj(bank) else 1
+    lead = ops["n_full"] * ops["L"]
+    out_k = torch.zeros((P, len(bank), R, T), device=dev)
+    out_p = torch.zeros_like(out_k)
+    before = cuda_iir_bank.launches
+    s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, out_k)
+    s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_p)
+    torch.cuda.synchronize()
+    assert cuda_iir_bank.launches == before + 1
+    yk, yp = out_k[..., :lead], out_p[..., :lead]
+    # the kernel sums x·H in another order than cuBLAS (fp32) and walks the
+    # fp64 state chain where the plain version doubles: B2's tolerances
+    assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
+    assert float((s_k - s_p).abs().max()) <= 1e-6 * max(1.0, float(s_p.abs().max()))
+    # the untouched tail stays as it was
+    assert not bool(out_k[..., lead:].any())
+
+
+@pytest.mark.parametrize(
+    "bank", [_complex_bank(2, 9, 0.9), _real_bank(2, 18)], ids=["complex9", "real18"]
+)
+def test_bank_split_on_card_matches_scipy(dev, bank):
+    """A cascade beyond the kernel's 32 lanes (9 complex or 18 real
+    sections) runs its first 8 / 16 sections through one B3 launch on the
+    shared input and the rest through one more B3 launch per band."""
+    T = 3000 + 77
+    x = RNG.standard_normal((2, T)).astype(np.float32)
+    ops = iir_block.bank_device_operators(bank, T, torch.float32, dev)
+    before = (cuda_iir_bank.launches, cuda_iir.launches)
+    y = iir_block.sosfilt_bank_apply(ops, torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert cuda_iir_bank.launches == before[0] + 1 + len(bank)
+    assert cuda_iir.launches == before[1]
+    for b in range(len(bank)):
+        assert _rel(y[b], sosfilt(bank[b], x.astype(np.float64))) < 5e-6
+
+
+def test_bank_apply_on_card_matches_scipy_and_cpu(dev):
+    """The 1/3-octave bank's lowest bands at 44.1 kHz (poles within 2e-3 of
+    the unit circle) against scipy's float64 sosfilt; planes are views of
+    one buffer; "on" refuses a CPU tensor and "off" launches nothing."""
+    from dsptoolbox_tpu_torch.filterbanks import fractional_octave_bands
+
+    fb = fractional_octave_bands([31.5, 100.0], 3, 6, 44100)[0]
+    bank = np.stack([f.sos for f in fb.filters])
+    x = RNG.standard_normal((2, 44100 + 33)).astype(np.float32)
+    ops = iir_block.bank_device_operators(bank, x.shape[-1], torch.float32, dev)
+    before = cuda_iir_bank.launches
+    re, im = iir_block.sosfilt_bank_apply_planes(ops, torch.from_numpy(x).to(dev))
+    assert cuda_iir_bank.launches == before + 1 and im is None
+    for b in range(len(bank)):
+        assert _rel(re[b], sosfilt(bank[b], x.astype(np.float64))) < 5e-6
+    _config.set_bank_kernel("on")
+    try:
+        with pytest.raises(ValueError, match="CUDA"):
+            iir_block.sosfilt_bank_apply(
+                iir_block.bank_device_operators(bank, x.shape[-1], torch.float32, "cpu"),
+                torch.from_numpy(x))
+    finally:
+        _config.set_bank_kernel("auto")
+    with _config.kernels_off():
+        off = iir_block.sosfilt_bank_apply(ops, torch.from_numpy(x).to(dev))
+    assert cuda_iir_bank.launches == before + 1
+    assert _rel(off, re) <= 1e-5
+
+
+def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev):
+    """On the card every float32 input runs B3, however few its blocks (a
+    1024-sample impulse response of a FilterBank); a float64 input raises
+    unless the switch is "off"."""
+    from dsptoolbox_tpu_torch.classes import Filter, FilterBank
+    from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
+
+    fb = FilterBank([Filter.from_sos(s, 48000) for s in headline.crossover_bank(48000)])
+    before = cuda_iir_bank.launches
+    ir = fb.get_ir(1024, FilterBankMode.Parallel, device=dev)
+    assert cuda_iir_bank.launches == before + 1
+    imp = np.zeros(1024)
+    imp[0] = 1.0
+    for b, sos in enumerate(headline.crossover_bank(48000)):
+        assert _rel(ir.bands[b].time_data[:, 0], sosfilt(sos, imp)) < 5e-6
+    bank = headline._stacked_bank(48000)
+    x = torch.from_numpy(RNG.standard_normal((2, 3000))).to(dev)
+    ops = iir_block.sosfilt_bank_operators(bank, 3000)
+    with pytest.raises(TypeError, match="float32"):
+        iir_block.sosfilt_bank_apply(ops, x)
+    _config.set_bank_kernel("off")
+    try:
+        y = iir_block.sosfilt_bank_apply(ops, x)
+    finally:
+        _config.set_bank_kernel("auto")
+    assert y.dtype == torch.float64 and cuda_iir_bank.launches == before + 1
+    for b in range(len(bank)):
+        assert _rel(y[b], sosfilt(bank[b], x.cpu().numpy())) < 1e-9
+
+
+@pytest.mark.parametrize("L", [64, 200, 300])
+def test_bank_kernel_block_lengths(dev, L):
+    """Block lengths other than 128: one column tile below it, two and three
+    above it, where x's tile is streamed through shared memory."""
+    bank = _complex_bank(2, 4)
+    T = 17 * L + 9
+    x = torch.from_numpy(RNG.standard_normal((2, T)).astype(np.float32)).to(dev)
+    ops = iir_block.operators_to_torch(
+        iir_block.sosfilt_bank_operators(bank, T, block_size=L), dev, torch.complex64)
+    out_k = torch.zeros((2, 2, 2, T), device=dev)
+    out_p = torch.zeros_like(out_k)
+    s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, out_k)
+    s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_p)
+    torch.cuda.synchronize()
+    assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+    assert float((s_k - s_p).abs().max()) <= 1e-6 * max(1.0, float(s_p.abs().max()))
