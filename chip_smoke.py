@@ -9,8 +9,8 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   8 s at 48 kHz, STFT + 4-band crossover + deconvolution; ``per_band``
   runs B1 + B2, ``banked`` B1 + B3): the framing (B1) and IIR lead (B2)
   kernels are held against their plain PyTorch versions at the chain's
-  shapes, the chain against the same chain on the plain paths and against
-  scipy/numpy in float64;
+  shapes (B2 also on a 7-block input), the chain against the same chain on
+  the plain paths and against scipy/numpy in float64;
 - the acoustic-camera DAS map (`dsptoolbox_tpu_torch.tools.camera`: 64 mics,
   900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
   a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
@@ -28,15 +28,18 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   config 3: 64 channels × 10 s at 44.1 kHz through an LR crossover, the
   16-band gammatone bank, resampling to fs/3 and the 28-band 1/3-octave
   bank): the filter-bank kernel (B3) is held against its plain version at
-  both banks' shapes and ragged shapes, every band against scipy's float64
-  sosfilt on 4 channels, the path and a gammatone reconstruction against
-  the plain paths.
+  both banks' shapes and ragged shapes (each case prints which output pass
+  it took: the tensor cores for blocks up to 128), every band against
+  scipy's float64 sosfilt on 4 channels, the path and a gammatone
+  reconstruction against the plain paths.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, 34 TFLOP/s fp64 or, for
-fp64 matrix products, 67 TFLOP/s on the fp64 tensor cores: the H100 SXM's
-peaks), the card's name and power limit, and as its last line
+fp64 matrix products, 67 TFLOP/s on the fp64 tensor cores; the fp32
+Toeplitz products of B2 and B3 at the faster of 67 TFLOP/s FFMA and three
+TF32 products at 495 TFLOP/s: the H100 SXM's peaks), the card's name and
+power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero; without a CUDA device it exits with code 2 before doing
 anything.
@@ -68,11 +71,12 @@ DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
 BANDED_RAGGED = ((3, 128, 256, 5, 1000), (2, 50, 250, 33, 700))
 # H100 SXM peaks (NVIDIA data sheet): device memory, fp32 and fp64 outside
-# the tensor cores, fp64 on the tensor cores (dense matrix products)
+# the tensor cores, fp64 and TF32 on the tensor cores (dense matrix products)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 FP64_FLOP_S = 34e12
 FP64_TC_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
 
 
 def fail(msg: str) -> None:
@@ -101,14 +105,19 @@ def card_line() -> str:
 
 
 def bound(n_bytes: float, fp32_flop: float, fp64_flop: float = 0.0,
-          fp64_mm_flop: float = 0.0) -> tuple:
+          fp64_mm_flop: float = 0.0, fp32_mm_flop: float = 0.0,
+          tensor_cores: bool = True) -> tuple:
     """``(bound_ms, bound_by)``: the larger of the bytes' time at the
     device-memory rate and the operations' time at the peak rates;
     ``fp64_mm_flop`` counts fp64 matrix products, at the tensor cores'
-    rate, ``fp64_flop`` the other fp64 work."""
+    rate, ``fp64_flop`` the other fp64 work; ``fp32_mm_flop`` counts fp32
+    matrix products at the faster of the FFMA rate and three TF32 products
+    (a split at fp32 accuracy) on the tensor cores, or with ``tensor_cores``
+    False at the FFMA rate."""
+    fp32_mm_s = min(1 / FP32_FLOP_S, 3 / TF32_FLOP_S) if tensor_cores else 1 / FP32_FLOP_S
     t_bytes = n_bytes / HBM_BYTES_S
-    t_ops = (fp32_flop / FP32_FLOP_S + fp64_flop / FP64_FLOP_S
-             + fp64_mm_flop / FP64_TC_FLOP_S)
+    t_ops = (fp32_flop / FP32_FLOP_S + fp32_mm_flop * fp32_mm_s
+             + fp64_flop / FP64_FLOP_S + fp64_mm_flop / FP64_TC_FLOP_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -387,9 +396,11 @@ def measurement_phase(dev, rng) -> dict:
 def bank_ragged() -> list:
     """B3's ragged cases ``(label, bank, R, T)``: B = 1 and 5 complex, R =
     1 and 3, T = 3000 and 5000 (not multiples of 128), a 16-section real
-    bank (32 state lanes), a 6-section complex bank (24 lanes), a short
-    input (T = 1000, 7 blocks), and a 9-section complex bank (36 lanes: its
-    first 8 sections in one B3 stage, the last one per band in another)."""
+    bank (32 state lanes), a 6-section complex bank (24 lanes), a
+    1-section real bank (2 lanes), a short input (T = 1000, 7 blocks), a
+    block length that is not a multiple of 8 (T = 100: one block of 100),
+    and a 9-section complex bank (36 lanes: its first 8 sections in one B3
+    stage, the last one per band in another)."""
     import numpy as np
     from scipy.signal import butter
 
@@ -405,17 +416,19 @@ def bank_ragged() -> list:
                        for b in range(2)])
     return [("complex B=1", cplx(1, 4), 1, 3000), ("complex B=5", cplx(5, 4), 3, 5000),
             ("real 16 sections", real16, 3, 3000), ("complex 6 sections", cplx(3, 6), 1, 5000),
-            ("complex T=1000", cplx(2, 4), 2, 1000),
+            ("real 1 section", butter(2, 0.1, output="sos")[None].repeat(3, 0), 2, 3000),
+            ("complex T=1000", cplx(2, 4), 2, 1000), ("complex L=100", cplx(2, 4), 3, 100),
             ("complex 9 sections (split)", cplx(2, 9, 0.9), 2, 3077)]
 
 
 def bank_bound(ops: dict, R: int) -> tuple:
-    """Bytes, fp32, serial fp64 and fp64 matrix-product operations that B3
-    needs for the full blocks of ``R`` rows: x read and every band's planes
-    written once, plus the operators; x·h over the Toeplitz triangle,
-    L·(L+1)/2 FMAs per block and plane; in fp64 over the real state lanes,
-    the chain (Ns² FMAs per block, serial) and the products x·M and s·G
-    (dense, for the fp64 tensor cores)."""
+    """Bytes, fp32 matrix-product, serial fp64 and fp64 matrix-product
+    operations that B3 needs for the full blocks of ``R`` rows: x read and
+    every band's planes written once, plus the operators; x·h over the
+    Toeplitz triangle, L·(L+1)/2 FMAs per block and plane (for FFMA or the
+    TF32 tensor cores); in fp64 over the real state lanes, the chain (Ns²
+    FMAs per block, serial) and the products x·M and s·G (dense, for the
+    fp64 tensor cores)."""
     k = ops["kernel"]
     P, B, L = k["h"].shape
     Ns = k["lanes"]
@@ -482,7 +495,8 @@ def filterbank_phase(dev, rng) -> dict:
         z_err = float((s_k - s_p).abs().max())
         z_scale = max(1.0, float(s_p.abs().max()))
         print(f"B3 bank {label} (P, B, R, T) = {tuple(out_k.shape)}, "
-              f"{ops['kernel']['lanes']} lanes: |dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
+              f"{ops['kernel']['lanes']} lanes, L = {ops['L']}, output pass "
+              f"{cuda_iir_bank.output_pass(ops['L'])}: |dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
               f"|dzf| {z_err:.3e} <= 1e-6*{z_scale:.3e}")
         if not (y_err <= 1e-5 * y_scale and z_err <= 1e-6 * z_scale):
             fail(f"bank kernel disagrees with its plain version ({label})")
@@ -597,16 +611,24 @@ def filterbank_phase(dev, rng) -> dict:
                                lambda: cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, buf),
                                n=10, warm=2)
         nb, f32, f64, f64_mm = bank_bound(ops, C)
-        one, by = bound(nb, f32, f64, f64_mm)
+        one, by = bound(nb, 0.0, f64, f64_mm, f32)
+        ffma, ffma_by = bound(nb, 0.0, f64, f64_mm, f32, tensor_cores=False)
         n_bytes, fp32, fp64, fp64_mm = n_bytes + nb, fp32 + f32, fp64 + f64, fp64_mm + f64_mm
         b3["ms"] += k_ms
         b3["plain_ms"] += p_ms
         b3[f"ms_{name}"] = k_ms
         print(f"time B3 bank {name} (P, B, R, K, L) = "
-              f"{(P, ops['HmatT'].shape[0], C, ops['n_full'], ops['L'])}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {one:.4f} ms ({by})")
+              f"{(P, ops['HmatT'].shape[0], C, ops['n_full'], ops['L'])}, output pass "
+              f"{cuda_iir_bank.output_pass(ops['L'])}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms; bound with x·h as 3×TF32 {one:.4f} ms ({by}, "
+              f"{k_ms / one:.2f}×), with x·h on FFMA {ffma:.4f} ms ({ffma_by}, "
+              f"{k_ms / ffma:.2f}×)")
         del buf
-    b3_bound, b3_by = bound(n_bytes, fp32, fp64, fp64_mm)
+    b3_bound, b3_by = bound(n_bytes, 0.0, fp64, fp64_mm, fp32)
+    b3_ffma, b3_ffma_by = bound(n_bytes, 0.0, fp64, fp64_mm, fp32, tensor_cores=False)
+    print(f"bound B3 two banks: x·h as 3×TF32 {b3_bound:.4f} ms ({b3_by}, "
+          f"{b3['ms'] / b3_bound:.2f}×), x·h on FFMA {b3_ffma:.4f} ms ({b3_ffma_by}, "
+          f"{b3['ms'] / b3_ffma:.2f}×)")
     k_ms, p_ms = time_pair(lambda: fc.run(sig, lr, gt, third),
                            lambda: plain(lambda: fc.run(sig, lr, gt, third)), n=10, warm=2)
     audio_s = C * T / fs
@@ -618,7 +640,7 @@ def filterbank_phase(dev, rng) -> dict:
             "replaces": "dsptoolbox_tpu/ops/pallas_iir_bank.py:267",
             "launches": launched["iir_bank"], "max_abs_err": b3_err,
             "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3_bound,
-            "bound_by": b3_by, "library_ms": None,
+            "bound_by": b3_by, "library_ms": None, "bound_ms_ffma": b3_ffma,
             "ms_by_bank": {k: b3[f"ms_{k}"] for k in b3_ops}}
 
 
@@ -642,6 +664,7 @@ def main() -> int:
     from dsptoolbox_tpu_torch.ops.iir_block import (
         _block_operators,
         operators_to_torch,
+        sosfilt_block,
     )
     from dsptoolbox_tpu_torch.ops.windows import get_window
     from dsptoolbox_tpu_torch.standard.enums import Window
@@ -730,6 +753,23 @@ def main() -> int:
             fail(f"IIR lead kernel disagrees with its plain version (band {i})")
         if not sc_err <= 5e-6:
             fail(f"IIR lead kernel disagrees with scipy (band {i})")
+    # a short input (T = 1000: 7 blocks of 128) through sosfilt_block still
+    # launches B2
+    sos = headline.crossover_bank(FS)[1]
+    zi = sosfilt_zi(sos)[None] * gains
+    before = cuda_iir.launches
+    ys, _ = sosfilt_block(sos, x[:, :1000], zi=zi)
+    torch.cuda.synchronize()
+    short_launches = cuda_iir.launches - before
+    yp, _ = plain(lambda: sosfilt_block(sos, x[:, :1000], zi=zi))
+    y_err = float((ys - yp).abs().max())
+    b2_err = max(b2_err, y_err)
+    sc_err = rel_err(ys[0], scipy_sosfilt(sos, x[0, :1000].double().cpu().numpy(), zi=zi[0])[0])
+    print(f"B2 lead, 7 blocks (T = 1000): {short_launches} launch; |dy| vs plain "
+          f"{y_err:.3e} <= 1e-5*{float(yp.abs().max()):.3e}; scipy f64 channel 0 "
+          f"scale-rel {sc_err:.3e} (tol 5e-6)")
+    if short_launches != 1 or not (y_err <= 1e-5 * float(yp.abs().max()) and sc_err <= 5e-6):
+        fail("a 7-block lead did not run B2 or disagrees with plain or scipy")
 
     # 5. the slice: the chain through the kernels, counted
     exc = torch.fft.rfft(
@@ -917,7 +957,8 @@ def main() -> int:
 
     # bounds at the timed shapes. B1: x read, frames written, one multiply
     # per frame sample. B2, per band: x·H in fp32, H lower-triangular
-    # Toeplitz, so L·(L+1)/2 FMAs per block; the state path in fp64 (the
+    # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
+    # tensor cores, whichever is faster); the state path in fp64 (the
     # serial chain, and x·M and s·G as products for the fp64 tensor cores);
     # x read, y written. B5: C (real and imaginary) read,
     # the map written; Re(hᴴ C h) needs only C's Hermitian part, so
@@ -933,7 +974,7 @@ def main() -> int:
         b2_f32 += 2.0 * Bb * Kb * Lb * (Lb + 1) / 2
         b2_f64 += 2.0 * Bb * Kb * Nb * Nb
         b2_f64_mm += 2.0 * Bb * Kb * 2 * Lb * Nb
-    b2_bound, b2_by = bound(b2_bytes, b2_f32, b2_f64, b2_f64_mm)
+    b2_bound, b2_by = bound(b2_bytes, 0.0, b2_f64, b2_f64_mm, b2_f32)
     b5_bound, b5_by = bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
                             2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
     print(f"bounds (H100 SXM peaks): B1 {b1_bound:.4f} ms ({b1_by}), B2 four "

@@ -11,10 +11,12 @@
 //     s[b,k+1] = s[b,k] A_b + x_k M_b,  s[b,0] = 0,   s[b,K] is returned as zf.
 //
 // Precision: x_k h (the lower-triangular Toeplitz product of the in-block
-// impulse response) runs in fp32 FFMA; the whole state path (v = x M, the
-// chain, s G) in fp64: for low-frequency cascades (the 40-50 Hz third-octave
-// bands) G reaches 1e4-1e5 against O(1) outputs, and fp32 rounding of the
-// state is amplified by that cancellation. No tensor cores.
+// impulse response) in fp32 accuracy: on the tensor cores as three TF32
+// products of a hi/lo split (x_lo h_hi + x_hi h_lo + x_hi h_hi, each part
+// rounded with cvt.rna; never a single TF32 product), or in fp32 FFMA. The
+// whole state path (v = x M, the chain, s G) runs in fp64: for low-frequency
+// cascades (the 40-50 Hz third-octave bands) G reaches 1e4-1e5 against O(1)
+// outputs, and fp32 rounding of the state is amplified by that cancellation.
 //
 // Bound on the H100: y dominates the bytes (16 complex bands write 32 floats
 // per input float), and the work is ~L/2 fp32 FMAs per output sample for
@@ -30,13 +32,28 @@
 //              one serial carry over the chunk starts (as in iir_lead.cu,
 //              with A per band and the v rows strided by B*Ns); v_k is
 //              overwritten with the state entering block k;
-//   3. out:    parallel over tiles of 64 rows and 128 columns: x's tile is
-//              read once into shared memory, then for every band and plane
-//              x h (from the band's h kept as a zero-padded window in shared
-//              memory, the triangle skipped in steps of 8 columns) plus s G
-//              (fp64), and y is stored once.
+//   3. out:    y = x h + s G for every band and plane, y stored once.
+//      L <= 128 (the filter-bank path's blocks) takes the tensor cores
+//      (`bank_out_mma_kernel`). It replaces an FFMA pass whose x h alone
+//      needed ~1.7 ms per config-3 bank at the FFMA peak, with s G as dense
+//      fp64 on the CUDA cores, and whose inner loop was held by shared-memory
+//      loads as much as by the FMAs (6.99 / 6.53 ms on the H100). A warp
+//      owns 16 rows and every column: x h runs as m16n8k8 TF32 mma.sync in
+//      three products, h held in registers as its 16 distinct 8x8 Toeplitz
+//      tiles (tile d = column tile - l tile; B[k][n] = h[8d + n - k], zero
+//      below 0), the tiles above the diagonal skipped; its fp32 sums,
+//      converted to double in place, are the C operand of m16n8k4 fp64
+//      mma.sync for s G (the same lane layout; the older m8n8k4 shape runs
+//      at half the fp64 tensor rate on the H100). What bounds it then: the
+//      tensor pipe (mma.sync TF32 peaks near 300 TFLOP/s on the H100, well
+//      below the 495 of wgmma) and the y bytes; G and h arrive by cp.async a
+//      plane ahead, and y leaves straight from the accumulators. Longer
+//      blocks keep the FFMA pass (`bank_out_kernel`, x streamed in chunks
+//      of 128 l).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -315,19 +332,18 @@ cudaError_t launch_chain(const double* A, double* vs, double* carry, double* zf,
     return cudaGetLastError();
 }
 
-// Pass 3. Block (tile, ct) writes columns [c0, c0 + 128) of 64 rows (r,k) of
-// every band and plane. The columns form 16 groups of 8; warp w owns groups
-// w and 15 - w (so that every warp has the same share of the Toeplitz
-// triangle: group g needs l < c0 + 8g + 8 only), lane i rows i and i + 32.
-// Per 8 l a group reads 15 values of the band's h window (broadcast to the
-// warp: hv[t] = h[col0 - l0 - 7 + t]) and, per row, the 8 x values of its
-// own row (consecutive across the warp) for 128 FMAs; the triangle's partial
-// blocks are covered by the window's zeros. The fp64 epilogue adds s G with
-// s stored column-major (consecutive rows across the warp) and G's values
-// broadcast, and the tile is stored through shared memory. kResident (L <=
-// 128) loads x's tile once for all bands and planes; otherwise it is
-// streamed in chunks of 128 l for each.
-template <bool kResident>
+// Pass 3 on the CUDA cores, for L > 128. Block (tile, ct) writes columns
+// [c0, c0 + 128) of 64 rows (r,k) of every band and plane. The columns
+// form 16 groups of 8; warp w owns groups w and 15 - w (so that every warp
+// has the same share of the Toeplitz triangle: group g needs l < c0 + 8g +
+// 8 only), lane i rows i and i + 32. Per 8 l a group reads 15 values of the
+// band's h window (broadcast to the warp: hv[t] = h[col0 - l0 - 7 + t])
+// and, per row, the 8 x values of its own row (consecutive across the warp)
+// for 128 FMAs; the triangle's partial blocks are covered by the window's
+// zeros. The fp64 epilogue adds s G with s stored column-major (consecutive
+// rows across the warp) and G's values broadcast, and the tile is stored
+// through shared memory. x's tile is streamed in chunks of 128 l for each
+// band and plane.
 __global__ void __launch_bounds__(kThreads, 2)
 bank_out_kernel(const float* __restrict__ x, const float* __restrict__ h,
                 const double* __restrict__ G, const double* __restrict__ vs,
@@ -351,11 +367,9 @@ bank_out_kernel(const float* __restrict__ x, const float* __restrict__ h,
     const int c0 = blockIdx.y * kColTile;
     const int lmax = L < c0 + kColTile ? L : c0 + kColTile;  // only l <= column matter
     row_offsets(rowoff, yoff, row0, RK, K, L, ldx, ldy);
-    __syncthreads();
-    if (kResident) load_x_tile(x, xt, rowoff, 0, lmax);
 
     for (int b = 0; b < B; ++b) {
-        __syncthreads();  // the previous band's reads of sT are done
+        __syncthreads();  // rowoff is written; the previous band's reads of sT are done
         for (int i = tid; i < kTileRows * N; i += kThreads) {
             const int r = i / N;
             const int n = i - r * N;
@@ -381,11 +395,9 @@ bank_out_kernel(const float* __restrict__ x, const float* __restrict__ h,
             float acc[2][2][8] = {};  // [group][row][column]
             for (int lc = 0; lc < lmax; lc += kLChunk) {
                 const int kc = lmax - lc < kLChunk ? lmax - lc : kLChunk;
-                if (!kResident) {
-                    __syncthreads();
-                    load_x_tile(x, xt, rowoff, lc, kc);
-                    __syncthreads();
-                }
+                __syncthreads();
+                load_x_tile(x, xt, rowoff, lc, kc);
+                __syncthreads();
                 // group g needs l < c0 + 8g + 8: the second group's range
                 // holds the first's
                 const int l_end1 = c0 + 8 * groups[1] + 8 - lc;
@@ -454,6 +466,225 @@ bank_out_kernel(const float* __restrict__ x, const float* __restrict__ h,
     }
 }
 
+// Pass 3 on the tensor cores, for L <= 128 (one column tile). The parts of
+// fp32 x and h for three TF32 products: v = hi + lo, both rounded with
+// cvt.rna (hi + lo carries 22 of v's 24 bits; x_lo h_lo is dropped).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+    return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(v);
+    lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// c += a b, m16n8k8, TF32 in, fp32 sums. Lane (gid = lane / 4, tig = lane %
+// 4) holds a = A[gid, tig], A[gid + 8, tig], A[gid, tig + 4], A[gid + 8, tig
+// + 4]; b = B[tig, gid], B[tig + 4, gid]; c = C[gid, 2 tig], C[gid, 2 tig +
+// 1], C[gid + 8, 2 tig], C[gid + 8, 2 tig + 1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, m16n8k4 in fp64 (sm_90): a = A[gid, tig], A[gid + 8, tig]; b =
+// B[tig, gid]; c in the lanes and order of mma_tf32's.
+__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1, double b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+        "{%0, %1, %2, %3};"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a0), "d"(a1), "d"(b));
+}
+
+// y row `row` (null past the end) <- columns m and m + 1 (those < L)
+__device__ __forceinline__ void store_pair(float* row, int m, int L, double v0, double v1) {
+    if (row == nullptr) return;
+    float* p = row + m;
+    if (m + 1 < L && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+        *reinterpret_cast<float2*>(p) = make_float2((float)v0, (float)v1);
+    } else {
+        if (m < L) p[0] = (float)v0;
+        if (m + 1 < L) p[1] = (float)v1;
+    }
+}
+
+constexpr int kMmaWarps = 4;                 // warps per block: 16 rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTiles = kColTile / 8;         // 8-column tiles of a block's columns
+constexpr int kXR = kColTile + 4;            // row stride of xs: conflict-free A fragments
+constexpr int kGR = kColTile + 8;            // row stride (doubles) of Gs: conflict-free B fragments
+constexpr int kHZ = kColTile + 8;            // hz[u] = h[u - 8], zero outside [0, L)
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// async copies, zero-filled when !valid (src then only needs to be a valid
+// address)
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp8(double* dst, const double* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// queue plane (b, p)'s G slab (lanes padded to N4 with zeros) and zero-padded
+// h into one of the two stages
+__device__ __forceinline__ void queue_plane(const float* __restrict__ h,
+                                            const double* __restrict__ G, double* Gs, float* hz,
+                                            long long band, int L, int N, int N4) {
+    for (int i = threadIdx.x; i < N4 * kColTile; i += kMmaThreads) {
+        const int n = i / kColTile;
+        const int m = i - n * kColTile;
+        const bool valid = n < N && m < L;
+        cp8(Gs + n * kGR + m, valid ? G + (band * N + n) * L + m : G, valid);
+    }
+    for (int u = threadIdx.x; u < kHZ; u += kMmaThreads) {
+        const bool valid = u >= 8 && u - 8 < L;
+        cp4(hz + u, valid ? h + band * L + u - 8 : h, valid);
+    }
+}
+
+// Block: 64 rows (r,k); warp w owns rows 16w..16w+15 and all columns. x's
+// tile (rows x 128, zero past L) stays in shared memory for every band and
+// plane; each plane's G slab and h arrive by cp.async in one of two stages
+// while the previous plane is computed. Each warp keeps h's 16 Toeplitz
+// tiles as B fragments (hi and lo: 64 registers) and its 16 column tiles'
+// sums (64 registers); for each l tile lt it splits its A fragment of x
+// once and adds it to the column tiles nt >= lt: x_lo h_hi, x_hi h_lo,
+// x_hi h_hi. The epilogue adds s G per column tile on the fp64 tensor cores
+// in KS k-steps of 4 lanes (s's A fragments read from vs once per band,
+// before the x h loop) and stores each lane's column pairs of its two rows.
+template <int KS>
+__global__ void __launch_bounds__(kMmaThreads, KS <= 4 ? 3 : 2)
+bank_out_mma_kernel(const float* __restrict__ x, const float* __restrict__ h,
+                    const double* __restrict__ G, const double* __restrict__ vs,
+                    float* __restrict__ y, int B, long long R, long long K, int L, int N, int P,
+                    long long ldx, long long ldy) {
+    extern __shared__ double2 smem4[];
+    const int N4 = (N + 3) & ~3;
+    double* Gs = reinterpret_cast<double*>(smem4);                 // 2 stages of (N4, kGR)
+    long long* rowoff = reinterpret_cast<long long*>(Gs + 2 * (size_t)N4 * kGR);
+    long long* yoff = rowoff + kTileRows;
+    float* xs = reinterpret_cast<float*>(yoff + kTileRows);        // (kTileRows, kXR)
+    float* hz = xs + kTileRows * kXR;                              // 2 stages of (kHZ)
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const long long RK = R * K;
+    const long long BN = (long long)B * N;
+    const long long row0 = (long long)blockIdx.x * kTileRows;
+    const int wr = 16 * warp;       // the warp's first row in the tile
+    const int nT = (L + 7) >> 3;    // l tiles holding x
+    const int planes = B * P;       // in the order (b, p)
+    row_offsets(rowoff, yoff, row0, RK, K, L, ldx, ldy);
+    __syncthreads();
+    for (int i = tid; i < kTileRows * kColTile; i += kMmaThreads) {
+        const int r = i / kColTile;
+        const int l = i - r * kColTile;
+        const long long off = rowoff[r];
+        const bool valid = off >= 0 && l < L;
+        cp4(xs + r * kXR + l, valid ? x + off + l : x, valid);
+    }
+    queue_plane(h, G, Gs, hz, 0, L, N, N4);
+    cp_commit();
+    const float* xw = xs + wr * kXR + tig;
+    const long long off0 = yoff[wr + gid];
+    const long long off1 = yoff[wr + gid + 8];
+
+    double sa[2][KS];
+    for (int q = 0; q < planes; ++q) {
+        const int b = q / P;
+        const long long band = (long long)(q - b * P) * B + b;
+        const double* Gq = Gs + (q & 1) * (size_t)N4 * kGR;
+        const float* hq = hz + (q & 1) * kHZ;
+        cp_wait_all();
+        __syncthreads();  // plane q's stage is visible; plane q - 1's is free
+        if (q + 1 < planes) {
+            const int b1 = (q + 1) / P;
+            queue_plane(h, G, Gs + ((q + 1) & 1) * (size_t)N4 * kGR, hz + ((q + 1) & 1) * kHZ,
+                        (long long)(q + 1 - b1 * P) * B + b1, L, N, N4);
+            cp_commit();
+        }
+
+        // s's A fragments, once per band: sa[half][ks] = s[row wr + 8 half +
+        // gid][lane 4 ks + tig]
+        if (q == b * P) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const long long row = row0 + wr + 8 * half + gid;
+#pragma unroll
+                for (int ks = 0; ks < KS; ++ks) {
+                    const int n = 4 * ks + tig;
+                    sa[half][ks] = (n < N && row < RK) ? vs[row * BN + (long long)b * N + n] : 0.0;
+                }
+            }
+        }
+        // tile d: b0 = h[8d + gid - tig], b1 = h[8d + gid - tig - 4]
+        uint32_t hb[kTiles][2][2];  // [d][b0, b1][hi, lo]
+#pragma unroll
+        for (int d = 0; d < kTiles; ++d) {
+            split_tf32(hq[8 * d + gid - tig + 8], hb[d][0][0], hb[d][0][1]);
+            split_tf32(hq[8 * d + gid - tig + 4], hb[d][1][0], hb[d][1][1]);
+        }
+        float acc[kTiles][4];
+#pragma unroll
+        for (int nt = 0; nt < kTiles; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][i] = 0.0f;
+#pragma unroll
+        for (int lt = 0; lt < kTiles; ++lt) {
+            if (lt < nT) {  // warp-uniform
+                const float* xa = xw + 8 * lt;
+                uint32_t ahi[4], alo[4];
+                split_tf32(xa[gid * kXR], ahi[0], alo[0]);
+                split_tf32(xa[(gid + 8) * kXR], ahi[1], alo[1]);
+                split_tf32(xa[gid * kXR + 4], ahi[2], alo[2]);
+                split_tf32(xa[(gid + 8) * kXR + 4], ahi[3], alo[3]);
+#pragma unroll
+                for (int nt = lt; nt < kTiles; ++nt)
+                    mma_tf32(acc[nt], alo, hb[nt - lt][0][0], hb[nt - lt][1][0]);
+#pragma unroll
+                for (int nt = lt; nt < kTiles; ++nt)
+                    mma_tf32(acc[nt], ahi, hb[nt - lt][0][1], hb[nt - lt][1][1]);
+#pragma unroll
+                for (int nt = lt; nt < kTiles; ++nt)
+                    mma_tf32(acc[nt], ahi, hb[nt - lt][0][0], hb[nt - lt][1][0]);
+            }
+        }
+
+        float* yb = y + band * R * ldy;
+        float* y0 = off0 >= 0 ? yb + off0 : nullptr;  // rows gid and gid + 8
+        float* y1 = off1 >= 0 ? yb + off1 : nullptr;
+#pragma unroll
+        for (int nt = 0; nt < kTiles; ++nt) {
+            double c[4] = {acc[nt][0], acc[nt][1], acc[nt][2], acc[nt][3]};
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks) {
+                if (4 * ks < N4)  // warp-uniform
+                    mma_f64(c, sa[0][ks], sa[1][ks], Gq[(4 * ks + tig) * kGR + 8 * nt + gid]);
+            }
+            store_pair(y0, 8 * nt + 2 * tig, L, c[0], c[1]);
+            store_pair(y1, 8 * nt + 2 * tig, L, c[2], c[3]);
+        }
+    }
+}
 }  // namespace
 
 // x (R rows of stride ldx; the first K*L samples of each are filtered), fp32;
@@ -506,19 +737,33 @@ extern "C" int dsptb_iir_bank_f32(const float* x, const float* h, const double* 
     }
     if (err != cudaSuccess) return (int)err;
 
-    // pass 3: x's tile (resident when L <= 128), s, one plane's G slab and
-    // h window in shared memory
+    // pass 3: L <= 128 on the tensor cores, x's tile resident; longer blocks
+    // on the CUDA cores, x streamed. Both keep one plane's G slab and h in
+    // shared memory
+    if (L <= kColTile) {
+        const size_t smem4 = sizeof(double) * 2 * (size_t)((Ns + 3) & ~3) * kGR +
+                             sizeof(long long) * 2 * kTileRows +
+                             sizeof(float) * ((size_t)kTileRows * kXR + 2 * kHZ);
+        if (smem4 > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+        // s's k-steps: up to 4 (Ns <= 16, three blocks an SM) or 8
+        auto out_kernel = Ns <= 16 ? bank_out_mma_kernel<4> : bank_out_mma_kernel<8>;
+        if ((err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem4)) != cudaSuccess)
+            return (int)err;
+        out_kernel<<<(unsigned)tiles, kMmaThreads, smem4, st>>>(
+            x, h, G, vs, y, B, R, K, L, Ns, P, ldx, ldy);
+        return (int)cudaGetLastError();
+    }
     const int n_col = (L + kColTile - 1) / kColTile;
     const size_t smem3 = sizeof(double) * ((size_t)kTileRows * Ns + (size_t)Ns * kColTile) +
                          sizeof(long long) * 2 * kTileRows +
                          sizeof(float) * ((size_t)kLChunk * kXS + hw_alloc(L) +
                                           (size_t)kTileRows * kYS);
     if (smem3 > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-    auto out_kernel = L <= kLChunk ? bank_out_kernel<true> : bank_out_kernel<false>;
-    if ((err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if ((err = cudaFuncSetAttribute(bank_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)smem3)) != cudaSuccess)
         return (int)err;
-    out_kernel<<<dim3((unsigned)tiles, (unsigned)n_col), kThreads, smem3, st>>>(
+    bank_out_kernel<<<dim3((unsigned)tiles, (unsigned)n_col), kThreads, smem3, st>>>(
         x, h, G, vs, y, B, R, K, L, Ns, P, ldx, ldy);
     return (int)cudaGetLastError();
 }

@@ -42,8 +42,12 @@ def auditory_filters_gammatone(
     frequencies_hz = erb_frequencies(frequency_range_hz, resolution)
     erb_aud = 24.7 + frequencies_hz / 9.265
     a_gamma = np.pi * 720 * 2 ** (-6) / 36
-    lam = np.exp(-2 * np.pi * (erb_aud / a_gamma) / sampling_rate_hz)
-    coefficients = lam * np.exp(1j * 2 * np.pi * frequencies_hz / sampling_rate_hz)
+    # b and beta are formed apart, as in the reference: the gain iteration
+    # of `GammaToneFilterBank` amplifies a last-bit difference
+    b = erb_aud / a_gamma
+    lam = np.exp(-2 * np.pi * b / sampling_rate_hz)
+    beta = 2 * np.pi * frequencies_hz / sampling_rate_hz
+    coefficients = lam * np.exp(1j * beta)
     normalizations = 2 * (1 - np.abs(coefficients)) ** 4
     filters = []
     for bb in range(len(frequencies_hz)):

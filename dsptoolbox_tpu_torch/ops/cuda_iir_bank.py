@@ -14,18 +14,22 @@ Per band b and L-sample block k, with the block operators of
 
     y[b,k] = x_k H_b + s[b,k] G_b ;   s[b,k+1] = s[b,k] A_b + x_k M_b ;   s[b,0] = 0
 
-Precision follows the port's blocked IIR (`cuda_iir`): ``x_k H`` in fp32,
-the whole state path (``x M``, the chain, ``s G``) in float64. The JAX
-package's float32 bank misses scipy by up to 1e-3 and more on the lowest
-1/3-octave bands; the float64 state keeps them within 5e-6.
+Precision follows the port's blocked IIR (`cuda_iir`): ``x_k H`` at fp32
+accuracy (on the card three TF32 tensor-core products of a hi/lo split, or
+fp32 FFMA), the whole state path (``x M``, the chain, ``s G``) in float64.
+The JAX package's float32 bank misses scipy by up to 1e-3 and more on the
+lowest 1/3-octave bands; the float64 state keeps them within 5e-6.
 
 The kernel (`csrc/iir_bank.cu`) runs on the operators' real form
 (`kernel_operators`): a complex cascade with N complex states becomes
 ``Ns = 2N`` real state lanes and two output planes (real, imaginary), a
 real one ``Ns = N`` lanes and one plane; it takes up to `MAX_LANES` lanes,
 and `iir_block.bank_kernel_stages` splits longer cascades into stages.
-Bound on the H100: the output bytes (the planes of every band) and the fp32
-Toeplitz FMAs; see the source for the three passes.
+Bound on the H100: the output bytes (the planes of every band) and the
+Toeplitz products; see the source for the three passes. The output pass
+runs on the tensor cores for blocks of up to `MMA_MAX_L` samples (x·h as
+3×TF32 m16n8k8 ``mma.sync``, s·G as fp64 m16n8k4) and on the CUDA cores
+(fp32 FFMA, fp64 FMA) for longer ones (`output_pass`).
 
 `iir_block.sosfilt_bank_apply_planes` chooses: a CUDA tensor goes to
 `sosfilt_bank_lead_cuda` unless the switch (`_config.set_bank_kernel`) is
@@ -48,10 +52,20 @@ launches = 0
 # real state lanes the kernel's chain holds: one per lane of a warp
 MAX_LANES = 32
 
+# longest block whose output pass runs on the tensor cores (one 128-column
+# tile of h's Toeplitz operator)
+MMA_MAX_L = 128
+
 _c = ctypes.c_void_p
 _ARGTYPES = [_c] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                         ctypes.c_longlong, ctypes.c_longlong, _c]
+
+
+def output_pass(L: int) -> str:
+    """The output pass the kernel takes at block length ``L``: "mma" (the
+    tensor cores) or "ffma" (the CUDA cores)."""
+    return "mma" if L <= MMA_MAX_L else "ffma"
 
 
 def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

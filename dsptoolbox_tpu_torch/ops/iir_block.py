@@ -124,11 +124,6 @@ def _pick_block(T: int) -> int:
     return 128
 
 
-# Minimum full blocks before `sosfilt_block`'s lead goes to the CUDA kernel
-# (B2); the JAX package's TPU crossover, kept for parity until it is swept
-# on the H100. The bank route has no such gate.
-_KERNEL_MIN_BLOCKS = 16
-
 # Sections per blocked cascade: the lead kernel's state chain holds
 # N = 2·S <= 32 states, one per lane of a warp
 _MAX_SECTIONS = MAX_STATES // 2
@@ -183,8 +178,8 @@ def sosfilt_block(
 
     Matches ``scipy.signal.sosfilt`` numerically, including the ``zi``/``zf``
     state layout ``(..., S, 2)``. Returns ``(y, zf)``. The full blocks go
-    through `cuda_iir.sosfilt_lead` (the CUDA kernel for float32 CUDA input
-    with at least 16 blocks), the remainder tail through one more block
+    through `cuda_iir.sosfilt_lead` (the CUDA kernel for float32 CUDA input,
+    at any number of blocks), the remainder tail through one more block
     product. A cascade of more than 16 sections runs as a series of
     cascades of at most 16.
     """
@@ -232,11 +227,9 @@ def sosfilt_block(
     rem = T - n_full * L
     if n_full > 0:
         xb = x[..., : n_full * L].reshape(B, n_full, L)
-        lead = (
-            sosfilt_lead
-            if compute_dtype == torch.float32 and n_full >= _KERNEL_MIN_BLOCKS
-            else sosfilt_lead_plain
-        )
+        # every float32 lead takes `sosfilt_lead` (B2 on a CUDA tensor, at
+        # any block count); the kernel takes float32 only
+        lead = sosfilt_lead if compute_dtype == torch.float32 else sosfilt_lead_plain
         y, s_end = lead(H, G, A, M, xb, s0)
         y = y.reshape(B, n_full * L)
     else:

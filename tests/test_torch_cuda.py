@@ -106,6 +106,19 @@ def test_sosfilt_block_on_card_matches_scipy(dev):
     np.testing.assert_allclose(zf.cpu().numpy(), np.moveaxis(zf_ref, 0, 1), atol=1e-6)
 
 
+def test_short_sosfilt_block_on_card_launches_the_kernel(dev):
+    """T = 1000 is 7 blocks of 128: the lead still runs B2 on the card."""
+    sos = butter(4, [250.0, 1000.0], btype="bandpass", fs=48000, output="sos")
+    x = RNG.standard_normal((3, 1000)).astype(np.float32)
+    zi = np.tile(sosfilt_zi(sos)[None], (3, 1, 1)) * 0.5
+    before = cuda_iir.launches
+    y, zf = iir_block.sosfilt_block(sos, torch.from_numpy(x).to(dev), zi=zi)
+    assert cuda_iir.launches == before + 1
+    y_ref, zf_ref = sosfilt(sos, x.astype(np.float64), zi=np.moveaxis(zi, 0, 1))
+    assert _rel(y, y_ref) < 5e-6
+    np.testing.assert_allclose(zf.cpu().numpy(), np.moveaxis(zf_ref, 0, 1), atol=1e-6)
+
+
 def test_long_cascade_and_long_blocks_on_card_match_scipy(dev):
     """18 sections run as two kernel launches (16 + 2 sections) at blocks of
     512 samples."""
@@ -353,9 +366,11 @@ def _real_bank(n_bands, sections):
 
 # (bank, R, T): B = 1 and 5 complex; R = 1 and 3; T = 3000 and 5000 (not
 # multiples of 128); a 16-section real bank (32 state lanes, the kernel's
-# widest); a 6-section complex bank (24 lanes); the 4-band crossover of the
-# headline chain; a short input (T = 1000, 7 blocks)
+# widest); a 6-section complex bank (24 lanes); a 1-section real bank (2
+# lanes); the 4-band crossover of the headline chain; a short input (T =
+# 1000, 7 blocks)
 _B3_CASES = {
+    "real1-B3-R2-T3000": (_real_bank(3, 1), 2, 3000),
     "complex-B2-R2-T1000": (_complex_bank(2, 4), 2, 1000),
     "complex-B1-R1-T3000": (_complex_bank(1, 4), 1, 3000),
     "complex-B5-R3-T5000": (_complex_bank(5, 4), 3, 5000),
@@ -437,6 +452,27 @@ def test_bank_apply_on_card_matches_scipy_and_cpu(dev):
     assert _rel(off, re) <= 1e-5
 
 
+def test_third_octave_bank_on_card_matches_scipy(dev):
+    """The 28-band ANSI 1/3-octave bank at 44.1 kHz (31.5 Hz-16 kHz, 6
+    sections) through B3: every band within 5e-6 of scipy's float64 sosfilt,
+    scale-relative. The low bands are where the 3×TF32 split of x·h and the
+    fp64 state path must hold."""
+    from dsptoolbox_tpu_torch.filterbanks import fractional_octave_bands
+
+    fb = fractional_octave_bands([31.5, 16e3], 3, 6, 44100)[0]
+    bank = np.stack([f.sos for f in fb.filters])
+    assert bank.shape == (28, 6, 6)
+    x = RNG.standard_normal((2, 44100)).astype(np.float32)
+    ops = iir_block.bank_device_operators(bank, x.shape[-1], torch.float32, dev)
+    assert cuda_iir_bank.output_pass(ops["L"]) == "mma"
+    before = cuda_iir_bank.launches
+    y = iir_block.sosfilt_bank_apply(ops, torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert cuda_iir_bank.launches == before + 1
+    for b in range(len(bank)):
+        assert _rel(y[b], sosfilt(bank[b], x.astype(np.float64))) < 5e-6, f"band {b}"
+
+
 def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev):
     """On the card every float32 input runs B3, however few its blocks (a
     1024-sample impulse response of a FilterBank); a float64 input raises
@@ -467,10 +503,12 @@ def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev)
         assert _rel(y[b], sosfilt(bank[b], x.cpu().numpy())) < 1e-9
 
 
-@pytest.mark.parametrize("L", [64, 200, 300])
+@pytest.mark.parametrize("L", [8, 13, 64, 100, 200, 300])
 def test_bank_kernel_block_lengths(dev, L):
-    """Block lengths other than 128: one column tile below it, two and three
-    above it, where x's tile is streamed through shared memory."""
+    """Block lengths other than 128: below it on the tensor cores (13 and
+    100 not multiples of 8: x and h zero-padded), two and three column
+    tiles above it on the CUDA cores, where x's tile is streamed through
+    shared memory."""
     bank = _complex_bank(2, 4)
     T = 17 * L + 9
     x = torch.from_numpy(RNG.standard_normal((2, T)).astype(np.float32)).to(dev)

@@ -413,12 +413,17 @@ def test_lr_filterbank_zero_phase_and_state_match_jax(mode):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("fs,rng_hz", [(5000, [500, 1000]), (FS, [500, 4000])],
-                         ids=["5k", "44k1"])
+@pytest.mark.parametrize("fs,rng_hz", [(5000, [500, 1000]), (FS, [500, 4000]),
+                                       (FS, [500, 2000]), (48000, [500, 2000])],
+                         ids=["5k", "44k1", "44k1-500-2000", "48k-500-2000"])
 def test_gammatone_matches_jax(fs, rng_hz):
+    """The 500-2000 Hz banks at 44.1 and 48 kHz are where the gain
+    iteration amplifies a last-bit difference in the coefficients: they
+    hold the coefficients bit-identical and the gains to 1e-9."""
     gt = filterbanks.auditory_filters_gammatone(rng_hz, sampling_rate_hz=fs)
     jgt = jdsp.filterbanks.auditory_filters_gammatone(rng_hz, sampling_rate_hz=fs)
     np.testing.assert_array_equal(gt._delays, jgt._delays)
+    np.testing.assert_array_equal(gt._coefficients, jgt._coefficients)
     # parity: at 44.1 kHz the upper bands' phase factors and every gain are
     # NaN on both sides (their responses' last samples underflow)
     np.testing.assert_allclose(gt._phase_factors, jgt._phase_factors, rtol=1e-12)
@@ -431,7 +436,8 @@ def test_gammatone_matches_jax(fs, rng_hz):
         assert_close(_band_data(b), _jax_band_data(jb), 2e-4, "gammatone band")
     rec = gt.reconstruct(mb).time_data.numpy()
     jrec = np.asarray(jgt.reconstruct(jmb).time_data)
-    if fs == 5000:
+    if rng_hz[1] <= 2000:
+        assert np.isfinite(rec).all()
         assert_close(rec, jrec, 2e-4, "gammatone reconstruct")
     else:
         assert np.isnan(rec).all() and np.isnan(jrec).all()

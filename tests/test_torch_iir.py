@@ -135,9 +135,10 @@ class TestSosfiltBlock:
 
 
 def test_kernel_range(monkeypatch):
-    """Every float32 lead of at least 16 blocks goes to `sosfilt_lead`, at
-    any block length; a cascade of more than 16 sections (N > 32, beyond
-    the kernel's warp-wide state) runs as a series of shorter cascades."""
+    """Every float32 lead goes to `sosfilt_lead`, at any number of blocks
+    (T = 1000: 7 blocks of 128) and any block length; a cascade of more
+    than 16 sections (N > 32, beyond the kernel's warp-wide state) runs as
+    a series of shorter cascades."""
     seen = []
 
     def lead(H, G, A, M, xb, s0):
@@ -156,6 +157,12 @@ def test_kernel_range(monkeypatch):
     y_ref, zf_ref = sosfilt(sos, x.astype(np.float64), zi=_scipy_zi(zi))
     assert _rel_err(y.numpy(), y_ref) < 5e-6
     np.testing.assert_allclose(zf.numpy(), _scipy_zi(zf_ref), atol=1e-6)
+    seen.clear()
+    short = butter(4, 0.2, output="sos")
+    x = RNG.standard_normal((2, 1000)).astype(np.float32)
+    y, _ = iir_block.sosfilt_block(short, torch.from_numpy(x))
+    assert seen == [(128, 4)]
+    assert _rel_err(y.numpy(), sosfilt(short, x.astype(np.float64))) < 5e-6
 
 
 class TestZeroState:
