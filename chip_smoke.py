@@ -7,15 +7,18 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
 
 - the measurement chain (`dsptoolbox_tpu_torch.headline.run`: 16 signals ×
   8 s at 48 kHz, STFT + 4-band crossover + deconvolution; ``per_band``
-  runs B1 + B2, ``banked`` B1 + B3): the framing (B1) and IIR lead (B2)
-  kernels are held against their plain PyTorch versions at the chain's
-  shapes (B2 also on a 7-block input), the chain against the same chain on
-  the plain paths and against scipy/numpy in float64;
+  runs B1 + B2, ``banked`` B1 + B3): the framing (B1) and IIR lead (B2,
+  one band of the filter-bank kernel's passes with a start state) kernels
+  are held against their plain PyTorch versions at the chain's shapes and
+  against scipy's float64 sosfilt (B2 also on a 7-block input; each band
+  prints its output pass), the chain against the same chain on the plain
+  paths and against scipy/numpy in float64;
 - the acoustic-camera DAS map (`dsptoolbox_tpu_torch.tools.camera`: 64 mics,
   900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
   a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
   is held against its plain version on the full 513-bin sweep and ragged
-  shapes, the map against the plain path and the source's position;
+  shapes, and timed there and at the two recordings' own shapes, the map
+  against the plain path and the source's position;
 - the transfer-function measurement (`dsptoolbox_tpu_torch.tools.measurement`:
   a 5 s SyncLog sweep recorded by 16 microphones at 48 kHz, deconvolved,
   windowed to 65,536 samples and 1/3-octave smoothed over 32,769 bins): the
@@ -62,7 +65,7 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
-KERNELS = ("framing", "iir_lead", "das_map", "banded", "iir_bank")
+KERNELS = ("framing", "das_map", "banded", "iir_bank")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes
@@ -720,8 +723,12 @@ def main() -> int:
             if not err <= 1e-6:
                 fail("framing kernel disagrees with its plain version")
 
-    # 4. B2 IIR lead kernel vs plain, per crossover band, nonzero zi
+    # 4. B2 IIR lead kernel vs plain, per crossover band, nonzero zi, on
+    # the tensor-core output pass (blocks of 128)
     xb = x.reshape(BATCH, T // L_IIR, L_IIR)
+    out_pass = cuda_iir_bank.output_pass(L_IIR)
+    if out_pass != "mma":
+        fail(f"B2 at L = {L_IIR} takes the {out_pass} output pass, not the tensor cores")
     gains = rng.uniform(0.2, 1.0, (BATCH, 1, 1))
     b2_err = 0.0
     lead_args = []
@@ -746,7 +753,8 @@ def main() -> int:
         b2_err = max(b2_err, y_err)
         y0_ref, _ = scipy_sosfilt(sos, x[0].double().cpu().numpy(), zi=zi[0])
         sc_err = rel_err(yk[0].reshape(-1), y0_ref)
-        print(f"B2 lead band {i}: |dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
+        print(f"B2 lead band {i} N={args[2].shape[0]}, output pass {out_pass}: "
+              f"|dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
               f"|dzf| {z_err:.3e} <= 1e-6*{z_scale:.3e}; "
               f"scipy f64 channel 0 scale-rel {sc_err:.3e} (tol 5e-6)")
         if not (y_err <= 1e-5 * y_scale and z_err <= 1e-6 * z_scale):
@@ -765,7 +773,8 @@ def main() -> int:
     y_err = float((ys - yp).abs().max())
     b2_err = max(b2_err, y_err)
     sc_err = rel_err(ys[0], scipy_sosfilt(sos, x[0, :1000].double().cpu().numpy(), zi=zi[0])[0])
-    print(f"B2 lead, 7 blocks (T = 1000): {short_launches} launch; |dy| vs plain "
+    print(f"B2 lead, 7 blocks (T = 1000), output pass {out_pass}: {short_launches} "
+          f"launch; |dy| vs plain "
           f"{y_err:.3e} <= 1e-5*{float(yp.abs().max()):.3e}; scipy f64 channel 0 "
           f"scale-rel {sc_err:.3e} (tol 5e-6)")
     if short_launches != 1 or not (y_err <= 1e-5 * float(yp.abs().max()) and sc_err <= 5e-6):
@@ -863,6 +872,13 @@ def main() -> int:
         return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
                 for a in (amp, diff, k, C.real, C.imag)]
 
+    def das_bound(F, M, G):
+        # C (real and imaginary) read, the map written; Re(hᴴ C h) needs only
+        # C's Hermitian part, so 2·M² + 2·M FMAs per (point, bin) over its
+        # upper triangle, plus M² per bin to fold C into (C + Cᴴ)/2 once
+        return bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
+                     2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
+
     b5_err = 0.0
     das_args = {}
     for F, M, G in (DAS_SWEEP,) + DAS_RAGGED:
@@ -931,6 +947,19 @@ def main() -> int:
     print(f"time B5 DAS map (F, M, G) = {DAS_SWEEP}: kernel {b5_ms:.4f} ms "
           f"({G * F / (b5_ms * 1e-3):.4g} point-bins/s), plain {b5_plain:.4f} ms "
           f"({G * F / (b5_plain * 1e-3):.4g} point-bins/s)")
+    # B5 at the shapes the DAS path launches: each recording's (n_bins, 64,
+    # 900)
+    b5_paths = []
+    for label, _, _, n_bins in cams:
+        pargs = das_inputs(n_bins, M, G)
+        k_ms, p_ms = time_pair(lambda: cuda_das.das_map_cuda(*pargs),
+                               lambda: cuda_das.das_map_plain(*pargs))
+        p_bound, p_by = das_bound(n_bins, M, G)
+        print(f"time B5 DAS map at the shape of {label}, (F, M, G) = {(n_bins, M, G)}: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {p_bound:.4f} ms "
+              f"({p_by}, {k_ms / p_bound:.2f}×)")
+        b5_paths.append({"shape": [n_bins, M, G], "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": p_bound, "bound_by": p_by})
 
     for label, sig, beam, n_bins in cams:
         def one_map():
@@ -960,10 +989,7 @@ def main() -> int:
     # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
     # tensor cores, whichever is faster); the state path in fp64 (the
     # serial chain, and x·M and s·G as products for the fp64 tensor cores);
-    # x read, y written. B5: C (real and imaginary) read,
-    # the map written; Re(hᴴ C h) needs only C's Hermitian part, so
-    # 2·M² + 2·M FMAs per (point, bin) over its upper triangle, plus M² per
-    # bin to fold C into (C + Cᴴ)/2 once
+    # x read, y written. B5 at the sweep: `das_bound`
     b1_bound, b1_by = bound(4 * (x.numel() + BATCH * K * WINDOW + WINDOW),
                             BATCH * K * WINDOW)
     b2_bytes = b2_f32 = b2_f64 = b2_f64_mm = 0.0
@@ -975,8 +1001,7 @@ def main() -> int:
         b2_f64 += 2.0 * Bb * Kb * Nb * Nb
         b2_f64_mm += 2.0 * Bb * Kb * 2 * Lb * Nb
     b2_bound, b2_by = bound(b2_bytes, 0.0, b2_f64, b2_f64_mm, b2_f32)
-    b5_bound, b5_by = bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
-                            2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
+    b5_bound, b5_by = das_bound(F, M, G)
     print(f"bounds (H100 SXM peaks): B1 {b1_bound:.4f} ms ({b1_by}), B2 four "
           f"bands {b2_bound:.4f} ms ({b2_by}), B5 {b5_bound:.4f} ms ({b5_by}), "
           f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']}), B3 two banks "
@@ -992,7 +1017,7 @@ def main() -> int:
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None},
         {"name": "sosfilt_lead", "route": "cuda",
-         "source": "dsptoolbox_tpu_torch/csrc/iir_lead.cu",
+         "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": launches["iir_lead"], "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain,
@@ -1003,7 +1028,8 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
          "launches": das_launches["das_map"], "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain,
-         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": None},
+         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": None,
+         "by_path_shape": b5_paths},
         b4,
     ]}
     print(json.dumps(report))

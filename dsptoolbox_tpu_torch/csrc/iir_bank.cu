@@ -1,6 +1,11 @@
-// Zero-state IIR filter bank: B same-order SOS cascades on one shared input.
-// Replaces the Pallas kernel `sosfilt_bank_pallas` / `_bank_kernel_real` /
-// `_bank_kernel_cplx` (dsptoolbox_tpu/ops/pallas_iir_bank.py).
+// Blocked IIR: B same-order SOS cascades on one shared input, in L-sample
+// blocks. Replaces two Pallas kernels:
+//   - the filter bank `sosfilt_bank_pallas` / `_bank_kernel_real` /
+//     `_bank_kernel_cplx` (dsptoolbox_tpu/ops/pallas_iir_bank.py), zero start
+//     state, B bands;
+//   - the blocked-IIR lead `sosfilt_pallas` / `_iir_kernel`
+//     (dsptoolbox_tpu/ops/pallas_iir.py), which is this function with one band
+//     and one plane, its batch as the rows and a start state s0.
 //
 // The input x (R rows, row stride ldx) is real and shared by every band.
 // Per band b and L-sample block k of row r, in the real form of the
@@ -8,36 +13,48 @@
 // state lanes [Re s, Im s] and P = 2 output planes, a real one as Ns = N
 // lanes and P = 1 plane):
 //     y_p[b,k] = x_k h_{p,b} + s[b,k] G_{p,b}        (h: in-block impulse response)
-//     s[b,k+1] = s[b,k] A_b + x_k M_b,  s[b,0] = 0,   s[b,K] is returned as zf.
+//     s[b,k+1] = s[b,k] A_b + x_k M_b,  s[b,0] = s0[b] (zero for the bank),
+//     s[b,K] is returned as zf.
 //
 // Precision: x_k h (the lower-triangular Toeplitz product of the in-block
 // impulse response) in fp32 accuracy: on the tensor cores as three TF32
 // products of a hi/lo split (x_lo h_hi + x_hi h_lo + x_hi h_hi, each part
 // rounded with cvt.rna; never a single TF32 product), or in fp32 FFMA. The
 // whole state path (v = x M, the chain, s G) runs in fp64: for low-frequency
-// cascades (the 40-50 Hz third-octave bands) G reaches 1e4-1e5 against O(1)
-// outputs, and fp32 rounding of the state is amplified by that cancellation.
+// cascades (the 40-50 Hz third-octave bands, the 250 Hz crossover bands) G
+// reaches 1e4-1e5 against O(1) outputs, and fp32 rounding of the state is
+// amplified by that cancellation.
 //
-// Bound on the H100: y dominates the bytes (16 complex bands write 32 floats
-// per input float), and the work is ~L/2 fp32 FMAs per output sample for
-// x h plus ~Ns fp64 FMAs per output sample for s G and per band-lane for
-// x M. The TPU kernel concatenated the bands' Toeplitz matrices into dense
-// MXU products and carried the state across a sequential grid in VMEM;
-// here, in three passes (five launches):
+// Bound on the H100: for the bank, y dominates the bytes (16 complex bands
+// write 32 floats per input float), and the work is ~L/2 fp32 FMAs per
+// output sample for x h plus ~Ns fp64 FMAs per output sample for s G and
+// per band-lane for x M. For the lead (one band, 4-32 lanes) the function
+// moves x in and y out once (4 + 4 bytes per sample) for ~L/2 + 2 Ns FMAs
+// per sample: bound by the bytes with x h on the tensor cores, while its
+// chain is K serial Ns x Ns steps per row, bound by latency. The TPU kernels
+// carried the state across a sequential grid in VMEM; here, in three passes
+// (five launches), which write y once and keep the state in fp64:
 //   1. inject: parallel over tiles of 64 rows (r,k): v = x M for every band,
-//              x's tile staged once in shared memory, M streamed through it
-//              in chunks of 64 band-lanes; v is stored as (rows, B*Ns);
+//              stored as (rows, B*Ns). At 64 band-lanes and more (the
+//              filter-bank path's banks) x's tile is staged once in shared
+//              memory and M streamed through it in chunks of 64 lanes on the
+//              CUDA cores (`bank_inject_kernel`); below that (the lead, the
+//              chain's 4-band bank) a chunk of 64 would leave most FMAs on
+//              zero lanes, so the lanes are cut into 8-lane tiles for fp64
+//              m16n8k4 mma.sync (`bank_inject_mma_kernel`), about x's read;
 //   2. chain:  s_{k+1} = s_k A_b + v_k per (band, row), one warp per walk,
 //              cut into chunks of ~sqrt(K/2) steps walked in parallel with
-//              one serial carry over the chunk starts (as in iir_lead.cu,
-//              with A per band and the v rows strided by B*Ns); v_k is
-//              overwritten with the state entering block k;
+//              one serial carry over the chunk starts, which begins at s0;
+//              v_k is overwritten with the state entering block k;
 //   3. out:    y = x h + s G for every band and plane, y stored once.
-//      L <= 128 (the filter-bank path's blocks) takes the tensor cores
+//      L <= 128 (every block the package builds) takes the tensor cores
 //      (`bank_out_mma_kernel`). It replaces an FFMA pass whose x h alone
 //      needed ~1.7 ms per config-3 bank at the FFMA peak, with s G as dense
 //      fp64 on the CUDA cores, and whose inner loop was held by shared-memory
-//      loads as much as by the FMAs (6.99 / 6.53 ms on the H100). A warp
+//      loads as much as by the FMAs (6.99 / 6.53 ms on the H100); for the
+//      lead it replaces an fp32 FFMA pass for x H (87-91 us per crossover
+//      band, 1.8x a cuBLAS GEMM of the dense shape) that wrote y, and a
+//      second pass that read y back to add s G. A warp
 //      owns 16 rows and every column: x h runs as m16n8k8 TF32 mma.sync in
 //      three products, h held in registers as its 16 distinct 8x8 Toeplitz
 //      tiles (tile d = column tile - l tile; B[k][n] = h[8d + n - k], zero
@@ -50,9 +67,12 @@
 //      plane ahead, and y leaves straight from the accumulators. Longer
 //      blocks keep the FFMA pass (`bank_out_kernel`, x streamed in chunks
 //      of 128 l).
+// Host cost per call: the shared-memory opt-in of every kernel is set once
+// per device, so a call is five launches and no attribute queries.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -61,11 +81,18 @@ constexpr int kThreads = 256;
 constexpr int kTileRows = 64;        // rows (r,k) per block in passes 1 and 3
 constexpr int kLChunk = 128;         // l per shared-memory chunk of x
 constexpr int kXS = kTileRows + 4;   // row stride of the transposed x tile xt[l][row]
-constexpr int kLaneChunk = 64;       // band-lanes (b,n) per step of pass 1
+constexpr int kLaneChunk = 64;       // band-lanes (b,n) per step of pass 1 on the CUDA cores
 constexpr int kColTile = 128;        // columns of y per block in pass 3
 constexpr int kStepAhead = 16;       // v_k loaded ahead in pass 2
 constexpr int kMaxState = 32;        // Ns <= one warp
 constexpr int kYS = kColTile + 1;    // row stride of pass 3's output tile
+
+constexpr int kMmaWarps = 4;                 // warps per block: 16 rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTiles = kColTile / 8;         // 8-column tiles of a block's columns
+constexpr int kXR = kColTile + 4;            // row stride of xs: conflict-free A fragments
+constexpr int kGR = kColTile + 8;            // row stride (doubles) of Gs: conflict-free B fragments
+constexpr int kHZ = kColTile + 8;            // hz[u] = h[u - 8], zero outside [0, L)
 
 // floats of pass 3's h window: lmax + 135 <= L + 135, rounded up to 4
 __host__ __device__ constexpr int hw_alloc(int L) { return (L + 139) & ~3; }
@@ -97,11 +124,68 @@ __device__ __forceinline__ void load_x_tile(const float* __restrict__ x, float* 
     }
 }
 
-// Pass 1. vs[row, j] = sum_l x[row, l] M[l, j], j = b*Ns + n < BN, in fp64.
-// Thread (tg, lg) owns rows 4tg..4tg+3 and lanes 4lg..4lg+3 of a 64-lane
-// chunk: per l one float4 of x (broadcast to the 16 threads of a row group)
-// and two double2 of M for 16 fp64 FMAs. When one l-chunk covers L (L <=
-// 128), x's tile is loaded once for all lane chunks.
+// The parts of fp32 x and h for three TF32 products: v = hi + lo, both
+// rounded with cvt.rna (hi + lo carries 22 of v's 24 bits; x_lo h_lo is
+// dropped).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+    return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(v);
+    lo = to_tf32(v - __uint_as_float(hi));
+}
+
+// c += a b, m16n8k8, TF32 in, fp32 sums. Lane (gid = lane / 4, tig = lane %
+// 4) holds a = A[gid, tig], A[gid + 8, tig], A[gid, tig + 4], A[gid + 8, tig
+// + 4]; b = B[tig, gid], B[tig + 4, gid]; c = C[gid, 2 tig], C[gid, 2 tig +
+// 1], C[gid + 8, 2 tig], C[gid + 8, 2 tig + 1].
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b, m16n8k4 in fp64 (sm_90): a = A[gid, tig], A[gid + 8, tig]; b =
+// B[tig, gid]; c in the lanes and order of mma_tf32's.
+__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1, double b) {
+    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+        "{%0, %1, %2, %3};"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a0), "d"(a1), "d"(b));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// async copies, zero-filled when !valid (src then only needs to be a valid
+// address)
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp8(double* dst, const double* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Pass 1 on the CUDA cores, BN >= 64. vs[row, j] = sum_l x[row, l] M[l, j],
+// j = b*Ns + n < BN, in fp64. Thread (tg, lg) owns rows 4tg..4tg+3 and lanes
+// 4lg..4lg+3 of a 64-lane chunk: per l one float4 of x (broadcast to the 16
+// threads of a row group) and two double2 of M for 16 fp64 FMAs. When one
+// l-chunk covers L (L <= 128), x's tile is loaded once for all lane chunks.
 __global__ void __launch_bounds__(kThreads, 2)
 bank_inject_kernel(const float* __restrict__ x, const double* __restrict__ M,
                    double* __restrict__ vs, long long RK, long long K, int L, int BN,
@@ -160,9 +244,81 @@ bank_inject_kernel(const float* __restrict__ x, const double* __restrict__ M,
     }
 }
 
+// Pass 1 on the fp64 tensor cores, BN < 64, 8 NT >= BN. Block: 64 rows
+// (r,k); warp w owns rows 16w..16w+15 and NT 8-lane tiles of v. Per chunk of
+// 128 l, x's tile (fp32, exact in fp64) and M's rows arrive by cp.async,
+// zero past L and past BN; per 4 l the warp reads one A fragment of x and
+// adds it to each lane tile with one m16n8k4 fp64 mma.sync, M's B fragment
+// read from shared memory. The sums stay in registers across the chunks;
+// each lane stores its lane pairs of its two rows.
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+bank_inject_mma_kernel(const float* __restrict__ x, const double* __restrict__ M,
+                       double* __restrict__ vs, long long RK, long long K, int L, int BN,
+                       long long ldx) {
+    constexpr int kLanes = 8 * NT;
+    constexpr int kMS = kLanes + 4;  // row stride (doubles) of Ms: conflict-free B fragments
+    extern __shared__ double2 smem5[];
+    double* Ms = reinterpret_cast<double*>(smem5);                 // (kLChunk, kMS)
+    long long* rowoff = reinterpret_cast<long long*>(Ms + kLChunk * kMS);
+    float* xs = reinterpret_cast<float*>(rowoff + kTileRows);       // (kTileRows, kXR)
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    const int wr = 16 * (tid >> 5);  // the warp's first row in the tile
+    const long long row0 = (long long)blockIdx.x * kTileRows;
+    row_offsets(rowoff, nullptr, row0, RK, K, L, ldx, 0);
+
+    double acc[NT][4] = {};
+    for (int lc = 0; lc < L; lc += kLChunk) {
+        const int kc = L - lc < kLChunk ? L - lc : kLChunk;
+        __syncthreads();  // rowoff is written; the previous chunk's reads are done
+        for (int i = tid; i < kTileRows * kLChunk; i += kMmaThreads) {
+            const int r = i / kLChunk;
+            const int l = i - r * kLChunk;
+            const long long off = rowoff[r];
+            const bool valid = off >= 0 && l < kc;
+            cp4(xs + r * kXR + l, valid ? x + off + lc + l : x, valid);
+        }
+        for (int i = tid; i < kLChunk * kLanes; i += kMmaThreads) {
+            const int l = i / kLanes;
+            const int j = i - l * kLanes;
+            const bool valid = l < kc && j < BN;
+            cp8(Ms + l * kMS + j, valid ? M + (size_t)(lc + l) * BN + j : M, valid);
+        }
+        cp_commit();
+        cp_wait_all();
+        __syncthreads();
+        const float* xa = xs + (wr + gid) * kXR + tig;
+        const double* mb = Ms + tig * kMS + gid;
+        for (int l0 = 0; l0 < kc; l0 += 4) {  // l past kc: zero x and M
+            const double a0 = xa[l0];
+            const double a1 = xa[8 * kXR + l0];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_f64(acc[nt], a0, a1, mb[l0 * kMS + 8 * nt]);
+        }
+    }
+    // BN is even, so a lane pair never straddles its end and the double2
+    // stores are aligned
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const long long row = row0 + wr + 8 * half + gid;
+        if (row >= RK) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+            const int j = 8 * nt + 2 * tig;
+            if (j < BN)
+                *reinterpret_cast<double2*>(vs + row * BN + j) =
+                    make_double2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+        }
+    }
+}
+
 // The chain kernels are templated on the state size: NN > 0 fixes Ns = NN
-// at compile time (loops unrolled, no bound checks); NN == 0 reads it at
-// run time (Ns <= kMaxState).
+// at compile time (loops unrolled, no bound checks; on the H100 a fp64
+// step with Ns = 8 takes ~115 cycles this way against ~430 with Ns read at
+// run time); NN == 0 reads it at run time (Ns <= kMaxState).
 template <int NN>
 __host__ __device__ constexpr int loop_bound() { return NN > 0 ? NN : kMaxState; }
 
@@ -263,10 +419,11 @@ __global__ void chain_local_kernel(const double* __restrict__ A, double* __restr
 }
 
 // Pass 2b. One warp per chain w: with P = A^F (lane n holding column n),
-// S_0 = 0 and S_{c+1} = S_c P + w_c; carry[w, c] <- S_c.
+// S_0 = s0[w] (zero when s0 is null) and S_{c+1} = S_c P + w_c;
+// carry[w, c] <- S_c.
 template <int NN>
-__global__ void chain_carry_kernel(const double* __restrict__ A, double* __restrict__ carry,
-                                   ChainShape cs) {
+__global__ void chain_carry_kernel(const double* __restrict__ A, const double* __restrict__ s0,
+                                   double* __restrict__ carry, ChainShape cs) {
     const int lane = threadIdx.x & 31;
     const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
     if (w >= cs.W) return;
@@ -292,7 +449,8 @@ __global__ void chain_carry_kernel(const double* __restrict__ A, double* __restr
         for (int i = 0; i < loop_bound<NN>(); ++i) p[i] = q[i];
     }
     double* row = carry + w * cs.nc * N;
-    const double s = chain_walk<NN>(0.0, row, N, 0, cs.nc - 1, p, N, true);
+    const double start = (s0 != nullptr && lane < N) ? s0[w * N + lane] : 0.0;
+    const double s = chain_walk<NN>(start, row, N, 0, cs.nc - 1, p, N, true);
     if (lane < N) row[(long long)(cs.nc - 1) * N + lane] = s;
 }
 
@@ -317,8 +475,8 @@ __global__ void chain_expand_kernel(const double* __restrict__ A, const double* 
 }
 
 template <int NN>
-cudaError_t launch_chain(const double* A, double* vs, double* carry, double* zf,
-                         const ChainShape& cs, cudaStream_t st) {
+cudaError_t launch_chain(const double* A, const double* s0, double* vs, double* carry,
+                         double* zf, const ChainShape& cs, cudaStream_t st) {
     constexpr int kWarps = 4;  // warps per block
     auto blocks = [](long long warps) { return (unsigned)((warps + kWarps - 1) / kWarps); };
     cudaError_t err;
@@ -326,7 +484,7 @@ cudaError_t launch_chain(const double* A, double* vs, double* carry, double* zf,
         chain_local_kernel<NN><<<blocks(cs.W * (cs.nc - 1)), 32 * kWarps, 0, st>>>(A, vs, carry, cs);
         if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    chain_carry_kernel<NN><<<blocks(cs.W), 32 * kWarps, 0, st>>>(A, carry, cs);
+    chain_carry_kernel<NN><<<blocks(cs.W), 32 * kWarps, 0, st>>>(A, s0, carry, cs);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     chain_expand_kernel<NN><<<blocks(cs.W * cs.nc), 32 * kWarps, 0, st>>>(A, carry, vs, zf, cs);
     return cudaGetLastError();
@@ -466,41 +624,6 @@ bank_out_kernel(const float* __restrict__ x, const float* __restrict__ h,
     }
 }
 
-// Pass 3 on the tensor cores, for L <= 128 (one column tile). The parts of
-// fp32 x and h for three TF32 products: v = hi + lo, both rounded with
-// cvt.rna (hi + lo carries 22 of v's 24 bits; x_lo h_lo is dropped).
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-    return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(v);
-    lo = to_tf32(v - __uint_as_float(hi));
-}
-
-// c += a b, m16n8k8, TF32 in, fp32 sums. Lane (gid = lane / 4, tig = lane %
-// 4) holds a = A[gid, tig], A[gid + 8, tig], A[gid, tig + 4], A[gid + 8, tig
-// + 4]; b = B[tig, gid], B[tig + 4, gid]; c = C[gid, 2 tig], C[gid, 2 tig +
-// 1], C[gid + 8, 2 tig], C[gid + 8, 2 tig + 1].
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a b, m16n8k4 in fp64 (sm_90): a = A[gid, tig], A[gid + 8, tig]; b =
-// B[tig, gid]; c in the lanes and order of mma_tf32's.
-__device__ __forceinline__ void mma_f64(double (&c)[4], double a0, double a1, double b) {
-    asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
-        "{%0, %1, %2, %3};"
-        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-        : "d"(a0), "d"(a1), "d"(b));
-}
-
 // y row `row` (null past the end) <- columns m and m + 1 (those < L)
 __device__ __forceinline__ void store_pair(float* row, int m, int L, double v0, double v1) {
     if (row == nullptr) return;
@@ -511,35 +634,6 @@ __device__ __forceinline__ void store_pair(float* row, int m, int L, double v0, 
         if (m < L) p[0] = (float)v0;
         if (m + 1 < L) p[1] = (float)v1;
     }
-}
-
-constexpr int kMmaWarps = 4;                 // warps per block: 16 rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kTiles = kColTile / 8;         // 8-column tiles of a block's columns
-constexpr int kXR = kColTile + 4;            // row stride of xs: conflict-free A fragments
-constexpr int kGR = kColTile + 8;            // row stride (doubles) of Gs: conflict-free B fragments
-constexpr int kHZ = kColTile + 8;            // hz[u] = h[u - 8], zero outside [0, L)
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// async copies, zero-filled when !valid (src then only needs to be a valid
-// address)
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp8(double* dst, const double* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 8 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // queue plane (b, p)'s G slab (lanes padded to N4 with zeros) and zero-padded
@@ -559,7 +653,8 @@ __device__ __forceinline__ void queue_plane(const float* __restrict__ h,
     }
 }
 
-// Block: 64 rows (r,k); warp w owns rows 16w..16w+15 and all columns. x's
+// Pass 3 on the tensor cores, for L <= 128 (one column tile). Block: 64
+// rows (r,k); warp w owns rows 16w..16w+15 and all columns. x's
 // tile (rows x 128, zero past L) stays in shared memory for every band and
 // plane; each plane's G slab and h arrive by cp.async in one of two stages
 // while the previous plane is computed. Each warp keeps h's 16 Toeplitz
@@ -685,20 +780,81 @@ bank_out_mma_kernel(const float* __restrict__ x, const float* __restrict__ h,
         }
     }
 }
+
+// The opt-in shared-memory limit of each device, stored once every kernel
+// here may use it (0: not yet). Setting the limit is idempotent, so two
+// threads that race on a device's first call both succeed.
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_smem_max[kMaxDevices];
+
+cudaError_t device_setup(int* smem_max) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    int v = g_smem_max[device].load(std::memory_order_acquire);
+    if (v == 0) {
+        if ((err = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+            cudaSuccess)
+            return err;
+        const void* kernels[] = {
+            reinterpret_cast<const void*>(&bank_inject_kernel),
+            reinterpret_cast<const void*>(&bank_inject_mma_kernel<1>),
+            reinterpret_cast<const void*>(&bank_inject_mma_kernel<2>),
+            reinterpret_cast<const void*>(&bank_inject_mma_kernel<4>),
+            reinterpret_cast<const void*>(&bank_inject_mma_kernel<8>),
+            reinterpret_cast<const void*>(&bank_out_mma_kernel<4>),
+            reinterpret_cast<const void*>(&bank_out_mma_kernel<8>),
+            reinterpret_cast<const void*>(&bank_out_kernel),
+        };
+        for (const void* k : kernels)
+            if ((err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, v)) !=
+                cudaSuccess)
+                return err;
+        g_smem_max[device].store(v, std::memory_order_release);
+    }
+    *smem_max = v;
+    return cudaSuccess;
+}
+
+// Pass 1: the FFMA pass at 64 band-lanes and more, else the fp64 tensor
+// cores with the fewest 8-lane tiles that cover BN
+cudaError_t launch_inject(const float* x, const double* M, double* vs, long long RK, long long K,
+                          int L, int BN, long long ldx, unsigned tiles, int smem_max,
+                          cudaStream_t st) {
+    if (BN >= kLaneChunk) {
+        const size_t smem = sizeof(double) * kLChunk * kLaneChunk +
+                            sizeof(long long) * kTileRows + sizeof(float) * kLChunk * kXS;
+        bank_inject_kernel<<<tiles, kThreads, smem, st>>>(x, M, vs, RK, K, L, BN, ldx);
+        return cudaGetLastError();
+    }
+    const int nt = BN <= 8 ? 1 : BN <= 16 ? 2 : BN <= 32 ? 4 : 8;
+    const size_t smem = sizeof(double) * kLChunk * (8 * nt + 4) +
+                        sizeof(long long) * kTileRows + sizeof(float) * kTileRows * kXR;
+    if (smem > (size_t)smem_max) return cudaErrorInvalidValue;
+    auto kernel = nt == 1 ? bank_inject_mma_kernel<1>
+                  : nt == 2 ? bank_inject_mma_kernel<2>
+                  : nt == 4 ? bank_inject_mma_kernel<4>
+                            : bank_inject_mma_kernel<8>;
+    kernel<<<tiles, kMmaThreads, smem, st>>>(x, M, vs, RK, K, L, BN, ldx);
+    return cudaGetLastError();
+}
 }  // namespace
 
 // x (R rows of stride ldx; the first K*L samples of each are filtered), fp32;
 // h (P, B, L) fp32; M (L, B*Ns), A (B, Ns, Ns), G (P, B, Ns, L) fp64, the
-// operators' real form -> y (P, B, R rows of stride ldy), columns [0, K*L)
-// written, fp32; zf (B, R, Ns) fp64, the state after block K. Scratch, fp64:
-// vs (R*K, B*Ns) and carry (B*R, ceil(K/F), Ns), F the chunk length of the
-// chain. Ns <= 32 and even; all on one device. Returns the first CUDA error
-// code met (0 on success).
+// operators' real form; s0 (B, R, Ns) fp64, the state before block 0, or
+// null for zero -> y (P, B, R rows of stride ldy), columns [0, K*L) written,
+// fp32; zf (B, R, Ns) fp64, the state after block K. Scratch, fp64: vs
+// (R*K, B*Ns) and carry (B*R, ceil(K/F), Ns), F the chunk length of the
+// chain. Ns <= 32 and even; all on one device. The lead is B = P = 1 with
+// its batch as the rows. Returns the first CUDA error code met (0 on
+// success).
 extern "C" int dsptb_iir_bank_f32(const float* x, const float* h, const double* M,
-                                  const double* A, const double* G, float* y, double* vs,
-                                  double* carry, double* zf, int B, long long R, long long K,
-                                  int L, int Ns, int P, int F, long long ldx, long long ldy,
-                                  void* stream) {
+                                  const double* A, const double* G, const double* s0, float* y,
+                                  double* vs, double* carry, double* zf, int B, long long R,
+                                  long long K, int L, int Ns, int P, int F, long long ldx,
+                                  long long ldy, void* stream) {
     if (B <= 0 || R <= 0 || K <= 0 || L <= 0 || Ns <= 0 || Ns > kMaxState || (Ns & 1) ||
         P < 1 || P > 2 || F <= 0 || ldx < K * L || ldy < K * L)
         return (int)cudaErrorInvalidValue;
@@ -709,31 +865,25 @@ extern "C" int dsptb_iir_bank_f32(const float* x, const float* h, const double* 
     if (tiles > 2147483647LL || (long long)B * R * nc > 2147483647LL / 32)
         return (int)cudaErrorInvalidValue;
 
-    int device = 0, smem_max = 0;
+    int smem_max = 0;
     cudaError_t err;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                      device)) != cudaSuccess)
-        return (int)err;
+    if ((err = device_setup(&smem_max)) != cudaSuccess) return (int)err;
 
     // pass 1
-    const size_t smem1 = sizeof(double) * kLChunk * kLaneChunk + sizeof(long long) * kTileRows +
-                         sizeof(float) * kLChunk * kXS;
-    if ((err = cudaFuncSetAttribute(bank_inject_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem1)) != cudaSuccess)
+    if ((err = launch_inject(x, M, vs, RK, K, L, B * Ns, ldx, (unsigned)tiles, smem_max, st)) !=
+        cudaSuccess)
         return (int)err;
-    bank_inject_kernel<<<(unsigned)tiles, kThreads, smem1, st>>>(x, M, vs, RK, K, L, B * Ns, ldx);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
     // pass 2: Ns = 2 * sections (real) or 4 * sections (complex); the
-    // bank sizes of the filter-bank path get a compile-time state size
+    // sizes of the filter-bank path's banks and the chain's bands get a
+    // compile-time state size
     const ChainShape cs{(long long)B * R, R, K, B * Ns, Ns, F, (int)nc};
     switch (Ns) {
-        case 4: err = launch_chain<4>(A, vs, carry, zf, cs, st); break;
-        case 8: err = launch_chain<8>(A, vs, carry, zf, cs, st); break;
-        case 12: err = launch_chain<12>(A, vs, carry, zf, cs, st); break;
-        case 16: err = launch_chain<16>(A, vs, carry, zf, cs, st); break;
-        default: err = launch_chain<0>(A, vs, carry, zf, cs, st); break;
+        case 4: err = launch_chain<4>(A, s0, vs, carry, zf, cs, st); break;
+        case 8: err = launch_chain<8>(A, s0, vs, carry, zf, cs, st); break;
+        case 12: err = launch_chain<12>(A, s0, vs, carry, zf, cs, st); break;
+        case 16: err = launch_chain<16>(A, s0, vs, carry, zf, cs, st); break;
+        default: err = launch_chain<0>(A, s0, vs, carry, zf, cs, st); break;
     }
     if (err != cudaSuccess) return (int)err;
 
@@ -747,9 +897,6 @@ extern "C" int dsptb_iir_bank_f32(const float* x, const float* h, const double* 
         if (smem4 > (size_t)smem_max) return (int)cudaErrorInvalidValue;
         // s's k-steps: up to 4 (Ns <= 16, three blocks an SM) or 8
         auto out_kernel = Ns <= 16 ? bank_out_mma_kernel<4> : bank_out_mma_kernel<8>;
-        if ((err = cudaFuncSetAttribute(out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        (int)smem4)) != cudaSuccess)
-            return (int)err;
         out_kernel<<<(unsigned)tiles, kMmaThreads, smem4, st>>>(
             x, h, G, vs, y, B, R, K, L, Ns, P, ldx, ldy);
         return (int)cudaGetLastError();
@@ -760,9 +907,6 @@ extern "C" int dsptb_iir_bank_f32(const float* x, const float* h, const double* 
                          sizeof(float) * ((size_t)kLChunk * kXS + hw_alloc(L) +
                                           (size_t)kTileRows * kYS);
     if (smem3 > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-    if ((err = cudaFuncSetAttribute(bank_out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem3)) != cudaSuccess)
-        return (int)err;
     bank_out_kernel<<<dim3((unsigned)tiles, (unsigned)n_col), kThreads, smem3, st>>>(
         x, h, G, vs, y, B, R, K, L, Ns, P, ldx, ldy);
     return (int)cudaGetLastError();

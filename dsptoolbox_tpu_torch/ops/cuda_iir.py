@@ -15,18 +15,17 @@ rounding of the state would be amplified by that cancellation. So ``H`` and
 ``xb`` come in the signal's dtype, ``G``, ``A``, ``M`` and ``s0`` in the state
 dtype (`state_dtype`).
 
-On the H100 the Toeplitz products x_k H are the bulk of the work (2·L²
-flops per block, fp32 FFMA), and the boundary-state chain is K serial N×N
-steps per row, bound by latency. CUDA blocks run in no order and cannot
-carry state between them, so the kernel (`csrc/iir_lead.cu`) runs in
-passes: the free response and state injections in parallel over all blocks
-(H in shared memory, whole or streamed in chunks for long blocks); the
-state chain, cut into chunks of ~sqrt(K/2) blocks
-that are walked in parallel by one warp each, with one serial carry over
-the chunk starts in between; and the state's contribution added in
-parallel. The plain version resolves the same chain with a log-depth
-doubling prefix of batched matmuls, as `dsptoolbox_tpu/ops/iir_block.py`
-does.
+The lead is one band of the filter bank's function with a start state, so
+on the card it runs on the bank's kernel (`cuda_iir_bank`,
+`csrc/iir_bank.cu`): its batch rows are the bank's rows, ``h = H[0]`` (H is
+the Toeplitz matrix of its row 0, the in-block impulse response), ``s0``
+the state before block 0 (`bank_form`). The kernel's passes: x·M on the
+fp64 tensor cores, the fp64 state chain cut into chunks of ~sqrt(K/2)
+blocks walked in parallel with one serial carry from ``s0`` over the chunk
+starts, and an output pass that writes y once (for L <= 128 on the tensor
+cores: x·h as three TF32 products of a hi/lo split, s·G in fp64). The plain
+version resolves the same chain with a log-depth doubling prefix of batched
+matmuls, as `dsptoolbox_tpu/ops/iir_block.py` does.
 
 `sosfilt_lead` dispatches: a CUDA tensor goes to the kernel unless the
 switch (`_config.set_iir_kernel`) is "off". The kernel takes any block
@@ -35,29 +34,16 @@ length and up to 32 states (16 sections).
 
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 
-from .. import _config, _cuda
+from .. import _config
+from . import cuda_iir_bank
 
 # kernel launches since the last reset (read by run reports)
 launches = 0
 
-_c = ctypes.c_void_p
-_ARGTYPES = [_c] * 10 + [ctypes.c_longlong, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _c]
-
-
-def _chunk(K: int) -> int:
-    """Chunk length F of the kernel's state chain: serial depth ~2F + K/F,
-    least at F = sqrt(K/2)."""
-    return max(1, math.ceil(math.sqrt(K / 2)))
-
-
 # states the kernel's chain holds: one per lane of a warp
-MAX_STATES = 32
+MAX_STATES = cuda_iir_bank.MAX_LANES
 
 
 def state_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -91,10 +77,29 @@ def sosfilt_lead_plain(H, G, A, M, xb, s0):
     return y.to(xb.dtype), X[..., -1, :]
 
 
+def bank_form(H, G, A, M, xb, s0):
+    """The lead's arguments as one band of the filter bank: ``(ops, x, s0)``
+    for `cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out, s0)` and, through
+    ``ops["kernel"]``, for the kernel (`cuda_iir_bank.launch`).
+
+    ``ops`` holds the operators with a band axis of one and their real form
+    (``h = H[0]``, G as one plane); ``x`` is ``xb`` as ``B`` rows of ``K·L``
+    samples, ``s0`` the band's state ``(1, B, N)``. Views of the arguments
+    (``x`` a copy only if ``xb``'s blocks do not tile its rows).
+    """
+    B, K, L = xb.shape
+    ops = {"HmatT": H[None], "GyT": G[None], "ALT": A[None], "MT": M[None],
+           "L": L, "n_full": K,
+           "kernel": {"h": H[None, :1], "G": G[None, None], "A": A[None], "M": M,
+                      "lanes": A.shape[0]}}
+    return ops, xb.reshape(B, K * L), s0[None]
+
+
 def sosfilt_lead_cuda(H, G, A, M, xb, s0):
     """CUDA kernel: the same result as `sosfilt_lead_plain`. ``xb`` and
     ``H`` float32, ``G``, ``A``, ``M`` and ``s0`` float64, all on one CUDA
-    device; any block length L, at most `MAX_STATES` states N."""
+    device; any block length L, at most `MAX_STATES` states N. One launch of
+    the bank's kernel (`bank_form`), counted here and not as the bank's."""
     global launches
     tensors = (H, G, A, M, xb, s0)
     if not all(t.is_cuda and t.device == xb.device for t in tensors):
@@ -113,21 +118,14 @@ def sosfilt_lead_cuda(H, G, A, M, xb, s0):
             f"the kernel holds at most {MAX_STATES} states, got N={N}: run a "
             "longer cascade as a series of shorter ones (`sosfilt_block` does)"
         )
-    H, G, A, M, xb, s0 = (t.contiguous() for t in tensors)
-    y = torch.empty_like(xb)
-    F = _chunk(K)
-    scratch = torch.empty((B, K, N), dtype=s0.dtype, device=xb.device)
-    carry = torch.empty((B, -(-K // F), N), dtype=s0.dtype, device=xb.device)
-    zf = torch.empty_like(s0)
-    fn = _cuda.function("iir_lead", "dsptb_iir_lead_f32", _ARGTYPES)
-    with torch.cuda.device(xb.device):
-        err = fn(xb.data_ptr(), H.data_ptr(), G.data_ptr(), A.data_ptr(),
-                 M.data_ptr(), s0.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-                 carry.data_ptr(), zf.data_ptr(), B, K, L, N, F,
-                 _cuda.stream_of(xb))
-    _cuda.check(err, "sosfilt lead kernel")
+    H, G, A, M, s0 = (t.contiguous() for t in (H, G, A, M, s0))
+    ops, x, s0 = bank_form(H, G, A, M, xb, s0)
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    y = torch.empty((B, K, L), dtype=torch.float32, device=xb.device)
+    zf = cuda_iir_bank.launch(ops["kernel"], x, y.view(1, 1, B, K * L), K, s0)
     launches += 1
-    return y, zf
+    return y, zf[0]
 
 
 def sosfilt_lead(H, G, A, M, xb, s0):

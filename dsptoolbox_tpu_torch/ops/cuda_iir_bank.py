@@ -29,7 +29,9 @@ Bound on the H100: the output bytes (the planes of every band) and the
 Toeplitz products; see the source for the three passes. The output pass
 runs on the tensor cores for blocks of up to `MMA_MAX_L` samples (x·h as
 3×TF32 m16n8k8 ``mma.sync``, s·G as fp64 m16n8k4) and on the CUDA cores
-(fp32 FFMA, fp64 FMA) for longer ones (`output_pass`).
+(fp32 FFMA, fp64 FMA) for longer ones (`output_pass`). The same kernel,
+with one band and a start state, is the blocked-IIR lead (`cuda_iir`),
+through `launch`.
 
 `iir_block.sosfilt_bank_apply_planes` chooses: a CUDA tensor goes to
 `sosfilt_bank_lead_cuda` unless the switch (`_config.set_bank_kernel`) is
@@ -40,11 +42,11 @@ it raise).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .. import _cuda
-from .cuda_iir import _chunk
 
 # kernel launches since the last reset (read by run reports)
 launches = 0
@@ -57,9 +59,15 @@ MAX_LANES = 32
 MMA_MAX_L = 128
 
 _c = ctypes.c_void_p
-_ARGTYPES = [_c] * 9 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.c_longlong, _c]
+_ARGTYPES = [_c] * 10 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_longlong, ctypes.c_longlong, _c]
+
+
+def _chunk(K: int) -> int:
+    """Chunk length F of the kernel's state chain: serial depth ~2F + K/F,
+    least at F = sqrt(K/2)."""
+    return max(1, math.ceil(math.sqrt(K / 2)))
 
 
 def output_pass(L: int) -> str:
@@ -68,15 +76,17 @@ def output_pass(L: int) -> str:
     return "mma" if L <= MMA_MAX_L else "ffma"
 
 
-def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor,
+                            s0: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch version: band-batched einsums and the log-depth
     doubling prefix of the block-boundary states.
 
     ``ops``: device operators (`iir_block.operators_to_torch`) with
-    ``n_full`` = K and ``L``; ``x (R, T)`` real; writes the real (and, for a
-    complex bank, imaginary) parts of the first K·L samples of every band
-    into ``out (P, B, R, T)``. Returns the state after block K,
-    ``(B, R, N)`` in the state dtype.
+    ``n_full`` = K and ``L``; ``x (R, T)`` real; ``s0 (B, R, N)``, the state
+    before block 0 (zero when None); writes the real (and, for a complex
+    bank, imaginary) parts of the first K·L samples of every band into
+    ``out (P, B, R, T)``. Returns the state after block K, ``(B, R, N)`` in
+    the state dtype.
     """
     HmatT, GyT, MT = ops["HmatT"], ops["GyT"], ops["MT"]  # (B,L,L) (B,N,L) (B,L,N)
     L, n_full = ops["L"], ops["n_full"]
@@ -85,6 +95,10 @@ def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor) -> to
     xb = x[:, : n_full * L].reshape(R, n_full, L).to(HmatT.dtype)
     y_free = torch.einsum("rkl,blm->brkm", xb, HmatT)
     X = torch.einsum("rkl,bln->brkn", xb.to(MT.dtype), MT)  # (B, R, K, N)
+    if s0 is not None:
+        # the start state rides through the prefix in the first injection
+        s0 = s0.to(X.dtype)
+        X[..., 0, :] += torch.einsum("brn,bnm->brm", s0, ops["ALT"])
     # X_k = sum_{j<=k} A^{k-j} v_j: the log-depth doubling prefix
     ALt_pow = ops["ALT"]  # (B, N, N)
     shift = 1
@@ -93,8 +107,9 @@ def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor) -> to
         X = torch.cat([X[..., :shift, :], X[..., shift:, :] + upd], dim=-2)
         ALt_pow = torch.einsum("bnm,bmp->bnp", ALt_pow, ALt_pow)
         shift *= 2
-    # zero initial state: block k sees X_{k-1} (zeros for k=0)
-    s_starts = torch.cat([torch.zeros_like(X[..., :1, :]), X[..., :-1, :]], dim=-2)
+    # block k sees X_{k-1}; block 0 the start state
+    first = torch.zeros_like(X[..., :1, :]) if s0 is None else s0.unsqueeze(-2)
+    s_starts = torch.cat([first, X[..., :-1, :]], dim=-2)
     y = y_free.to(GyT.dtype) + torch.einsum("brkn,bnl->brkl", s_starts, GyT)
     y = y.to(HmatT.dtype).reshape(n_bands, R, n_full * L)
     lead = out[..., : n_full * L]
@@ -136,6 +151,34 @@ def kernel_operators(ops: dict) -> dict:
     }
 
 
+def launch(kops: dict, x: torch.Tensor, out: torch.Tensor, K: int,
+           s0: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the kernel on the real form ``kops`` (`kernel_operators`)
+    for the first K blocks of ``x (R, ·)`` (unit time stride) into ``out
+    (P, B, R, ·)`` (unit time stride, rows contiguous per plane and band),
+    from ``s0 (B, R, Ns)`` float64 or zero. Returns zf ``(B, R, Ns)``
+    float64. Checks nothing and counts nothing: its callers do both."""
+    h, G, A, M, Ns = kops["h"], kops["G"], kops["A"], kops["M"], kops["lanes"]
+    P, n_bands, L = h.shape
+    R = x.shape[0]
+    F = _chunk(K)
+    # one float64 allocation (a call's host time is of the order of its
+    # device time): vs (R·K, B·Ns), carry (B·R, ceil(K/F), Ns), zf (B, R, Ns)
+    n_vs = R * K * n_bands * Ns
+    n_carry = n_bands * R * -(-K // F) * Ns
+    buf = torch.empty(n_vs + n_carry + n_bands * R * Ns, dtype=torch.float64, device=x.device)
+    zf = buf[n_vs + n_carry:].view(n_bands, R, Ns)
+    vs = buf.data_ptr()
+    fn = _cuda.function("iir_bank", "dsptb_iir_bank_f32", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), h.data_ptr(), M.data_ptr(), A.data_ptr(), G.data_ptr(),
+                 None if s0 is None else s0.data_ptr(), out.data_ptr(), vs, vs + 8 * n_vs,
+                 zf.data_ptr(), n_bands, R, K, L, Ns, P, F, x.stride(0), out.stride(2),
+                 _cuda.stream_of(x))
+    _cuda.check(err, "IIR bank kernel")
+    return zf
+
+
 def sosfilt_bank_lead_cuda(ops: dict, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """CUDA kernel: the same result as `sosfilt_bank_lead_plain`. ``x``
     float32 with unit stride along time, ``out`` float32 contiguous, both on
@@ -163,16 +206,7 @@ def sosfilt_bank_lead_cuda(ops: dict, x: torch.Tensor, out: torch.Tensor) -> tor
         raise ValueError("x must be (R, T) with unit time stride and T >= K·L")
     if tuple(out.shape) != (P, n_bands, R, T) or not out.is_contiguous():
         raise ValueError(f"out must be contiguous {(P, n_bands, R, T)}")
-    F = _chunk(K)
-    vs = torch.empty((R * K, n_bands * Ns), dtype=torch.float64, device=x.device)
-    carry = torch.empty((n_bands * R, -(-K // F), Ns), dtype=torch.float64, device=x.device)
-    zf = torch.empty((n_bands, R, Ns), dtype=torch.float64, device=x.device)
-    fn = _cuda.function("iir_bank", "dsptb_iir_bank_f32", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), h.data_ptr(), M.data_ptr(), A.data_ptr(), G.data_ptr(),
-                 out.data_ptr(), vs.data_ptr(), carry.data_ptr(), zf.data_ptr(),
-                 n_bands, R, K, L, Ns, P, F, x.stride(0), T, _cuda.stream_of(x))
-    _cuda.check(err, "IIR bank kernel")
+    zf = launch(kops, x, out, K)
     launches += 1
     if P == 2:
         N = Ns // 2

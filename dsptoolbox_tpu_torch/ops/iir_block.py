@@ -145,7 +145,9 @@ def operators_to_torch(ops: dict, device, dtype: torch.dtype) -> dict:
     sdt = state_dtype(dtype)
 
     def conv(v, dt):
-        return torch.as_tensor(v, dtype=dt, device=device)
+        # contiguous once here: the builders return transposed views, which
+        # the kernels would otherwise copy on every call
+        return torch.as_tensor(v, dtype=dt, device=device).contiguous()
 
     out = {}
     for k, v in ops.items():

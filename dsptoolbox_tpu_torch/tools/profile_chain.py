@@ -4,8 +4,9 @@
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
-lead kernel on one crossover band (and each against its plain version), and
-the whole chain in both bank modes.
+lead kernel on one crossover band (each against its plain version) and on
+all four (its passes by kernel name: x·M, the three chain launches, the
+output pass), and the whole chain in both bank modes.
 
 ``das``: the DAS map kernel against its plain version on the full sweep
 (513 bins × 64 mics × 900 points), and the acoustic-camera map
@@ -235,7 +236,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    for name in ("framing", "iir_lead", "das_map", "banded", "iir_bank"):
+    for name in ("framing", "das_map", "banded", "iir_bank"):
         _cuda.load(name)
 
     dev = torch.device("cuda", 0)
@@ -253,15 +254,17 @@ def main(argv=None) -> int:
         torch.from_numpy(rng.standard_normal(T).astype(np.float32)).to(dev)
     )
     win = torch.as_tensor(get_window(Window.Hann, 1024), dtype=torch.float32, device=dev)
-    sos = headline.crossover_bank(FS)[1]
-    key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
-    ops = iir_block.operators_to_torch(
-        dict(zip(("HmatT", "GyT", "ALT", "MT"), iir_block._block_operators(key, L_IIR)),
-             zi=sosfilt_zi(sos)[None].repeat(BATCH, 0)),
-        dev, torch.float32,
-    )
-    lead = (ops["HmatT"], ops["GyT"], ops["ALT"], ops["MT"],
-            x.reshape(BATCH, -1, L_IIR), ops["zi"].reshape(BATCH, -1))
+    leads = []
+    for sos in headline.crossover_bank(FS):
+        key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
+        ops = iir_block.operators_to_torch(
+            dict(zip(("HmatT", "GyT", "ALT", "MT"), iir_block._block_operators(key, L_IIR)),
+                 zi=sosfilt_zi(sos)[None].repeat(BATCH, 0)),
+            dev, torch.float32,
+        )
+        leads.append((ops["HmatT"], ops["GyT"], ops["ALT"], ops["MT"],
+                      x.reshape(BATCH, -1, L_IIR), ops["zi"].reshape(BATCH, -1)))
+    lead = leads[1]
 
     profile_call("B1 framing kernel, STFT shapes",
                  lambda: cuda_framing.windowed_frames_cuda(x, win, 512, False, 512),
@@ -273,6 +276,8 @@ def main(argv=None) -> int:
                  args.runs)
     profile_call("B2 lead plain, band 1", lambda: cuda_iir.sosfilt_lead_plain(*lead),
                  args.runs)
+    profile_call("B2 lead kernel, four bands",
+                 lambda: [cuda_iir.sosfilt_lead_cuda(*a) for a in leads], args.runs)
     for bank in ("per_band", "banked"):
         kernels = "B1 + B2" if bank == "per_band" else "B1 + B3"
         profile_call(f"chain {bank} ({kernels})", lambda: headline.run(x, exc, bank=bank),

@@ -65,20 +65,27 @@ def test_framing_kernel_matches_plain(dev, shape, L, step, pad, detrend):
     assert float((got - want).abs().max()) <= 1e-6
 
 
-# orders 2-16 take the kernel's compile-time state sizes (N = order), 18 and
-# 32 its run-time path; K = 1 and 2 are the chunked chain's edge cases;
-# L = 200 and 256 hold H's slab in two column tiles, L >= 512 streams it
+# B2 runs on B3's kernel as one band (N = order lanes): N = 4, 8, 12 and 16
+# take the chain's compile-time state sizes, the others its run-time path;
+# N < 64 lanes take the fp64 tensor-core x·M pass (1, 2 or 4 lane tiles:
+# N <= 8, 16, 32); K = 1 and 2 are the chunked chain's edge cases; L <= 128
+# takes the tensor-core output pass, L = 200 and 256 two column tiles of the
+# FFMA pass, L >= 512 more, with x·M over several l chunks; a zero start
+# state; the chain's shape (16 rows x 3000 blocks of 128, N = 8)
 @pytest.mark.parametrize(
-    "order,L,B,K",
-    [(6, 128, 3, 40), (4, 98, 2, 17), (2, 64, 1, 300), (8, 128, 2, 3000),
-     (18, 128, 2, 40), (32, 128, 1, 33), (4, 128, 1, 1), (4, 64, 2, 2),
-     (4, 3, 2, 50), (8, 200, 2, 20), (8, 256, 3, 17), (6, 512, 2, 16),
-     (32, 1024, 2, 16), (4, 1000, 1, 5)],
+    "order,L,B,K,out_pass,zi_scale",
+    [(6, 128, 3, 40, "mma", 1), (4, 98, 2, 17, "mma", 1), (2, 64, 1, 300, "mma", 1),
+     (8, 128, 2, 3000, "mma", 1), (18, 128, 2, 40, "mma", 1), (32, 128, 1, 33, "mma", 1),
+     (4, 128, 1, 1, "mma", 1), (4, 64, 2, 2, "mma", 1), (4, 3, 2, 50, "mma", 1),
+     (8, 200, 2, 20, "ffma", 1), (8, 256, 3, 17, "ffma", 1), (6, 512, 2, 16, "ffma", 1),
+     (32, 1024, 2, 16, "ffma", 1), (4, 1000, 1, 5, "ffma", 1), (4, 128, 2, 40, "mma", 0),
+     (8, 128, 16, 3000, "mma", 1)],
 )
-def test_iir_lead_kernel_matches_plain(dev, order, L, B, K):
+def test_iir_lead_kernel_matches_plain(dev, order, L, B, K, out_pass, zi_scale):
     sos = butter(order, 0.2, output="sos")
     key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
-    zi = np.tile(sosfilt_zi(sos)[None], (B, 1, 1)) * RNG.uniform(0.1, 1, (B, 1, 1))
+    zi = (np.tile(sosfilt_zi(sos)[None], (B, 1, 1)) * RNG.uniform(0.1, 1, (B, 1, 1))
+          * zi_scale)
     ops = iir_block.operators_to_torch(
         dict(zip(("HmatT", "GyT", "ALT", "MT"), iir_block._block_operators(key, L)),
              zi=zi),
@@ -87,9 +94,13 @@ def test_iir_lead_kernel_matches_plain(dev, order, L, B, K):
     xb = torch.from_numpy(RNG.standard_normal((B, K, L)).astype(np.float32)).to(dev)
     args = (ops["HmatT"], ops["GyT"], ops["ALT"], ops["MT"], xb,
             ops["zi"].reshape(B, -1))
+    assert cuda_iir_bank.output_pass(L) == out_pass
+    before = (cuda_iir.launches, cuda_iir_bank.launches)
     yk, zk = cuda_iir.sosfilt_lead_cuda(*args)
+    assert (cuda_iir.launches, cuda_iir_bank.launches) == (before[0] + 1, before[1])
     yp, zp = cuda_iir.sosfilt_lead_plain(*args)
     torch.cuda.synchronize()
+    assert yk.shape == (B, K, L) and zk.shape == (B, order)
     assert float((yk - yp).abs().max()) <= 1e-5 * float(yp.abs().max())
     assert float((zk - zp).abs().max()) <= 1e-6 * max(1.0, float(zp.abs().max()))
 

@@ -5,6 +5,7 @@ scipy's float64 sosfilt."""
 import numpy as np
 import pytest
 import torch
+from scipy.linalg import toeplitz
 from scipy.signal import butter, cheby1, sosfilt, sosfilt_zi
 
 import jax.numpy as jnp
@@ -12,7 +13,8 @@ from dsptoolbox_tpu.ops import iir as jiir
 from dsptoolbox_tpu.ops import iir_block as jblock
 from dsptoolbox_tpu.ops import iir_freq as jfreq
 from dsptoolbox_tpu.ops.pallas_iir import sosfilt_pallas
-from dsptoolbox_tpu_torch.ops import cuda_iir, iir, iir_block, iir_freq
+from dsptoolbox_tpu_torch import headline
+from dsptoolbox_tpu_torch.ops import cuda_iir, cuda_iir_bank, iir, iir_block, iir_freq
 
 torch.set_num_threads(1)
 
@@ -70,6 +72,33 @@ class TestSosfiltBlock:
             y_t.reshape(2, lead).numpy(), np.asarray(y_p), atol=1e-5
         )
         np.testing.assert_allclose(zf_t.numpy(), np.asarray(zf_p), atol=1e-6)
+
+    def test_lead_through_bank_matches_pallas_interpret(self):
+        """The lead as one band of the bank (`cuda_iir.bank_form` through
+        the bank's plain version, the kernel's route on the card) against
+        the JAX lead, as `test_lead_matches_pallas_interpret` runs it."""
+        L = 128
+        lead = (self.x.shape[-1] // L) * L
+        key = tuple(np.asarray(self.sos, np.float64).reshape(-1).tolist())
+        ops = jblock._block_operators(key, L)
+        s0 = self.zi.reshape(2, -1)
+        y_p, zf_p = sosfilt_pallas(
+            *(np.asarray(m, np.float32) for m in ops),
+            jnp.asarray(self.x[:, :lead]),
+            s0=jnp.asarray(s0, jnp.float32),
+            interpret=True,
+        )
+        t = iir_block.operators_to_torch(
+            dict(zip(("HmatT", "GyT", "ALT", "MT"), ops), zi=s0), "cpu", torch.float32
+        )
+        xb = torch.from_numpy(self.x[:, :lead]).reshape(2, -1, L)
+        b_ops, x2, s0b = cuda_iir.bank_form(
+            t["HmatT"], t["GyT"], t["ALT"], t["MT"], xb, t["zi"]
+        )
+        out = torch.zeros((1, 1) + tuple(x2.shape))
+        zf_t = cuda_iir_bank.sosfilt_bank_lead_plain(b_ops, x2, out, s0b)
+        np.testing.assert_allclose(out[0, 0].numpy(), np.asarray(y_p), atol=1e-5)
+        np.testing.assert_allclose(zf_t[0].numpy(), np.asarray(zf_p), atol=1e-6)
 
     @pytest.mark.parametrize(
         "sos",
@@ -163,6 +192,61 @@ def test_kernel_range(monkeypatch):
     y, _ = iir_block.sosfilt_block(short, torch.from_numpy(x))
     assert seen == [(128, 4)]
     assert _rel_err(y.numpy(), sosfilt(short, x.astype(np.float64))) < 5e-6
+
+
+@pytest.mark.parametrize("L", [3, 8, 98, 128, 200])
+def test_hmat_is_the_toeplitz_matrix_of_its_row_0(L):
+    """On the card the lead runs on the bank's kernel with h = H[0]: that
+    holds because `_block_operators` fills HmatT by diagonals, so it is
+    exactly the upper-triangular Toeplitz matrix of its row 0 (HmatT[i, j] =
+    h[j - i]). The crossover bands and Butterworth orders 2-32."""
+    cascades = list(headline.crossover_bank(48000)) + [
+        butter(order, 0.2, output="sos") for order in range(2, 33)
+    ]
+    for sos in cascades:
+        key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
+        HmatT = iir_block._block_operators(key, L)[0]
+        h = HmatT[0]
+        np.testing.assert_array_equal(HmatT, toeplitz(np.r_[h[0], np.zeros(L - 1)], h))
+
+
+@pytest.mark.parametrize("band", range(4))
+@pytest.mark.parametrize("L,K", [(128, 20), (98, 7), (3, 40)])
+def test_lead_as_one_bank_band(band, L, K):
+    """The lead's argument mapping (`cuda_iir.bank_form`, which the CUDA
+    wrapper runs) through the bank's plain version, one crossover band from
+    a nonzero start state, equals the lead's plain version (y at 1e-6
+    scale-relative, zf at 1e-9); the real form it hands the kernel is the
+    bank's own (`kernel_operators`); the bank's default start state is
+    zero."""
+    sos = headline.crossover_bank(48000)[band]
+    B = 3
+    key = tuple(np.asarray(sos, np.float64).reshape(-1).tolist())
+    zi = np.tile(sosfilt_zi(sos)[None], (B, 1, 1)) * RNG.uniform(0.2, 1.0, (B, 1, 1))
+    t = iir_block.operators_to_torch(
+        dict(zip(("HmatT", "GyT", "ALT", "MT"), iir_block._block_operators(key, L)), zi=zi),
+        "cpu", torch.float32,
+    )
+    xb = torch.from_numpy(RNG.standard_normal((B, K, L)).astype(np.float32))
+    args = (t["HmatT"], t["GyT"], t["ALT"], t["MT"], xb, t["zi"].reshape(B, -1))
+    y_want, zf_want = cuda_iir.sosfilt_lead_plain(*args)
+    ops, x, s0 = cuda_iir.bank_form(*args)
+    assert x.shape == (B, K * L) and s0.shape == (1,) + tuple(args[5].shape)
+    out = torch.zeros((1, 1, B, K * L))
+    zf = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out, s0)
+    assert _rel_err(out.reshape(B, K, L).numpy(), y_want.numpy()) <= 1e-6
+    z_scale = max(1.0, float(zf_want.abs().max()))
+    assert float((zf[0] - zf_want).abs().max()) <= 1e-9 * z_scale
+
+    real = cuda_iir_bank.kernel_operators({k: ops[k] for k in ("HmatT", "GyT", "ALT", "MT")})
+    assert ops["kernel"]["lanes"] == real["lanes"] == 2 * len(sos)
+    for k in ("h", "G", "A", "M"):
+        assert ops["kernel"][k].shape == real[k].shape and torch.equal(ops["kernel"][k], real[k])
+
+    zero = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out, torch.zeros_like(s0))
+    out_default = torch.zeros_like(out)
+    assert torch.equal(cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_default), zero)
+    assert torch.equal(out_default, out)
 
 
 class TestZeroState:
