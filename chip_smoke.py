@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   runs B1 + B2, ``banked`` B1 + B3): the framing (B1) and IIR lead (B2,
   one band of the filter-bank kernel's passes with a start state) kernels
   are held against their plain PyTorch versions at the chain's shapes and
-  against scipy's float64 sosfilt (B2 also on a 7-block input; each band
+  against scipy's float64 sosfilt (B1 also at the DAS path's Welch CSM
+  shape with detrend and at frames of 2^16 and 2^18 samples, and timed at
+  the chain's and the CSM's shapes; B2 also on a 7-block input; each band
   prints its output pass), the chain against the same chain on the plain
   paths and against scipy/numpy in float64;
 - the acoustic-camera DAS map (`dsptoolbox_tpu_torch.tools.camera`: 64 mics,
@@ -40,8 +42,9 @@ Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, 34 TFLOP/s fp64 or, for
 fp64 matrix products, 67 TFLOP/s on the fp64 tensor cores; the fp32
-Toeplitz products of B2 and B3 at the faster of 67 TFLOP/s FFMA and three
-TF32 products at 495 TFLOP/s: the H100 SXM's peaks), the card's name and
+Toeplitz products of B2 and B3 and B4's banded product at the faster of 67
+TFLOP/s FFMA and three TF32 products at 495 TFLOP/s: the H100 SXM's
+peaks), the card's name and
 power limit, and as its last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit code
 is non-zero; without a CUDA device it exits with code 2 before doing
@@ -71,6 +74,8 @@ CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes
 DAS_SWEEP = (513, 64, 900)
 DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
+# the DAS path's 10 s x 48 kHz recording: (mics, samples) of its Welch CSM
+CSM_SHAPE = (64, 480000)
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
 BANDED_RAGGED = ((3, 128, 256, 5, 1000), (2, 50, 250, 33, 700))
 # H100 SXM peaks (NVIDIA data sheet): device memory, fp32 and fp64 outside
@@ -376,8 +381,8 @@ def measurement_phase(dev, rng) -> dict:
     )
     n_w = sum(seg["slab"].numel() for seg in plan)
     n_out = sum(seg["slab"].shape[0] * seg["slab"].shape[1] for seg in plan)
-    b4_bound, b4_by = bound(4 * (n_w + x_pad.numel() + n_out * C + len(plan)),
-                            2.0 * n_w * C)
+    b4_bound, b4_by = bound(4 * (n_w + x_pad.numel() + n_out * C + len(plan)), 0.0,
+                            fp32_mm_flop=2.0 * n_w * C)
     print(f"time B4 banded, {len(plan)} segments, {n_w} weights x {C} columns: "
           f"kernel {b4_ms:.4f} ms ({4 * n_w / (b4_ms * 1e-3) / 1e12:.3f} TB/s of "
           f"slab), plain {b4_plain:.4f} ms, library bmm (pre-gathered) "
@@ -722,6 +727,24 @@ def main() -> int:
                   f"max abs err {err:.3e} (tol 1e-6)")
             if not err <= 1e-6:
                 fail("framing kernel disagrees with its plain version")
+    # ... at the Welch CSM's shape of the DAS path's 10 s x 48 kHz recording
+    # (64 mics, L = 1024, hop 512, detrend), and at frames of 2^16 and 2^18
+    # samples (one block per frame; Welch's longest is 2^18)
+    x_csm = torch.from_numpy(rng.standard_normal(CSM_SHAPE).astype(np.float32)).to(dev)
+    for xin, L, step, detrend in ((x_csm, WINDOW, STEP, True),
+                                  (x_csm[:2], 2**16, 2**15, True),
+                                  (x_csm[:1], 2**18, 2**17, False)):
+        w = torch.as_tensor(get_window(Window.Hann, L), dtype=torch.float32, device=dev)
+        yk = cuda_framing.windowed_frames_cuda(xin, w, step, detrend)
+        yp = cuda_framing.windowed_frames_plain(xin, w, step, detrend)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        b1_err = max(b1_err, err)
+        print(f"B1 framing x {tuple(xin.shape)} L={L} step={step} detrend={detrend}, "
+              f"{cuda_framing.frames_per_block(L, step, yk.shape[-2])} frames a block: "
+              f"max abs err {err:.3e} (tol 1e-6)")
+        if yk.shape != yp.shape or not err <= 1e-6:
+            fail("framing kernel disagrees with its plain version")
 
     # 4. B2 IIR lead kernel vs plain, per crossover band, nonzero zi, on
     # the tensor-core output pass (blocks of 128)
@@ -825,13 +848,26 @@ def main() -> int:
     if not err <= 2e-5:
         fail("chain ir disagrees with numpy")
 
-    # 6. times: kernel vs plain in turns, CUDA events, median of 20
-    b1_ms, b1_plain = time_pair(
-        lambda: cuda_framing.windowed_frames_cuda(x, win, STEP, False, pad),
-        lambda: cuda_framing.windowed_frames_plain(x, win, STEP, False, pad),
-    )
-    print(f"time B1 framing ({BATCH}, {T}) pad={pad} L={WINDOW} step={STEP}: "
-          f"kernel {b1_ms:.4f} ms, plain {b1_plain:.4f} ms")
+    # 6. times: kernel vs plain in turns, CUDA events, median of 20. B1 at
+    # the chain's STFT and at the DAS path's Welch CSM; its bound: x read,
+    # frames written, one multiply per frame sample
+    b1_shapes = []
+    for xin, p, detrend in ((x, pad, False), (x_csm, 0, True)):
+        k_ms, p_ms = time_pair(
+            lambda: cuda_framing.windowed_frames_cuda(xin, win, STEP, detrend, p),
+            lambda: cuda_framing.windowed_frames_plain(xin, win, STEP, detrend, p),
+        )
+        rows, n = xin.shape
+        Kb = compute_number_frames(WINDOW, STEP, n + 2 * p)[0]
+        b_ms, b_by = bound(4 * (xin.numel() + rows * Kb * WINDOW + WINDOW),
+                           rows * Kb * WINDOW)
+        print(f"time B1 framing {tuple(xin.shape)} pad={p} L={WINDOW} step={STEP} "
+              f"detrend={detrend}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}, {k_ms / b_ms:.2f}×)")
+        b1_shapes.append({"shape": [rows, n], "pad": p, "detrend": detrend, "ms": k_ms,
+                          "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+    del x_csm
+    b1_ms, b1_plain = b1_shapes[0]["ms"], b1_shapes[0]["plain_ms"]
     b2_ms = b2_plain = 0.0
     for i, args in enumerate(lead_args):
         k_ms, p_ms = time_pair(
@@ -984,14 +1020,13 @@ def main() -> int:
     b3["launches_by_path"] = {"chain_banked": b3_chain, "config3": b3["launches"]}
     b3["launches"] += b3_chain
 
-    # bounds at the timed shapes. B1: x read, frames written, one multiply
-    # per frame sample. B2, per band: x·H in fp32, H lower-triangular
+    # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
+    # band: x·H in fp32, H lower-triangular
     # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
     # tensor cores, whichever is faster); the state path in fp64 (the
     # serial chain, and x·M and s·G as products for the fp64 tensor cores);
     # x read, y written. B5 at the sweep: `das_bound`
-    b1_bound, b1_by = bound(4 * (x.numel() + BATCH * K * WINDOW + WINDOW),
-                            BATCH * K * WINDOW)
+    b1_bound, b1_by = b1_shapes[0]["bound_ms"], b1_shapes[0]["bound_by"]
     b2_bytes = b2_f32 = b2_f64 = b2_f64_mm = 0.0
     for args in lead_args:
         Bb, Kb, Lb = args[4].shape
@@ -1015,7 +1050,8 @@ def main() -> int:
          "launches_by_path": {"chain": launches["framing"],
                               "das": das_launches["framing"]},
          "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain,
-         "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None},
+         "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
+         "by_path_shape": b1_shapes},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",

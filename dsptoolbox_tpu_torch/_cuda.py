@@ -4,6 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first
 use, then loaded with ``ctypes``. The hash covers the source, so an edited
 kernel is rebuilt. Nothing here runs at import time.
+
+`Kernel` is the wrappers' launch path: the library and the ``ctypes``
+function are resolved once, at the first launch, so a launch adds to the
+wrapper's own checks only the current-device test, one call for the
+stream handle and the ``ctypes`` call.
 """
 
 from __future__ import annotations
@@ -17,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -27,7 +34,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_FUNCS: dict[tuple, object] = {}
 # per kernel source: {"seconds": build time, "log": compiler output}; empty
 # for a library found already built
 BUILD_LOG: dict[str, dict] = {}
@@ -81,26 +87,34 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes: list):
-    """C entry point ``symbol`` of ``csrc/<name>.cu``, returning ``int``, with
-    its argument types set (pointers and streams as ``c_void_p``)."""
-    fn = _FUNCS.get((name, symbol))
-    if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCS[(name, symbol)] = fn
-    return fn
-
-
 def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_of(t) -> int:
-    """Handle of the current CUDA stream on ``t``'s device."""
-    import torch
+class Kernel:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (its last argument
+    the stream), launched by `launch`."""
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    def __init__(self, name: str, symbol: str, argtypes: list, what: str):
+        self.name, self.symbol, self.argtypes, self.what = name, symbol, argtypes, what
+        self._fn = None
+
+    def launch(self, index: int, *args) -> None:
+        """Call the entry point with ``args`` and the current stream of CUDA
+        device ``index`` (one call: ``torch._C._cuda_getCurrentRawStream``),
+        entering that device only when it is not the current one; raise if
+        the launch returned a CUDA error."""
+        fn = self._fn
+        if fn is None:
+            fn = getattr(load(self.name), self.symbol)
+            fn.argtypes = self.argtypes  # pointers and the stream as c_void_p
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        if index == torch.cuda.current_device():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        check(err, self.what)

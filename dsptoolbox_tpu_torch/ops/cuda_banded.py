@@ -12,28 +12,32 @@ element offset brought ahead of the grid by scalar prefetch, and ran one
 
 What bounds it on the H100: at the measurement path's width (F = 32,769
 bins, 1/3 octave, C = 32 real planes of 16 complex channels) the slabs hold
-158 M weights (633 MB fp32), each used for 32 FMAs: 633 MB at 3.35 TB/s is
-0.19 ms, 1.0e10 FLOP at 67 TFLOP/s (fp32, no tensor cores) 0.15 ms. So it is
-bound by the slab's bytes, with the FMA pipe close behind: every slab
-element must come from device memory once and serve every column from
-registers, and little may be issued besides the FMAs. The kernel gives each
-block 64 rows of one row tile and 32 columns, and walks the band in chunks
-of 128 k through two shared-memory stages filled by ``cp.async`` (no
-registers held by loads in flight, 16-byte copies where the alignment
-allows): four groups of 64 threads split each chunk's k and keep 8 × 4
-register tiles of the output (12 shared-memory loads per 128 FMAs); their
-tiles are added at the end. The plan's segments (band spans 640 to 6912 at
+158 M weights (633 MB fp32), each used for 32 multiply-adds: 633 MB at 3.35
+TB/s is 0.19 ms, and 1.0e10 FLOP at the 67 TFLOP/s of fp32 FFMA 0.15 ms. So
+it is bound by the slab's bytes, with the FMA pipe close behind: an FFMA
+kernel would have to issue FMAs near their peak while streaming near its
+own, and the first one reached neither (0.30 ms device). The kernel runs the
+product on the tensor cores as three TF32 ``mma.sync`` products of a hi/lo
+split of both operands (lo·hi, hi·lo, hi·hi; fp32 accuracy, never a single
+TF32 product), ~0.10 ms of tensor-core time at the rate ``mma.sync``
+reaches on the card, each chunk's sums moved from the tensor cores'
+accumulators into fp32 running sums rounded to nearest (kept in the
+accumulators, whose adds round toward zero, a long band's sum drifted),
+and streams the slab through a ring of four
+shared-memory stages filled by ``cp.async``, three chunks in flight while
+the fourth is computed. Every slab element comes from device memory once
+and serves all 32 columns. The plan's segments (band spans 640 to 6912 at
 full width) go in one launch, longest bands first, so the short segments
 fill the card beside the long one instead of running alone. A block reads
 its own offset; rows of x outside ``[0, F)`` read as zero, so no offset can
-read out of bounds. fp32 FFMA only: the JAX kernel runs a plain f32 dot and
-its XLA twin runs at ``Precision.HIGHEST``; no TF32.
+read out of bounds.
 
 `banded_matmul_cuda` is the wrapper: it checks devices, types, shapes and
-contiguity, launches on PyTorch's current stream and counts its launches.
-A plan's checks and ``ctypes`` arrays are built once and kept on the plan
-(`ops.banded.DevicePlan`), so a call costs the host little more than the
-launch. The plain version and the dispatcher are in `ops.banded`.
+contiguity, launches on PyTorch's current stream (`_cuda.Kernel`) and counts
+its launches. A plan's checks and ``ctypes`` arrays are built once and kept
+on the plan (`ops.banded.DevicePlan`), so a call costs the host the output's
+allocation and the launch. The plain version and the dispatcher are in
+`ops.banded`.
 """
 
 from __future__ import annotations
@@ -49,13 +53,14 @@ launches = 0
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
-_ARGTYPES = [_c] * 6 + [_i, _i, _c, _i, _i, _c, _c]
+_KERNEL = _cuda.Kernel("banded", "dsptb_banded_matmul_f32",
+                       [_c] * 6 + [_i, _i, _c, _i, _i, _c, _c], "banded matmul kernel")
 _INT_MAX = 2**31 - 1
 MAX_SEGMENTS = 8
 
 
 def _segment_args(plan: list[dict]) -> tuple:
-    """``(device, TR, row count, ctypes arguments)`` of a plan's segments,
+    """``(device index, row count, ctypes arguments)`` of a plan's segments,
     checked. Built once for a plan from `ops.banded.plan_to_torch` (a
     `DevicePlan`) and kept on it; built anew for a plain list."""
     args = getattr(plan, "launch_args", None)
@@ -86,7 +91,7 @@ def _segment_args(plan: list[dict]) -> tuple:
               (_i * n)(*(seg["slab"].shape[0] for seg in plan)),
               (_i * n)(*(seg["slab"].shape[2] for seg in plan)),
               (_i * n)(*(sum(rows[:i]) for i in range(n))), (_i * n)(*rows), n, TR)
-    args = (dev, sum(rows), arrays)
+    args = (dev.index, sum(rows), arrays)
     if hasattr(plan, "launch_args"):
         plan.launch_args = args
     return args
@@ -99,22 +104,19 @@ def banded_matmul_cuda(plan: list[dict], x_padded: torch.Tensor) -> torch.Tensor
     (F, C)`` float32, all on one CUDA device. Rows of ``x_padded`` past its
     end read as zero."""
     global launches
-    dev, n_rows, arrays = _segment_args(plan)
-    if not (x_padded.is_cuda and x_padded.device == dev):
+    index, n_rows, arrays = _segment_args(plan)
+    if x_padded.get_device() != index:
         raise ValueError("banded_matmul_cuda needs all tensors on one CUDA device")
     if x_padded.dtype != torch.float32 or x_padded.ndim != 2:
         raise TypeError("banded_matmul_cuda takes a float32 x_padded (F, C)")
     F, C = x_padded.shape
     if max(F, C) > _INT_MAX:
         raise ValueError("banded_matmul_cuda: a dimension exceeds 2**31 - 1")
-    out = torch.empty((n_rows, C), dtype=torch.float32, device=dev)
+    out = x_padded.new_empty((n_rows, C))
     if out.numel() == 0:
         return out
-    x_padded = x_padded.contiguous()
-    fn = _cuda.function("banded", "dsptb_banded_matmul_f32", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(*arrays, x_padded.data_ptr(), F, C, out.data_ptr(),
-                 _cuda.stream_of(x_padded))
-    _cuda.check(err, "banded matmul kernel")
+    if not x_padded.is_contiguous():
+        x_padded = x_padded.contiguous()
+    _KERNEL.launch(index, *arrays, x_padded.data_ptr(), F, C, out.data_ptr())
     launches += 1
     return out

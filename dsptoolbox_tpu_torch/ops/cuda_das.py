@@ -52,7 +52,8 @@ from .. import _config, _cuda
 launches = 0
 
 _c = ctypes.c_void_p
-_ARGTYPES = [_c] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _c]
+_KERNEL = _cuda.Kernel("das_map", "dsptb_das_map_f32",
+                       [_c] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _c], "DAS map kernel")
 
 
 def packed_quadratic_from_hp(hp, c_re, c_im):
@@ -99,12 +100,8 @@ def das_map_cuda(amp, diff, k, csm_re, csm_im):
     if out.numel() == 0 or M == 0:
         return out.zero_()
     amp, diff, k, csm_re, csm_im = (t.contiguous() for t in tensors)
-    fn = _cuda.function("das_map", "dsptb_das_map_f32", _ARGTYPES)
-    with torch.cuda.device(amp.device):
-        err = fn(amp.data_ptr(), diff.data_ptr(), k.data_ptr(),
-                 csm_re.data_ptr(), csm_im.data_ptr(), out.data_ptr(),
-                 M, G, F, _cuda.stream_of(amp))
-    _cuda.check(err, "DAS map kernel")
+    _KERNEL.launch(amp.get_device(), amp.data_ptr(), diff.data_ptr(), k.data_ptr(),
+                   csm_re.data_ptr(), csm_im.data_ptr(), out.data_ptr(), M, G, F)
     launches += 1
     return out
 

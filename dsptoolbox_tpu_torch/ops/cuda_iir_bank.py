@@ -59,9 +59,13 @@ MAX_LANES = 32
 MMA_MAX_L = 128
 
 _c = ctypes.c_void_p
-_ARGTYPES = [_c] * 10 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_longlong, ctypes.c_longlong, _c]
+_KERNEL = _cuda.Kernel(
+    "iir_bank", "dsptb_iir_bank_f32",
+    [_c] * 10 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                 ctypes.c_longlong, _c],
+    "IIR bank kernel",
+)
 
 
 def _chunk(K: int) -> int:
@@ -169,13 +173,10 @@ def launch(kops: dict, x: torch.Tensor, out: torch.Tensor, K: int,
     buf = torch.empty(n_vs + n_carry + n_bands * R * Ns, dtype=torch.float64, device=x.device)
     zf = buf[n_vs + n_carry:].view(n_bands, R, Ns)
     vs = buf.data_ptr()
-    fn = _cuda.function("iir_bank", "dsptb_iir_bank_f32", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), h.data_ptr(), M.data_ptr(), A.data_ptr(), G.data_ptr(),
-                 None if s0 is None else s0.data_ptr(), out.data_ptr(), vs, vs + 8 * n_vs,
-                 zf.data_ptr(), n_bands, R, K, L, Ns, P, F, x.stride(0), out.stride(2),
-                 _cuda.stream_of(x))
-    _cuda.check(err, "IIR bank kernel")
+    _KERNEL.launch(x.get_device(), x.data_ptr(), h.data_ptr(), M.data_ptr(), A.data_ptr(),
+                   G.data_ptr(), None if s0 is None else s0.data_ptr(), out.data_ptr(), vs,
+                   vs + 8 * n_vs, zf.data_ptr(), n_bands, R, K, L, Ns, P, F, x.stride(0),
+                   out.stride(2))
     return zf
 
 

@@ -1,15 +1,18 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 5] [--case chain|das|tf|fb|all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
 lead kernel on one crossover band (each against its plain version) and on
 all four (its passes by kernel name: x·M, the three chain launches, the
-output pass), and the whole chain in both bank modes.
+output pass), and the whole chain in both bank modes; and it times the
+host's steps of a framing call (`host_breakdown`).
 
-``das``: the DAS map kernel against its plain version on the full sweep
-(513 bins × 64 mics × 900 points), and the acoustic-camera map
+``das``: the framing kernel (B1) against its plain version at the Welch
+CSM's shape of the 10 s × 48 kHz recording (64 × 480,000 samples, L =
+1024, hop 512, detrend), the DAS map kernel against its plain version on
+the full sweep (513 bins × 64 mics × 900 points), and the acoustic-camera map
 (`tools.camera`, 64 mics, 900 points, 2 kHz third octave) on a 0.5 s ×
 16 kHz and a 10 s × 48 kHz recording: the map with the CSM cached, and CSM +
 map, each through the kernels and on the plain paths.
@@ -28,14 +31,17 @@ its four steps (LR crossover, gammatone, resampling, 1/3 octave), through
 the kernels and on the plain paths.
 
 For each case it prints the device time per kernel and per call, the host
-time per call (calls issued without waiting), the wall time per call, and
-the device's idle share of the wall time. Needs a CUDA device; builds the
+time per call (calls issued without waiting), the wall time per call, the
+device's idle share of the wall time, and the median CUDA-event time of a
+call issued alone (events around each call, synchronised after it: the
+host's time up to the launch included). Needs a CUDA device; builds the
 kernels from ``csrc/`` first.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
 import sys
 import time
@@ -75,8 +81,11 @@ def profile_call(label: str, fn, runs: int) -> None:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+    # the trace may miss a kernel or two of the run (the profiler warns that
+    # it clears its events at the end of a cycle), so each kernel's time is
+    # also given per launch it recorded
     rows = [
-        (e.key, _device_us(e) / runs, e.count // runs)
+        (e.key, _device_us(e) / runs, e.count, _device_us(e) / e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0
     ]
@@ -94,12 +103,66 @@ def profile_call(label: str, fn, runs: int) -> None:
     host = (t1 - t0) / n * 1e6
     wall = (t2 - t0) / n * 1e6
 
+    events = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
+
     print(f"===== {label}")
     print(f"device busy {busy:.1f} us/call; host {host:.1f} us/call; "
           f"wall {wall:.1f} us/call; device idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}")
-    for key, us, count in rows[:16]:
-        print(f"  {us:10.1f} us  x{count:<3d} {key[:90]}")
+          f"{max(0.0, 1 - busy / wall):.3f}; CUDA events "
+          f"{statistics.median(events):.4f} ms/call")
+    for key, us, count, per_launch in rows[:16]:
+        print(f"  {us:10.1f} us/call  {per_launch:10.1f} us/launch x{count:<4d} {key[:80]}")
+
+
+def host_breakdown(x, win, step: int, pad: int) -> None:
+    """Host µs per call of the framing wrapper and of its steps at one
+    shape, each step timed alone over many calls issued without waiting
+    (the entry point called with B = 0 returns at its checks, before any
+    launch: the ``ctypes`` call alone)."""
+    from ..ops.framing import compute_number_frames
+
+    kern = cuda_framing._KERNEL
+    L, T = win.shape[0], x.shape[-1]
+    K = compute_number_frames(L, step, T + 2 * pad, True)[0]
+    fpb = cuda_framing.frames_per_block(L, step, K)
+    out = torch.empty(x.shape[:-1] + (K, L), device=x.device)
+    ptrs = (x.data_ptr(), win.data_ptr(), out.data_ptr())
+    rows = x.numel() // T
+    kern.launch(0, *ptrs, rows, T, pad, step, L, K, 0, fpb)
+    steps = (
+        ("wrapper (checks, allocation, launch)",
+         lambda: cuda_framing.windowed_frames_cuda(x, win, step, False, pad)),
+        ("_cuda.Kernel.launch (ctypes call and kernel launch)",
+         lambda: kern.launch(0, *ptrs, rows, T, pad, step, L, K, 0, fpb)),
+        ("ctypes call alone (B = 0)",
+         lambda: kern._fn(*ptrs, 0, T, pad, step, L, K, 0, fpb,
+                          torch._C._cuda_getCurrentRawStream(0))),
+        ("output allocation (new_empty)", lambda: x.new_empty(out.shape)),
+        ("current device and stream handle",
+         lambda: (torch.cuda.current_device(), torch._C._cuda_getCurrentRawStream(0))),
+        ("frame count and partition",
+         lambda: cuda_framing.frames_per_block(
+             L, step, compute_number_frames(L, step, T + 2 * pad, True)[0])),
+    )
+    print(f"===== host per call, framing wrapper's steps, x {tuple(x.shape)} L={L}")
+    for label, fn in steps:
+        n = 200
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        print(f"  {host:8.2f} us  {label}")
 
 
 def plain_paths(fn):
@@ -115,6 +178,15 @@ def profile_das(dev, runs: int) -> None:
     from . import camera
 
     rng = np.random.default_rng(0)
+    # B1 at the Welch CSM of the 10 s x 48 kHz recording: 64 mics, the
+    # Signal's default window of 1024 and 50 % overlap, detrend
+    x = torch.from_numpy(rng.standard_normal((64, 10 * FS)).astype(np.float32)).to(dev)
+    win = torch.as_tensor(get_window(Window.Hann, 1024), dtype=torch.float32, device=dev)
+    for name, fn in (("kernel", cuda_framing.windowed_frames_cuda),
+                     ("plain", cuda_framing.windowed_frames_plain)):
+        profile_call(f"B1 framing {name}, Welch CSM shape (64, {10 * FS}) L=1024 "
+                     f"step=512 detrend", lambda fn=fn: fn(x, win, 512, True), runs)
+    del x
     F, M, G = 513, 64, 900
     g = camera.grid()
     C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
@@ -223,8 +295,9 @@ def profile_fb(dev, runs: int) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--runs", type=int, default=5, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "all"), default="all")
+    ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
+    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "all"), nargs="+",
+                    default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: needs a CUDA device", file=sys.stderr)
@@ -240,13 +313,14 @@ def main(argv=None) -> int:
         _cuda.load(name)
 
     dev = torch.device("cuda", 0)
-    if args.case in ("das", "all"):
+    cases = {"chain", "das", "tf", "fb"} if "all" in args.case else set(args.case)
+    if "das" in cases:
         profile_das(dev, args.runs)
-    if args.case in ("tf", "all"):
+    if "tf" in cases:
         profile_tf(dev, args.runs)
-    if args.case in ("fb", "all"):
+    if "fb" in cases:
         profile_fb(dev, args.runs)
-    if args.case in ("das", "tf", "fb"):
+    if "chain" not in cases:
         return 0
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((BATCH, T)).astype(np.float32)).to(dev)
@@ -272,6 +346,7 @@ def main(argv=None) -> int:
     profile_call("B1 framing plain",
                  lambda: cuda_framing.windowed_frames_plain(x, win, 512, False, 512),
                  args.runs)
+    host_breakdown(x, win, 512, 512)
     profile_call("B2 lead kernel, band 1", lambda: cuda_iir.sosfilt_lead_cuda(*lead),
                  args.runs)
     profile_call("B2 lead plain, band 1", lambda: cuda_iir.sosfilt_lead_plain(*lead),

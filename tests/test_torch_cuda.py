@@ -46,6 +46,18 @@ def _rel(a, b):
     return float((a - b).abs().max()) / float(b.abs().max())
 
 
+def _framing_case(dev, rng, shape, L, step, pad, detrend):
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    win = torch.from_numpy(np.hanning(L).astype(np.float32)).to(dev)
+    before = cuda_framing.launches
+    got = cuda_framing.windowed_frames(x, win, step, detrend, pad)
+    want = cuda_framing.windowed_frames_plain(x, win, step, detrend, pad)
+    torch.cuda.synchronize()
+    assert cuda_framing.launches == before + 1
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6
+
+
 @pytest.mark.parametrize(
     "shape,L,step,pad",
     [((8, 4096), 512, 256, 0), ((3, 1000), 384, 160, 0), ((2, 3, 777), 100, 37, 0),
@@ -54,14 +66,38 @@ def _rel(a, b):
 )
 @pytest.mark.parametrize("detrend", [True, False])
 def test_framing_kernel_matches_plain(dev, shape, L, step, pad, detrend):
-    x = torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(dev)
-    win = torch.from_numpy(np.hanning(L).astype(np.float32)).to(dev)
+    _framing_case(dev, RNG, shape, L, step, pad, detrend)
+
+
+# the warp kernel (L <= 2048) with k·step - pad off 16 bytes (T odd, step
+# 130, pad 3), step > L, one row shorter than a frame and the chain's STFT
+# (16, 384000) with pad 512; one block per frame at L = 2^16 and 2^18
+# (Welch's longest)
+@pytest.mark.parametrize(
+    "shape,L,step,pad",
+    [((3, 1001), 256, 130, 3), ((2, 5000), 256, 300, 10), ((1, 700), 1024, 512, 0),
+     ((16, 384000), 1024, 512, 512), ((2, 2**17 + 5), 2**16, 2**15, 7),
+     ((1, 2**19), 2**18, 2**17, 0)],
+)
+@pytest.mark.parametrize("detrend", [True, False])
+def test_framing_kernel_edge_shapes(dev, shape, L, step, pad, detrend):
+    _framing_case(dev, np.random.default_rng(L + step), shape, L, step, pad, detrend)
+
+
+@pytest.mark.parametrize("L,step", [(1024, 512), (4096, 1024)])
+def test_framing_kernel_on_a_misaligned_x(dev, L, step):
+    """x and the window 4 bytes off 16 (contiguous views of a larger
+    buffer): the kernel stages with 4-byte copies."""
+    rng = np.random.default_rng(L)
+    base = torch.from_numpy(rng.standard_normal(3 * 9000 + 1).astype(np.float32)).to(dev)
+    x = base[1:].view(3, 9000)
+    wbase = torch.from_numpy(np.hanning(L + 1).astype(np.float32)).to(dev)
+    win = wbase[1:]
     before = cuda_framing.launches
-    got = cuda_framing.windowed_frames(x, win, step, detrend, pad)
-    want = cuda_framing.windowed_frames_plain(x, win, step, detrend, pad)
+    got = cuda_framing.windowed_frames(x, win, step, True, 100)
+    want = cuda_framing.windowed_frames_plain(x, win, step, True, 100)
     torch.cuda.synchronize()
     assert cuda_framing.launches == before + 1
-    assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-6
 
 
@@ -314,6 +350,43 @@ def test_banded_kernel_at_the_path_plan(dev):
     got = cuda_banded.banded_matmul_cuda(plan, x)
     want = banded.banded_plan_plain(plan, x)
     torch.cuda.synchronize()
+    assert got.shape == (32769, 32)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_banded_kernel_keeps_float32_sums_of_large_values(dev):
+    """Weights summing to 1 over the path plan's longest band (6912) on x ≈
+    5,000, the size of a smoothed unwrapped phase: within twice the float32
+    sum's random walk, 2·2^-24·|x|·sqrt(SPAN), of the float64 sum (a sum
+    kept in the tensor cores' accumulator drifts past it)."""
+    rng = np.random.default_rng(6912)
+    nb, tr, span = 2, 128, 6912
+    w = rng.uniform(0.0, 1.0, (nb, tr, span))
+    slab = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    offsets = np.array([0, 100], np.int32)
+    x = (5000.0 + rng.standard_normal((span + 100, 4))).astype(np.float32)
+    seg = {"rows": nb * tr, "span": span, "slab": torch.from_numpy(slab).to(dev),
+           "offsets": torch.from_numpy(offsets).to(dev)}
+    got = cuda_banded.banded_matmul_cuda([seg], torch.from_numpy(x).to(dev)).cpu().numpy()
+    xg = x.astype(np.float64)[offsets[:, None] + np.arange(span)]
+    want = np.einsum("bts,bsc->btc", slab.astype(np.float64), xg).reshape(-1, 4)
+    assert np.abs(got - want).max() <= 2 * 2.0**-24 * 5000 * np.sqrt(span)
+
+
+def test_banded_kernel_at_a_sixth_octave_plan(dev):
+    """The 1/6-octave plan of the measurement path's grid (32,769 bins) on
+    32 columns, in one launch."""
+    freqs = np.fft.rfftfreq(65536, 1 / 48000)
+    key = tf_backend._plan_key(freqs, 6, Window.Hann(3000, True))
+    plan = tf_backend.device_banded_plan(key, torch.float32, dev)
+    span = max(seg["span"] for seg in plan)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (32769 + span, 32)).astype(np.float32)).to(dev)
+    before = cuda_banded.launches
+    got = banded.banded_apply(plan, x)
+    want = banded.banded_plan_plain(plan, x)
+    torch.cuda.synchronize()
+    assert cuda_banded.launches == before + 1
     assert got.shape == (32769, 32)
     assert float((got - want).abs().max()) <= 1e-5
 

@@ -64,6 +64,57 @@ def test_no_jax_imports_in_port_sources():
                 assert root not in ("jax", "dsptoolbox_tpu"), f"{path}: {n}"
 
 
+def _split_operand(arg: str) -> tuple:
+    """``(part, base)`` of an operand at an ``mma_tf32`` call site: the
+    part ("hi" or "lo") of a value split by ``split_tf32`` and the operand
+    with that part blanked, which names the value. A part is a name's
+    ``hi``/``lo`` suffix (``alo[mt]``, ``bhi[nt][0]``) or, in
+    ``iir_bank.cu``'s ``hb[d][b][part]``, the last index (0 hi, 1 lo)."""
+    arg = arg.strip()
+    m = re.fullmatch(r"(\w*)(hi|lo)(\W.*)?", arg)
+    if m:
+        return m.group(2), f"{m.group(1)}*{m.group(3) or ''}"
+    m = re.fullmatch(r"(hb\[[^\]]*\]\[[01]\])\[([01])\]", arg)
+    assert m, f"mma_tf32 operand {arg!r} is not a part of a hi/lo split"
+    return ("hi", "lo")[int(m.group(2))], f"{m.group(1)}[*]"
+
+
+def tf32_call_sites(text: str) -> list:
+    """Every ``mma_tf32(acc, a, b0, b1)`` call of a CUDA source, in text
+    order, as ``(acc, (part, base) of a, of b0, of b1)``."""
+    calls = []
+    for args in re.findall(r"(?<!void )\bmma_tf32\(([^;]*)\);", text):
+        acc, a, b0, b1 = (t.strip() for t in args.split(","))
+        calls.append((acc, _split_operand(a), _split_operand(b0), _split_operand(b1)))
+    return calls
+
+
+def check_tf32_rule(path: Path, text: str) -> None:
+    """Tensor-core products only in fp64, or in TF32 as the three products
+    of a hi/lo split (fp32 accuracy), never a single one: one TF32
+    ``mma.sync`` helper, ``cvt.rna`` rounding, no TF32 ``wgmma``, and its
+    call sites in triples lo·hi, hi·lo, hi·hi on one accumulator and the
+    same split values."""
+    assert not re.search(r"wgmma[\w.]*tf32", text), f"{path}: TF32 wgmma"
+    mma = re.findall(r"mma\.sync\.aligned\.\w+\.row\.col\.([\w.]+)", text)
+    assert all(t in ("f64.f64.f64.f64", "f32.tf32.tf32.f32") for t in mma), (path, mma)
+    calls = tf32_call_sites(text)
+    if "f32.tf32.tf32.f32" not in mma:
+        assert not calls, path
+        return
+    assert mma.count("f32.tf32.tf32.f32") == 1, path  # one helper, mma_tf32
+    assert "cvt.rna.tf32.f32" in text, path
+    assert calls and len(calls) % 3 == 0, (path, calls)
+    for i in range(0, len(calls), 3):
+        triple = calls[i:i + 3]
+        parts = [(a[0], b0[0], b1[0]) for _, a, b0, b1 in triple]
+        assert parts == [("lo", "hi", "hi"), ("hi", "lo", "lo"), ("hi", "hi", "hi")], (
+            path, triple)
+        for j in range(4):  # one accumulator, the same split values
+            same = {c[j] if j == 0 else c[j][1] for c in triple}
+            assert len(same) == 1, (path, triple)
+
+
 @pytest.mark.parametrize(
     "needle",
     ["allow_tf32 = True", "allow_tf32=True", "set_float32_matmul_precision",
@@ -72,19 +123,39 @@ def test_no_jax_imports_in_port_sources():
 def test_port_never_lowers_precision(needle):
     for path in _port_sources():
         assert needle not in path.read_text(), f"{path} contains {needle!r}"
+    sites = {}
     for path in sorted((PKG / "csrc").glob("*.cu")):
         text = path.read_text()
         for bad in ("__half", "bfloat16", "wmma"):
             assert bad not in text, f"{path} contains {bad!r}"
-        # tensor-core products only in fp64, or in TF32 as the three
-        # products of a hi/lo split (fp32 accuracy), never a single one
-        mma = re.findall(r"mma\.sync\.aligned\.\w+\.row\.col\.([\w.]+)", text)
-        assert all(t in ("f64.f64.f64.f64", "f32.tf32.tf32.f32") for t in mma), (path, mma)
-        if "f32.tf32.tf32.f32" in mma:
-            assert mma.count("f32.tf32.tf32.f32") == 1, path  # one helper, mma_tf32
-            assert "cvt.rna.tf32.f32" in text, path
-            calls = re.findall(r"mma_tf32\(acc\[nt\], (a\w+), hb\[nt - lt\]\[0\]\[(\d)\]", text)
-            assert calls == [("alo", "0"), ("ahi", "1"), ("ahi", "0")], (path, calls)
+        check_tf32_rule(path, text)
+        sites[path.name] = [(a[0], b0[0]) for _, a, b0, _ in tf32_call_sites(text)]
+    three = [("lo", "hi"), ("hi", "lo"), ("hi", "hi")]
+    assert sites["iir_bank.cu"] == three and sites["banded.cu"] == three, sites
+
+
+@pytest.mark.parametrize(
+    "body",
+    ["mma_tf32(acc[nt], ahi, bhi[0], bhi[1]);",  # a single TF32 product
+     "mma_tf32(acc, alo, bhi[0], bhi[1]); mma_tf32(acc, ahi, blo[0], blo[1]);",
+     "mma_tf32(acc, ahi, bhi[0], bhi[1]); mma_tf32(acc, alo, bhi[0], bhi[1]); "
+     "mma_tf32(acc, ahi, blo[0], blo[1]);",  # hi·hi first
+     "mma_tf32(acc, alo, bhi[0], bhi[1]); mma_tf32(acc, ahi, blo[0], blo[1]); "
+     "mma_tf32(acc2, ahi, bhi[0], bhi[1]);",  # two accumulators
+     "mma_tf32(acc, alo, bhi[0], bhi[1]); mma_tf32(acc, ahi, blo[0], blo[1]); "
+     "mma_tf32(acc, chi, bhi[0], bhi[1]);",  # another A value
+     "mma_tf32(acc, alo, bhi[0], bhi[1]); mma_tf32(acc, ahi, blo[0], blo[1]); "
+     "mma_tf32(acc, ahi, x[0], x[1]);",  # an operand that is no split part
+     "asm(\"wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32\");"],
+)
+def test_tf32_rule_refuses_other_uses(body):
+    helper = ('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 ...");\n'
+              'asm("cvt.rna.tf32.f32 %0, %1;");\n')
+    good = ("mma_tf32(acc, alo, bhi[0], bhi[1]); mma_tf32(acc, ahi, blo[0], blo[1]); "
+            "mma_tf32(acc, ahi, bhi[0], bhi[1]);")
+    check_tf32_rule(Path("good.cu"), helper + good)
+    with pytest.raises(AssertionError):
+        check_tf32_rule(Path("bad.cu"), helper + body)
 
 
 def test_cpu_tensors_never_launch_kernels():

@@ -112,6 +112,65 @@ def test_plain_framing_matches_pallas_interpret(detrend):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
 
 
+def _staged_frames(x, win, step, detrend, pad):
+    """numpy emulation of the CUDA framing kernel's partition and staging
+    (`csrc/framing.cu`): blocks of `cuda_framing.frames_per_block`
+    consecutive frames of one row, each staging its input span from x's
+    element rounded down to 16 bytes in whole 4-sample chunks, zero outside
+    its row, and framing from the staged span (frames longer than the warp
+    kernel's take one block each, read from x). Asserts that the blocks
+    cover every frame exactly once and that each span fits the block's
+    shared memory."""
+    B, T = x.shape
+    L = len(win)
+    K = framing.compute_number_frames(L, step, T + 2 * pad)[0]
+    fpb = cuda_framing.frames_per_block(L, step, K)
+    flat = x.reshape(-1)
+    out = np.zeros((B, K, L), np.float32)
+    seen = np.zeros((B, K), int)
+    runs = [(k0, min(fpb, K - k0)) for k0 in range(0, K, fpb)] if fpb else [
+        (k, 1) for k in range(K)]
+    for b in range(B):
+        for k0, n in runs:
+            g0 = b * T + k0 * step - pad
+            a0 = g0 - g0 % 4  # rounded down to 16 bytes of x
+            lead = g0 - a0
+            chunks = (lead + (n - 1) * step + L + 3) // 4
+            if fpb:
+                assert ((L + 3) & ~3) + 4 * chunks <= cuda_framing.span_floats(
+                    L, step, fpb) <= cuda_framing.SMEM_FLOATS
+            q = a0 + np.arange(4 * chunks)
+            xs = np.where((q >= b * T) & (q < b * T + T), flat[np.clip(q, 0, flat.size - 1)],
+                          np.float32(0))
+            for j in range(n):
+                v = xs[lead + j * step: lead + j * step + L] * win
+                out[b, k0 + j] = v - v.mean() if detrend else v
+                seen[b, k0 + j] += 1
+    assert (seen == 1).all()
+    return out, fpb
+
+
+# (B, T, L, step, pad): a ragged tail, step > L, T < L, pad > 0 with odd
+# offsets, L = 8, one frame, a span cut by the shared memory (fpb 2), the
+# chain's L, step and pad, and L = 2^18 (Welch's longest; one block per
+# frame)
+@pytest.mark.parametrize(
+    "B,T,L,step,pad,fpb",
+    [(2, 1000, 64, 25, 0, 8), (2, 1000, 64, 100, 0, 8), (3, 50, 64, 16, 0, 4),
+     (2, 777, 100, 37, 63, 8), (2, 130, 8, 3, 5, 8), (1, 5000, 2048, 6000, 0, 1),
+     (1, 20000, 2048, 4500, 0, 2), (4, 4000, 1024, 512, 512, 8),
+     (1, 300000, 2**18, 2**17, 0, 0)],
+)
+@pytest.mark.parametrize("detrend", [True, False])
+def test_framing_partition_covers_every_frame_once(B, T, L, step, pad, fpb, detrend):
+    x = RNG.standard_normal((B, T)).astype(np.float32)
+    win = np.hanning(L).astype(np.float32)
+    got, used = _staged_frames(x, win, step, detrend, pad)
+    assert used == fpb
+    want = cuda_framing.windowed_frames_plain(_t(x), _t(win), step, detrend, pad)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-6)
+
+
 @pytest.mark.parametrize("keep_last", [True, False])
 @pytest.mark.parametrize("L,step,T", [(64, 32, 1000), (60, 25, 1000), (64, 16, 40)])
 def test_frame_signal_and_counts_match_jax(L, step, T, keep_last):

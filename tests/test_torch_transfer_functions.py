@@ -382,6 +382,102 @@ def test_banded_matmul_plain_matches_pallas_interpret(C):
                                got[: nb * tr - 5], rtol=0, atol=0)
 
 
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: a float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)  # v - hi is exact in float32
+
+
+def banded_3xtf32(slab, offsets, x_padded):
+    """numpy emulation of the CUDA kernel's product (`csrc/banded.cu`) for
+    one segment: both operands split into TF32 hi + lo parts, the three
+    products lo·hi, hi·lo, hi·hi of every k8 step (exact in float64, as
+    on the tensor cores) added to float32 sums; rows of x outside [0, F)
+    read as zero. Returns ``(NB·TR, C)`` float32."""
+    nb, tr, span = slab.shape
+    F, C = x_padded.shape
+    idx = np.asarray(offsets, np.int64)[:, None] + np.arange(span)
+    xg = np.where(((idx >= 0) & (idx < F))[..., None],
+                  x_padded[np.clip(idx, 0, F - 1)], np.float32(0))
+    ahi, alo = _split_tf32(slab)
+    bhi, blo = _split_tf32(xg)
+    acc = np.zeros((nb, tr, C), np.float32)
+    for k in range(0, span, 8):
+        ks = slice(k, k + 8)
+        for a, b in ((alo, bhi), (ahi, blo), (ahi, bhi)):
+            step = np.matmul(a[:, :, ks].astype(np.float64), b[:, ks].astype(np.float64))
+            acc = acc + step.astype(np.float32)
+    return acc.reshape(nb * tr, C)
+
+
+def _terms(slab, offsets, x_padded):
+    """Σ_k |slab·x| of each output: the scale of a float32 dot product's
+    rounding."""
+    return banded.banded_matmul_plain(torch.from_numpy(np.abs(slab)),
+                                      torch.from_numpy(offsets),
+                                      torch.from_numpy(np.abs(x_padded))).numpy()
+
+
+def test_banded_3xtf32_emulation_on_the_pallas_inputs():
+    """The three-TF32-product split of the CUDA kernel on the JAX package's
+    Pallas banded kernel's test inputs (N(0, 1) weights and x): within 1e-5
+    of the sum of the terms' magnitudes of the plain version, and within
+    the Pallas-vs-XLA 1e-4 of the Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(8)
+    slab = rng.standard_normal((3, 128, 256)).astype(np.float32)
+    offsets = np.array([0, 101, 333], np.int32)
+    x = rng.standard_normal((1000, 5)).astype(np.float32)
+    got = banded_3xtf32(slab, offsets, x)
+    plain = banded.banded_matmul_plain(torch.from_numpy(slab), torch.from_numpy(offsets),
+                                       torch.from_numpy(x)).numpy()
+    assert np.all(np.abs(got - plain) <= 1e-5 * _terms(slab, offsets, x))
+    want = np.asarray(jax_banded_matmul(jnp.asarray(slab), jnp.asarray(offsets),
+                                        jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # one TF32 product alone misses the same bound: the split is what
+    # carries float32's accuracy
+    one = np.einsum("bts,bsc->btc", _tf32(slab).astype(np.float64),
+                    _tf32(x[offsets[:, None] + np.arange(256)]).astype(np.float64))
+    assert np.abs(one.reshape(-1, 5) - plain).max() > 1e-3
+
+
+def test_banded_3xtf32_emulation_on_a_smoothing_plan(monkeypatch):
+    """The split at a 4097-bin grid's 1/3-octave plan: every segment within
+    1e-5 of the terms' magnitudes of the plain version, and the smoothing
+    through it within 1e-4 of the float64 host smoothing."""
+    rng = np.random.default_rng(5)
+    freqs = np.fft.rfftfreq(8192, 1 / FS)
+    wy = Window.Hann(3000, True)
+    plan = bk._banded_smoothing_plan(*bk._plan_key(freqs, 3, wy))
+    x = rng.standard_normal((4097 + max(seg["slab"].shape[2] for seg in plan), 4)).astype(
+        np.float32)
+    for seg in plan:
+        got = banded_3xtf32(seg["slab"], seg["offsets"], x)
+        plain = banded.banded_matmul_plain(torch.from_numpy(seg["slab"]),
+                                           torch.from_numpy(seg["offsets"]),
+                                           torch.from_numpy(x)).numpy()
+        assert np.all(np.abs(got - plain) <= 1e-5 * _terms(seg["slab"], seg["offsets"], x))
+
+    def emulated(plan, x_padded):
+        xp = x_padded.numpy()
+        return torch.from_numpy(np.concatenate(
+            [banded_3xtf32(seg["slab"].numpy(), seg["offsets"].numpy(), xp)[: seg["rows"]]
+             for seg in plan]))
+
+    monkeypatch.setattr(bk, "banded_apply", emulated)
+    sp = (rng.standard_normal((4097, 2)) + 1j * rng.standard_normal((4097, 2))).astype(
+        np.complex64)
+    got = bk.complex_smoothing_banded(torch.from_numpy(sp), freqs, 3, wy).numpy()
+    want = bk.complex_smoothing_host(sp, freqs, 3, wy)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+
+
 def test_unwrap_matches_numpy_and_jax():
     rng = np.random.default_rng(9)
     p = np.cumsum(rng.uniform(-3.5, 3.5, (2000, 3)), axis=0)
