@@ -19,8 +19,12 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   900 grid points, `BeamformerDASFrequency.get_beamformer_map(2000, 3)`) on
   a 0.5 s × 16 kHz and a 10 s × 48 kHz recording: the DAS map kernel (B5)
   is held against its plain version on the full 513-bin sweep and ragged
-  shapes, and timed there and at the two recordings' own shapes, the map
-  against the plain path and the source's position;
+  shapes (Hermitian C) and on a non-Hermitian C at the path's 10 and 30
+  bins, M = 1 and M = 160 (each case prints the kernel's plan; two launches
+  must give the same bits, and at 10 bins every SM at least 16 warps), and
+  timed there, at the two recordings' own shapes (also the library
+  yardstick: the GEMM part on cuBLAS fp32, steering pre-built) and at M =
+  160, the map against the plain path and the source's position;
 - the transfer-function measurement (`dsptoolbox_tpu_torch.tools.measurement`:
   a 5 s SyncLog sweep recorded by 16 microphones at 48 kHz, deconvolved,
   windowed to 65,536 samples and 1/3-octave smoothed over 32,769 bins): the
@@ -71,9 +75,13 @@ N_TIMED = 20
 KERNELS = ("framing", "das_map", "banded", "iir_bank")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
-# B5 at the full sweep (F, M, G) and two ragged shapes
+# B5 at the full sweep (F, M, G) and two ragged shapes (Hermitian C), and
+# on a non-Hermitian C at the DAS path's 10 and 30 bins, M = 1 and M = 160
 DAS_SWEEP = (513, 64, 900)
 DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
+DAS_ANY_CSM = ((10, 64, 900), (30, 64, 900), (2, 1, 5), (3, 160, 70), (30, 160, 900))
+# B5 timed against its plain version at M = 160
+DAS_M160 = ((3, 160, 70), (30, 160, 900))
 # the DAS path's 10 s x 48 kHz recording: (mics, samples) of its Welch CSM
 CSM_SHAPE = (64, 480000)
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
@@ -893,17 +901,22 @@ def main() -> int:
 
     # 7. B5 DAS map kernel vs plain: the full sweep of 513 bins x 64 mics x
     # 900 points (random Hermitian C, amp in U(0.5, 1), diff of the camera's
-    # geometry, k on the rfft ramp of a 1024-point window at 48 kHz) and
-    # two ragged shapes
+    # geometry, k on the rfft ramp of a 1024-point window at 48 kHz), two
+    # ragged shapes, and a non-Hermitian C (from its own generator) at
+    # `DAS_ANY_CSM`; each case prints the kernel's plan, and the sweep is
+    # launched twice for bit-identical maps
     cam_grid = camera.grid()
     geom_diff = SteeringVector(SteeringVectorType.TrueLocation).get_amp_diff(
         cam_grid, camera.planar_array())[1]
+    das_rng = np.random.default_rng(9)
 
-    def das_inputs(F, M, G):
-        C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
-        C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
-        amp = rng.uniform(0.5, 1.0, (M, G))
-        diff = geom_diff if (M, G) == geom_diff.shape else rng.uniform(-0.3, 0.3, (M, G))
+    def das_inputs(F, M, G, hermitian=True, gen=None):
+        gen = rng if gen is None else gen
+        C = gen.standard_normal((F, M, M)) + 1j * gen.standard_normal((F, M, M))
+        if hermitian:
+            C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
+        amp = gen.uniform(0.5, 1.0, (M, G))
+        diff = geom_diff if (M, G) == geom_diff.shape else gen.uniform(-0.3, 0.3, (M, G))
         k = np.arange(F) * (FS / 1024) * 2 * np.pi / 343
         return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
                 for a in (amp, diff, k, C.real, C.imag)]
@@ -915,11 +928,22 @@ def main() -> int:
         return bound(4 * (2 * F * M * M + 2 * M * G + F + G * F),
                      2.0 * F * G * (2 * M * M + 2 * M) + 2.0 * F * M * M)
 
+    def das_design(F, M, G):
+        d = cuda_das.kernel_design(M, G, F)
+        want = cuda_das.design(M, G, F)
+        if {key: d[key] for key in want} != want:
+            fail(f"B5's plan at {(F, M, G)} {d} differs from cuda_das.design {want}")
+        return d
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     b5_err = 0.0
     das_args = {}
-    for F, M, G in (DAS_SWEEP,) + DAS_RAGGED:
-        args = das_inputs(F, M, G)
-        das_args[(F, M, G)] = args
+    cases = ([(shape, True, rng) for shape in (DAS_SWEEP,) + DAS_RAGGED]
+             + [(shape, False, das_rng) for shape in DAS_ANY_CSM])
+    for (F, M, G), hermitian, gen in cases:
+        args = das_inputs(F, M, G, hermitian, gen)
+        if hermitian:
+            das_args[(F, M, G)] = args
         yk = cuda_das.das_map_cuda(*args)
         yp = cuda_das.das_map_plain(*args)
         torch.cuda.synchronize()
@@ -928,10 +952,27 @@ def main() -> int:
         abs_err = float((yk - yp).abs().max())
         err = rel_err(yk, yp)
         b5_err = max(b5_err, abs_err)
-        print(f"B5 DAS map (F, M, G) = {(F, M, G)}: scale-rel err {err:.3e} "
-              f"(tol 5e-5), max abs err {abs_err:.3e}")
+        d = das_design(F, M, G)
+        print(f"B5 DAS map (F, M, G) = {(F, M, G)}, "
+              f"{'Hermitian' if hermitian else 'non-Hermitian'} C: scale-rel err "
+              f"{err:.3e} (tol 5e-5), max abs err {abs_err:.3e}; plan: mic tile "
+              f"{d['R']} x {d['mic_tiles']} ({d['pairs']} pairs), {d['points']} points "
+              f"and {d['warps']} warps a block ({d['P']} a thread), steering "
+              f"{'resident' if d['resident'] else 'rebuilt per pair'}, "
+              f"{d['smem_bytes']} B shared, {d['blocks']} blocks, "
+              f"{d['blocks_per_sm']} an SM")
         if not err <= 5e-5:
             fail("DAS map kernel disagrees with its plain version")
+    again = cuda_das.das_map_cuda(*das_args[DAS_SWEEP])
+    if not torch.equal(again, cuda_das.das_map_cuda(*das_args[DAS_SWEEP])):
+        fail("two B5 launches on the same inputs differ")
+    d10 = das_design(10, 64, 900)
+    warps10 = min(d10["blocks"] // sms, d10["blocks_per_sm"]) * d10["warps"]
+    print(f"B5 at (10, 64, 900): {d10['blocks']} blocks on {sms} SMs, "
+          f"{d10['blocks_per_sm']} resident an SM: at least {warps10} warps an SM; "
+          "two launches bit-identical")
+    if warps10 < 16:
+        fail("B5 gives fewer than 16 warps an SM at the DAS path's 10 bins")
 
     # 8. the DAS path at full width (config 5 through the public API):
     # counted, against the plain paths, and against the source's position
@@ -973,29 +1014,54 @@ def main() -> int:
             fail(f"{label}: the map's peak is not at the source")
         cams.append((label, sig, beam, n_bins))
 
-    # 9. times: B5 at the full sweep, and the DAS path with and without
-    # the kernels, map alone (CSM cached) and CSM + map
+    # 9. times: B5 at the full sweep, at the DAS path's shapes and at M =
+    # 160, each against its plain version; the library yardstick
+    # (`packed_quadratic_from_hp`: cuBLAS fp32 bmm without TF32, the packed
+    # steering built outside the timed window: the GEMM part only); and the
+    # DAS path with and without the kernels, map alone (CSM cached) and
+    # CSM + map
+    def das_library_ms(args):
+        amp, diff, k, cre, cim = args
+        ph = k[:, None, None] * diff.T[None]
+        hp = torch.cat([amp.T[None] * torch.cos(ph), -amp.T[None] * torch.sin(ph)], dim=-1)
+        return time_pair(lambda: cuda_das.das_map_cuda(*args),
+                         lambda: cuda_das.packed_quadratic_from_hp(hp, cre, cim))[1]
+
     F, M, G = DAS_SWEEP
     args = das_args[DAS_SWEEP]
     b5_ms, b5_plain = time_pair(
         lambda: cuda_das.das_map_cuda(*args), lambda: cuda_das.das_map_plain(*args)
     )
+    b5_lib = das_library_ms(args)
     print(f"time B5 DAS map (F, M, G) = {DAS_SWEEP}: kernel {b5_ms:.4f} ms "
           f"({G * F / (b5_ms * 1e-3):.4g} point-bins/s), plain {b5_plain:.4f} ms "
-          f"({G * F / (b5_plain * 1e-3):.4g} point-bins/s)")
+          f"({G * F / (b5_plain * 1e-3):.4g} point-bins/s), library (GEMM part only, "
+          f"steering pre-built) {b5_lib:.4f} ms")
     # B5 at the shapes the DAS path launches: each recording's (n_bins, 64,
-    # 900)
+    # 900); and at M = 160
     b5_paths = []
     for label, _, _, n_bins in cams:
         pargs = das_inputs(n_bins, M, G)
         k_ms, p_ms = time_pair(lambda: cuda_das.das_map_cuda(*pargs),
                                lambda: cuda_das.das_map_plain(*pargs))
+        lib_ms = das_library_ms(pargs)
         p_bound, p_by = das_bound(n_bins, M, G)
         print(f"time B5 DAS map at the shape of {label}, (F, M, G) = {(n_bins, M, G)}: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {p_bound:.4f} ms "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library (GEMM part only, "
+              f"steering pre-built) {lib_ms:.4f} ms, bound {p_bound:.4f} ms "
               f"({p_by}, {k_ms / p_bound:.2f}×)")
         b5_paths.append({"shape": [n_bins, M, G], "ms": k_ms, "plain_ms": p_ms,
-                         "bound_ms": p_bound, "bound_by": p_by})
+                         "library_ms": lib_ms, "bound_ms": p_bound, "bound_by": p_by})
+    b5_m160 = []
+    for shape in DAS_M160:
+        margs = das_inputs(*shape, hermitian=False, gen=das_rng)
+        k_ms, p_ms = time_pair(lambda: cuda_das.das_map_cuda(*margs),
+                               lambda: cuda_das.das_map_plain(*margs))
+        m_bound, m_by = das_bound(*shape)
+        print(f"time B5 DAS map at M = 160, (F, M, G) = {shape}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {m_bound:.4f} ms ({m_by})")
+        b5_m160.append({"shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": m_bound, "bound_by": m_by})
 
     for label, sig, beam, n_bins in cams:
         def one_map():
@@ -1064,8 +1130,9 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
          "launches": das_launches["das_map"], "max_abs_err": b5_err,
          "ms": b5_ms, "plain_ms": b5_plain,
-         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": None,
-         "by_path_shape": b5_paths},
+         "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": b5_lib,
+         "library": "packed_quadratic_from_hp: GEMM part only, steering pre-built",
+         "by_path_shape": b5_paths, "at_m160": b5_m160},
         b4,
     ]}
     print(json.dumps(report))

@@ -12,7 +12,8 @@ host's steps of a framing call (`host_breakdown`).
 ``das``: the framing kernel (B1) against its plain version at the Welch
 CSM's shape of the 10 s × 48 kHz recording (64 × 480,000 samples, L =
 1024, hop 512, detrend), the DAS map kernel against its plain version on
-the full sweep (513 bins × 64 mics × 900 points), and the acoustic-camera map
+the DAS path's own shapes (10 and 30 bins × 64 mics × 900 points) and on
+the full sweep (513 bins), and the acoustic-camera map
 (`tools.camera`, 64 mics, 900 points, 2 kHz third octave) on a 0.5 s ×
 16 kHz and a 10 s × 48 kHz recording: the map with the CSM cached, and CSM +
 map, each through the kernels and on the plain paths.
@@ -187,19 +188,23 @@ def profile_das(dev, runs: int) -> None:
         profile_call(f"B1 framing {name}, Welch CSM shape (64, {10 * FS}) L=1024 "
                      f"step=512 detrend", lambda fn=fn: fn(x, win, 512, True), runs)
     del x
-    F, M, G = 513, 64, 900
     g = camera.grid()
-    C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
-    C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
-    amp = rng.uniform(0.5, 1.0, (M, G))
     diff = SteeringVector().get_amp_diff(g, camera.planar_array())[1]
-    k = np.arange(F) * (FS / 1024) * 2 * np.pi / 343
-    das = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
-           for a in (amp, diff, k, C.real, C.imag)]
-    profile_call("B5 DAS map kernel, 513 bins x 64 mics x 900 points",
-                 lambda: cuda_das.das_map_cuda(*das), runs)
-    profile_call("B5 DAS map plain, same shapes",
-                 lambda: cuda_das.das_map_plain(*das), runs)
+    # B5 at the DAS path's own shapes (the 10 s x 48 kHz and 0.5 s x 16 kHz
+    # recordings' 10 and 30 bins of the 2 kHz third octave) and at the full
+    # 513-bin sweep; 64 mics, 900 points
+    for F in (10, 30, 513):
+        M, G = diff.shape
+        C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
+        C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
+        amp = rng.uniform(0.5, 1.0, (M, G))
+        k = np.arange(F) * (FS / 1024) * 2 * np.pi / 343
+        das = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+               for a in (amp, diff, k, C.real, C.imag)]
+        profile_call(f"B5 DAS map kernel, {F} bins x {M} mics x {G} points",
+                     lambda das=das: cuda_das.das_map_cuda(*das), runs)
+        profile_call(f"B5 DAS map plain, {F} bins x {M} mics x {G} points",
+                     lambda das=das: cuda_das.das_map_plain(*das), runs)
     for seconds, fs in ((0.5, 16000), (10, FS)):
         sig = camera.array_signal(seconds, fs, dev, g)
         beam = camera.beamformer(sig, g)
@@ -311,6 +316,9 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     for name in ("framing", "das_map", "banded", "iir_bank"):
         _cuda.load(name)
+        for line in _cuda.BUILD_LOG.get(name, {}).get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
     cases = {"chain", "das", "tf", "fb"} if "all" in args.case else set(args.case)

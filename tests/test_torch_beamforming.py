@@ -223,6 +223,132 @@ def test_das_dispatch_on_cpu():
         cuda_das.das_map_cuda(*args)
 
 
+def _das_kernel_emulated(amp, diff, k, cre, cim):
+    """The CUDA kernel's arithmetic (`csrc/das_map.cu`) in torch, in the
+    inputs' dtype: mic tiles and tile pairs from `cuda_das.design`, each pair
+    folded into D = C + Cᴴ's upper triangle as the kernel folds it, each
+    warp's run of steps (`cuda_das.unit_steps`) summed in the kernel's order
+    (a row block's t over its columns, then Re(conj(h_l) t_l) row by row into
+    the warp's sum), the warps' sums added in order."""
+    M, G = amp.shape
+    F = k.shape[0]
+    plan = cuda_das.design(M, G, F)
+    R, n = plan["R"], plan["mic_tiles"]
+    pad = n * R - M
+    ph = k[:, None, None] * diff[None]  # (F, M, G)
+    h_re = torch.nn.functional.pad(amp * torch.cos(ph), (0, 0, 0, pad))
+    h_im = torch.nn.functional.pad(-(amp * torch.sin(ph)), (0, 0, 0, pad))
+    c_re = torch.nn.functional.pad(cre, (0, pad, 0, pad))
+    c_im = torch.nn.functional.pad(cim, (0, pad, 0, pad))
+    q = [torch.zeros((F, G), dtype=amp.dtype) for _ in range(cuda_das.WARPS)]
+    upper = torch.triu(torch.ones(R, R, dtype=torch.bool), 1)
+    for lt in range(n):
+        for kt in range(lt, n):
+            rows, cols = slice(lt * R, lt * R + R), slice(kt * R, kt * R + R)
+            a_re, a_im = c_re[:, rows, cols], c_im[:, rows, cols]  # C[L, K]
+            b_re, b_im = c_re[:, cols, rows], c_im[:, cols, rows]  # C[K, L]
+            d_re = a_re + b_re.transpose(1, 2)  # D[l][m] = C[l][m] + conj(C[m][l])
+            d_im = a_im - b_im.transpose(1, 2)
+            if lt == kt:  # upper triangle, Re C[l][l] on the diagonal
+                d_re = torch.where(upper, d_re, torch.zeros_like(d_re))
+                d_im = torch.where(upper, d_im, torch.zeros_like(d_im))
+                d_re = d_re + torch.diag_embed(torch.diagonal(a_re, dim1=1, dim2=2))
+            for u in range(cuda_das.WARPS):
+                for b, c0, c1 in cuda_das.unit_steps(R, lt == kt, u):
+                    r8 = slice(lt * R + 8 * b, lt * R + 8 * b + 8)
+                    tr = torch.zeros((F, 8, G), dtype=amp.dtype)
+                    ti = torch.zeros_like(tr)
+                    for c in range(c0, c1):
+                        dr = d_re[:, 8 * b:8 * b + 8, c, None]
+                        di = d_im[:, 8 * b:8 * b + 8, c, None]
+                        hr = h_re[:, None, kt * R + c]
+                        hi = h_im[:, None, kt * R + c]
+                        tr = tr + dr * hr
+                        tr = tr - di * hi
+                        ti = ti + dr * hi
+                        ti = ti + di * hr
+                    for r in range(8):
+                        q[u] = q[u] + h_re[:, r8][:, r] * tr[:, r]
+                        q[u] = q[u] + h_im[:, r8][:, r] * ti[:, r]
+    out = q[0]
+    for u in range(1, cuda_das.WARPS):
+        out = out + q[u]
+    return out.T
+
+
+@pytest.mark.parametrize("R", [8, 16, 32, 64])
+@pytest.mark.parametrize("diag", [True, False])
+def test_das_kernel_split_covers_each_step_once(R, diag):
+    """The warps' runs cover a tile's steps (row block, column) exactly once,
+    in order, and are balanced to a step."""
+    got, sizes = [], []
+    for u in range(cuda_das.WARPS):
+        segs = cuda_das.unit_steps(R, diag, u)
+        sizes.append(sum(c1 - c0 for _, c0, c1 in segs))
+        got += [(b, c) for b, c0, c1 in segs for c in range(c0, c1)]
+    want = [(b, c) for b in range(R // 8) for c in range(8 * b if diag else 0, R)]
+    assert got == want
+    assert max(sizes) - min(sizes) <= 1
+
+
+def test_das_kernel_design_fills_the_card_at_the_path_shapes():
+    """At the DAS path's 10 and 30 bins (64 mics, 900 points) the grid gives
+    each of the H100's 132 SMs at least two blocks of 8 warps; the sweep
+    takes 64 points a block; M = 160 takes tiles of 32 with the steering
+    resident, M = 300 rebuilds it per tile pair."""
+    for F in (10, 30):
+        d = cuda_das.design(64, 900, F)
+        assert d["P"] == 1 and d["mic_tiles"] == 1 and d["warps"] == 8
+        assert d["blocks"] // 132 * d["warps"] >= 16
+    assert cuda_das.design(64, 900, 513)["P"] == 2
+    d160 = cuda_das.design(160, 900, 30)
+    assert (d160["R"], d160["mic_tiles"], d160["pairs"], d160["resident"]) == (32, 5, 15, True)
+    assert not cuda_das.design(300, 40, 2)["resident"]
+    assert max(cuda_das.design(m, 900, 513)["smem_bytes"] for m in range(1, 400)) <= 232448
+
+
+def _das_inputs_any_csm(M, G, F, seed=7):
+    """Non-Hermitian C (its parts independent N(0, 1)), the camera's range
+    of phases."""
+    rng = np.random.default_rng(seed)
+    amp = rng.uniform(0.5, 1.0, (M, G)).astype(np.float32)
+    diff = rng.uniform(-0.3, 0.3, (M, G)).astype(np.float32)
+    k = (np.arange(F) * (FS / 1024) * 2 * np.pi / 343 + 10.0).astype(np.float32)
+    cre = rng.standard_normal((F, M, M)).astype(np.float32)
+    cim = rng.standard_normal((F, M, M)).astype(np.float32)
+    return amp, diff, k, cre, cim
+
+
+@pytest.mark.parametrize(
+    "M,G,F", DAS_CASES + [(64, 900, 10), (64, 900, 30), (160, 70, 3)])
+@pytest.mark.parametrize("reference", ["core", "pallas"])
+def test_das_kernel_emulation_matches_jax(M, G, F, reference):
+    """The kernel's fold, split and summation order in float32, on a
+    non-Hermitian C, against the JAX package's core and its Pallas kernel
+    (interpret mode), 5e-5 scale-relative."""
+    args = _das_inputs_any_csm(M, G, F)
+    got = _das_kernel_emulated(*(torch.from_numpy(a) for a in args))
+    jargs = [jnp.asarray(a) for a in args]
+    if reference == "core":
+        want = jbfm._das_map_core(*jargs)
+    else:
+        want = das_map_fused(*jargs, interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (G, F)
+    assert_close(got.numpy(), np.asarray(want), tol=5e-5, name="das kernel emulation")
+
+
+@pytest.mark.parametrize("M,G,F", [(9, 20, 13), (64, 33, 3), (70, 11, 2)])
+def test_das_kernel_fold_exact_for_any_csm(M, G, F):
+    """In float64 the fold and the upper-triangle sum give Re(hᴴCh) of a
+    non-Hermitian C to 1e-12."""
+    amp, diff, k, cre, cim = (a.astype(np.float64) for a in _das_inputs_any_csm(M, G, F, 11))
+    got = _das_kernel_emulated(*(torch.from_numpy(a) for a in (amp, diff, k, cre, cim)))
+    h = amp[None] * np.exp(-1j * k[:, None, None] * diff[None])  # (F, M, G)
+    want = np.real(np.einsum("fmg,fmn,fng->gf", np.conj(h), cre + 1j * cim, h))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+
+
 def test_jax_state_carried_into_port(setting):
     """The JAX package's steering factors and Welch CSM, fed to the port's
     plain DAS core, give the JAX core's map."""

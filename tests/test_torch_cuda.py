@@ -207,9 +207,12 @@ def test_switch_off_takes_plain_path_on_card(dev):
     assert cuda_framing.launches == before
 
 
-def _das_args(F, M, G, dev, dtype=torch.float32):
-    C = RNG.standard_normal((F, M, M)) + 1j * RNG.standard_normal((F, M, M))
-    arrays = (RNG.uniform(0.5, 1.0, (M, G)), RNG.uniform(-0.5, 0.5, (M, G)),
+def _das_args(F, M, G, dev, dtype=torch.float32, rng=None, hermitian=False):
+    rng = RNG if rng is None else rng
+    C = rng.standard_normal((F, M, M)) + 1j * rng.standard_normal((F, M, M))
+    if hermitian:
+        C = (C + np.conj(np.swapaxes(C, -1, -2))) / 2
+    arrays = (rng.uniform(0.5, 1.0, (M, G)), rng.uniform(-0.5, 0.5, (M, G)),
               np.linspace(10.0, 400.0, F), C.real, C.imag)
     return [torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
             for a in arrays]
@@ -218,14 +221,25 @@ def _das_args(F, M, G, dev, dtype=torch.float32):
 # (F, M, G): the ragged shapes of tests/test_pallas_das.py; M = 1 and every
 # mic-tile size (8, 16, 32, 64); M = 65 and 160 take several mic tiles (at
 # M = 160 the whole C_f does not fit in shared memory); G below, at and
-# above the 64-point block
+# above the 64-point block. Then, each with its own generator (so the cases
+# above keep their inputs) and a non-Hermitian and a Hermitian C: the DAS
+# path's 10 and 30 bins, 30 bins at M = 160, and M = 300 (the steering
+# rebuilt per tile pair)
 @pytest.mark.parametrize(
-    "F,M,G",
-    [(13, 9, 20), (5, 25, 130), (37, 64, 100), (2, 1, 5), (3, 8, 64),
-     (4, 16, 65), (3, 32, 1), (6, 65, 33), (3, 160, 70), (1, 64, 900)],
+    "F,M,G,hermitian",
+    [(13, 9, 20, None), (5, 25, 130, None), (37, 64, 100, None), (2, 1, 5, None),
+     (3, 8, 64, None), (4, 16, 65, None), (3, 32, 1, None), (6, 65, 33, None),
+     (3, 160, 70, None), (1, 64, 900, None)]
+    + [(F, M, G, h) for F, M, G in ((10, 64, 900), (30, 64, 900), (30, 160, 900),
+                                    (2, 300, 40))
+       for h in (False, True)],
 )
-def test_das_kernel_matches_plain(dev, F, M, G):
-    args = _das_args(F, M, G, dev)
+def test_das_kernel_matches_plain(dev, F, M, G, hermitian):
+    if hermitian is None:
+        args = _das_args(F, M, G, dev)
+    else:
+        args = _das_args(F, M, G, dev, rng=np.random.default_rng(F * 1000 + M),
+                         hermitian=hermitian)
     before = cuda_das.launches
     got = cuda_das.das_map(*args)
     want = cuda_das.das_map_plain(*args)
@@ -233,6 +247,33 @@ def test_das_kernel_matches_plain(dev, F, M, G):
     assert cuda_das.launches == before + 1
     assert got.shape == (G, F)
     assert _rel(got, want) <= 5e-5
+
+
+@pytest.mark.parametrize("F,M,G", [(10, 64, 900), (513, 64, 900), (30, 160, 900)])
+def test_das_kernel_launches_are_bit_identical(dev, F, M, G):
+    """The warps' sums are added in a fixed order: two launches on the same
+    inputs give the same bits, one launch a call."""
+    args = _das_args(F, M, G, dev, rng=np.random.default_rng(5))
+    before = cuda_das.launches
+    first = cuda_das.das_map_cuda(*args)
+    second = cuda_das.das_map_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda_das.launches == before + 2
+    assert torch.equal(first, second)
+
+
+def test_das_kernel_design_on_card(dev):
+    """The built kernel's plan matches `cuda_das.design`, and at the DAS
+    path's 10 bins every SM holds at least 16 warps."""
+    for shape in ((64, 900, 10), (64, 900, 30), (64, 900, 513), (160, 900, 30),
+                  (300, 40, 2), (9, 20, 13)):
+        got = cuda_das.kernel_design(*shape)
+        want = cuda_das.design(*shape)
+        assert {key: got[key] for key in want} == want
+        assert got["blocks_per_sm"] >= 1
+    d = cuda_das.kernel_design(64, 900, 10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert min(d["blocks"] // sms, d["blocks_per_sm"]) * d["warps"] >= 16
 
 
 def test_das_kernel_float64_and_switch_on_card(dev):
