@@ -40,7 +40,19 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   both banks' shapes and ragged shapes (each case prints which output pass
   it took: the tensor cores for blocks up to 128), every band against
   scipy's float64 sosfilt on 4 channels, the path and a gammatone
-  reconstruction against the plain paths.
+  reconstruction against the plain paths;
+- room acoustics (`dsptoolbox_tpu_torch.tools.room_measurement`): (a) the
+  measurement path's 16 windowed IRs through the 6-band octave bank (B3),
+  `reverb_time` in T20, T30, EDT and Adaptive, D50, C80, centre time and the
+  bass ratio (zero-phase octaves through B2), the octave bands against
+  scipy's float64 sosfilt, the bass ratio's bands against the plain paths
+  and scipy's float64 sosfiltfilt, the fits and descriptors against the
+  plain paths and a float64 pipeline (each difference reported with whether
+  a fit decision flipped); (b) config 4, 1000 RIRs × 8000 samples, against
+  the port's float64 run on the CPU; (c) the image-source fleet, 64 pairs
+  at a lattice limit of 40 (272 M images), whose rows and a max_order-14
+  RIR must have the numpy float64 oracle's support, and every image within
+  reach of the kept samples the oracle's sample index.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -145,19 +157,19 @@ def plain(fn):
         return fn()
 
 
-def time_pair(fa, fb, n=N_TIMED, warm=3):
-    """Median CUDA-event milliseconds of ``fa`` and ``fb``, run in turns
-    (a b, b a, ...) after ``warm`` warm-up calls of each."""
+def time_pair(*fns, n=N_TIMED, warm=3):
+    """Median CUDA-event milliseconds of each of ``fns`` (one or more), run
+    in turns (a b, b a, ...) after ``warm`` warm-up calls of each."""
     import torch
 
     for _ in range(warm):
-        fa()
-        fb()
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
-    times = {0: [], 1: []}
-    fns = (fa, fb)
+    times = [[] for _ in fns]
+    order = list(range(len(fns)))
     for i in range(n):
-        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+        for j in (order if i % 2 == 0 else order[::-1]):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -165,12 +177,12 @@ def time_pair(fa, fb, n=N_TIMED, warm=3):
             end.record()
             end.synchronize()
             times[j].append(start.elapsed_time(end))
-    return statistics.median(times[0]), statistics.median(times[1])
+    return tuple(statistics.median(t) for t in times)
 
 
-def measurement_phase(dev, rng) -> dict:
+def measurement_phase(dev, rng) -> tuple:
     """B4 and the transfer-function measurement path at full width; returns
-    B4's entry of the kernels report."""
+    B4's entry of the kernels report and the path's windowed IRs."""
     import numpy as np
     import torch
     from scipy.fft import next_fast_len
@@ -406,7 +418,7 @@ def measurement_phase(dev, rng) -> dict:
             "replaces": "dsptoolbox_tpu/ops/pallas_banded.py:43",
             "launches": launched["banded"], "max_abs_err": b4_err,
             "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound,
-            "bound_by": b4_by, "library_ms": lib_ms}
+            "bound_by": b4_by, "library_ms": lib_ms}, win
 
 
 def bank_ragged() -> list:
@@ -658,6 +670,323 @@ def filterbank_phase(dev, rng) -> dict:
             "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3_bound,
             "bound_by": b3_by, "library_ms": None, "bound_ms_ffma": b3_ffma,
             "ms_by_bank": {k: b3[f"ms_{k}"] for k in b3_ops}}
+
+
+def held(label: str, got, want, flips, tol_kept: float, tol_all: float) -> None:
+    """Hold ``got`` against ``want`` (relative): within ``tol_kept`` where
+    no decision flipped, within ``tol_all`` everywhere; prints the largest
+    difference and whether a flip caused it."""
+    import numpy as np
+
+    got, want, flips = np.asarray(got), np.asarray(want), np.asarray(flips, bool)
+    rel = np.abs(got - want) / np.abs(want)
+    kept = float(rel[~flips].max()) if (~flips).any() else 0.0
+    worst = int(rel.argmax())
+    print(f"{label}: max rel {float(rel.max()):.3e} (tol {tol_all:g}), from "
+          f"{'a flipped decision' if flips.flat[worst] else 'arithmetic, no flip'}; "
+          f"{int(flips.sum())} of {flips.size} with a flipped decision; without one "
+          f"{kept:.3e} (tol {tol_kept:g})")
+    if not (float(rel.max()) <= tol_all and kept <= tol_kept):
+        fail(f"{label} disagrees")
+
+
+def ism_indices_held(label: str, room, s, r, fs: int, length: int, dev) -> None:
+    """Every image of the fleet that can land in the kept ``length`` (index
+    ≤ ``length`` on the card, one ulp from it at most) holds the numpy
+    float64 oracle's sample index exactly, on all pairs."""
+    import numpy as np
+    import torch
+
+    from dsptoolbox_tpu_torch.room_acoustics import _backend as rbk
+
+    dim = np.asarray(room.dimensions_m, np.float64)
+    b1, b2 = rbk.wall_reflection_factors(room.absorption_coefficient)
+    limit, _ = rbk.ism_limits(dim, room.t60_s, None, fs)
+    pairs, cells, got = [], [], []
+    for lv, idx, _ in rbk.ism_images(dim, b1, b2, s, r, fs, limit, dev):
+        pp, cc = (idx <= length).any(-1).nonzero(as_tuple=True)
+        pairs.append(pp.cpu())
+        cells.append(lv[cc].cpu())
+        got.append(idx[pp, cc].cpu())
+    torch.cuda.synchronize()
+    pairs = torch.cat(pairs).numpy()
+    cells, got = torch.cat(cells).numpy(), torch.cat(got).numpy()
+    wrong = 0
+    for p in range(len(s)):
+        m = pairs == p
+        want, _ = rbk._host_group_images(cells[m], dim, b1, b2, s[p], r[p], fs,
+                                         rbk.SPEED_OF_SOUND)
+        wrong += int(np.count_nonzero(want.reshape(-1, 8) != got[m]))
+    print(f"{label}: {got.size} images of {len(cells)} cells within reach of the kept "
+          f"{length} samples, on all {len(s)} pairs: {wrong} sample indices differ from "
+          "the float64 oracle's (tol 0)")
+    if wrong:
+        fail(f"{label}: the lattice places images off the float64 oracle's bins")
+
+
+def descriptors_held(label: str, got: dict, want: dict) -> None:
+    """Batch descriptors on the card against the port's float64 run on the
+    CPU: D50 and centre time at rtol 1e-5, C80 within 1e-3 dB."""
+    for name, tol, rel in (("d50", 1e-5, True), ("center_time_s", 1e-5, True),
+                           ("c80", 1e-3, False)):
+        diff = (got[name].double().cpu() - want[name]).abs()
+        err = float((diff / want[name].abs() if rel else diff).max())
+        print(f"{label} {name} vs float64 CPU: max {'rel' if rel else 'abs (dB)'} "
+              f"{err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            fail(f"{label}: {name} disagrees with the float64 run")
+
+
+def room_phase(dev, win, card: str) -> dict:
+    """Room acoustics at full width: (a) the reverberation times and ISO
+    3382 descriptors of the measurement path's windowed IRs (B3 for the
+    octave bank, B2 for the bass ratio's zero-phase bands), (b) config 4's
+    battery of 1000 RIRs, (c) the image-source fleet of 64 pairs. Returns
+    (a)'s B2 and B3 launches."""
+    import numpy as np
+    import torch
+    from scipy.signal import sosfilt as scipy_sosfilt
+    from scipy.signal import sosfiltfilt
+
+    from dsptoolbox_tpu_torch.ops import (
+        cuda_banded,
+        cuda_das,
+        cuda_framing,
+        cuda_iir,
+        cuda_iir_bank,
+    )
+    from dsptoolbox_tpu_torch.room_acoustics import (
+        ReverbTime,
+        batch_descriptors,
+        batch_energy_decay,
+        batch_reverb_times,
+        batch_synthetic_rirs,
+        generate_synthetic_rir,
+    )
+    from dsptoolbox_tpu_torch.room_acoustics import _backend as rbk
+    from dsptoolbox_tpu_torch.room_acoustics.room_acoustics import (
+        _bass_ratio_bank,
+        _host_planes,
+    )
+    from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
+    from dsptoolbox_tpu_torch.tools import room_measurement as rm
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    # 20. (a) the measured room, counted: every kernel's count set to 0
+    # just before and read just after
+    fs = win.sampling_rate_hz
+    C, T = win.number_of_channels, win.length_samples
+    bank = rm.octave_bank(fs)
+    modules = {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
+               "banded": cuda_banded, "iir_bank": cuda_iir_bank}
+    for m in modules.values():
+        m.launches = 0
+    out = rm.measured_room(win, bank)
+    torch.cuda.synchronize()
+    launched = {name: m.launches for name, m in modules.items()}
+    label = f"room (a) {C} IRs x {T} samples at {fs} Hz"
+    print(f"{label}: launches {launched}")
+    if launched["iir_bank"] < 1 or launched["iir_lead"] < 1:
+        fail("the measured room's step did not run B3 (octave bank) and B2 (bass ratio)")
+    bands = out["bands"]
+    nb = len(bank.filters)
+    if bands.number_of_bands != nb or tuple(bands.bands[0].time_data.shape) != (T, C):
+        fail(f"{label}: {bands.number_of_bands} bands of {tuple(bands.bands[0].time_data.shape)}")
+    for name, v in list(out["rt"].items()) + list(out["descriptors"].items()):
+        if v.shape not in ((nb, C), (C,)) or not np.all(np.isfinite(v)):
+            fail(f"{label} {name}: shape {v.shape} or non-finite")
+    print(f"{label}: mean RT per band " + "; ".join(
+        f"{k} {np.round(v.mean(axis=1), 4).tolist()}" for k, v in out["rt"].items())
+        + "; mean " + ", ".join(f"{k} {v.mean():.4f}" for k, v in out["descriptors"].items()))
+
+    # every band against scipy's float64 sosfilt on all channels
+    x64 = win._x.double().cpu().numpy()  # (C, T)
+    bands64 = np.stack([scipy_sosfilt(f.sos, x64, axis=-1) for f in bank.filters])
+    worst = max(rel_err(b._x, bands64[i]) for i, b in enumerate(bands.bands))
+    print(f"{label}: bands vs scipy f64 sosfilt worst scale-rel {worst:.3e} (tol 5e-6)")
+    if not worst <= 5e-6:
+        fail("an octave band disagrees with scipy's float64 sosfilt")
+
+    # the fits and descriptors against (1) the plain paths, (2) scipy's
+    # float64 bands given to the fits as float32, as the API gives them
+    # data, and (3) the float64 pipeline, the same fits on the float64
+    # bands. The fits are decision logic: an index can flip on inputs 1e-6
+    # apart. (1) and (2) differ from the card's by the bands' ~1e-6: 1e-3
+    # where no decision flipped (arithmetic through the line fits), 2e-2
+    # with a flip. (3) differs by the fits' own float32 sums (the EDC's
+    # cumsum over up to 65,536 samples, ROADMAP C4): reported, held at
+    # 5e-2
+    t0 = time.perf_counter()
+    ref = plain(lambda: rm.measured_room(win, bank))
+    err = max(rel_err(g._x, w._x) for g, w in zip(bands.bands, ref["bands"].bands))
+    print(f"{label}: bands vs plain paths worst scale-rel {err:.3e} (tol 2e-5)")
+    if not err <= 2e-5:
+        fail("the octave bands disagree with the plain paths")
+    planes_k, planes_p = _host_planes(bands), _host_planes(ref["bands"])
+    bands64_32 = bands64.astype(np.float32)
+    grid = [(b, c) for b in range(nb) for c in range(C)]
+    for mode in rm.RT_MODES:
+        dk = [rbk.reverb_fit(planes_k[b, c], fs, mode)[2] for b, c in grid]
+        k = out["rt"][mode.name].reshape(-1)
+        for what, planes, want, tol_kept, tol_all in (
+            ("plain paths", planes_p, ref["rt"][mode.name].reshape(-1), 1e-3, 2e-2),
+            ("scipy f64 bands, float32 fits", bands64_32, None, 1e-3, 2e-2),
+            ("float64 pipeline (C4)", bands64, None, 5e-2, 5e-2),
+        ):
+            fits = [rbk.reverb_fit(planes[b, c], fs, mode) for b, c in grid]
+            if want is None:
+                want = np.array([f[0] for f in fits])
+            flips = [a != f[2] for a, f in zip(dk, fits)]
+            held(f"{label} {mode.name} vs {what}", k, want, flips, tol_kept, tol_all)
+    win32 = win._x.cpu().numpy()
+    flips = [rbk.descriptor_window(win32[c], fs, True) != rbk.descriptor_window(x64[c], fs, True)
+             for c in range(C)]
+    for name, fn in (("D50", rbk.d50_from_rir), ("C80", rbk.c80_from_rir),
+                     ("CenterTime", rbk.ts_from_rir)):
+        got = out["descriptors"][name]
+        if not np.array_equal(got, ref["descriptors"][name]):
+            fail(f"{label} {name}: the plain paths give other values on the same IRs")
+        held(f"{label} {name} vs float64", got,
+             [fn(x64[c], fs, True) for c in range(C)], flips, 1e-4, 5e-2)
+    # the bass ratio's zero-phase bands (B2, two leads a band) against the
+    # plain paths (2e-5 scale-relative, as the other paths) and scipy's
+    # float64 sosfiltfilt (5e-6, ROADMAP C3: the JAX package's float32
+    # filter is no oracle on these bands); then the bass ratio against the
+    # plain paths and against scipy's bands + the host fits
+    octs = _bass_ratio_bank(fs)
+    zk = _host_planes(octs.filter_signal(win, FilterBankMode.Parallel, zero_phase=True))
+    zp = _host_planes(plain(lambda: octs.filter_signal(win, FilterBankMode.Parallel,
+                                                       zero_phase=True)))
+    z64 = np.stack([sosfiltfilt(f.sos, x64, axis=-1) for f in octs.filters])
+    b2_err = float(np.abs(zk - zp).max())
+    for i, f in enumerate(octs.filters):
+        e_p, e_64 = rel_err(zk[i], zp[i]), rel_err(zk[i], z64[i])
+        print(f"{label}: zero-phase band {i} (B2) vs plain paths scale-rel {e_p:.3e} "
+              f"(tol 2e-5), vs scipy f64 sosfiltfilt {e_64:.3e} (tol 5e-6)")
+        if not (e_p <= 2e-5 and e_64 <= 5e-6):
+            fail(f"{label}: the bass ratio's zero-phase band {i} disagrees")
+    ad = ReverbTime.Adaptive
+    nz = len(octs.filters)
+    dk = [[rbk.reverb_fit(zk[i, c], fs, ad)[2] for c in range(C)] for i in range(nz)]
+    br = out["descriptors"]["BassRatio"]
+    for what, planes, want, tol_kept, tol_all in (
+        ("plain paths", zp, ref["descriptors"]["BassRatio"], 1e-3, 2e-2),
+        ("scipy f64 sosfiltfilt, float32 fits", z64.astype(np.float32), None, 1e-3, 2e-2),
+        ("scipy f64 sosfiltfilt + float64 fits (C4)", z64, None, 5e-2, 5e-2),
+    ):
+        fits = [[rbk.reverb_fit(planes[i, c], fs, ad) for c in range(C)] for i in range(nz)]
+        if want is None:
+            rt = np.array([[f[0] for f in row] for row in fits])
+            want = (rt[0] + rt[1]) / (rt[2] + rt[3])
+        flips = [any(dk[i][c] != fits[i][c][2] for i in range(nz)) for c in range(C)]
+        held(f"{label} BassRatio vs {what}", br, want, flips, tol_kept, tol_all)
+    print(f"{label}: checks against the plain paths and float64 "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+
+    # 21. (a)'s times: the bank against its plain path; the fits (host)
+    # and the whole step through the kernels, CUDA events; the whole
+    # step's device busy time and idle share from one profiled call
+    bank_ms, bank_plain = time_pair(lambda: rm.octave_bands(win, bank),
+                                    lambda: plain(lambda: rm.octave_bands(win, bank)))
+    (fits_ms,) = time_pair(lambda: rm.band_reverb_times(bands), n=3, warm=1)
+    step = profile_call(f"{label}: whole step", lambda: rm.measured_room(win, bank),
+                        runs=1, host_calls=1, event_calls=2, warm=0)
+    n_fits = nb * C * len(rm.RT_MODES)
+    print(f"time {label} [{card}]: octave bank (B3) {bank_ms:.4f} ms, plain "
+          f"{bank_plain:.4f} ms; RT fits, {n_fits} ({nb} bands x {C} channels x "
+          f"{len(rm.RT_MODES)} modes) {fits_ms:.1f} ms ({fits_ms / n_fits:.3f} ms a fit); "
+          f"whole step {step['events_ms']:.1f} ms; host {step['host_us']:.0f} us, wall "
+          f"{step['wall_us']:.0f} us, device busy {step['busy_us']:.0f} us, idle share "
+          f"{step['idle']:.4f}")
+
+    # 22. (b) config 4: 1000 RIRs x 8000 samples at 16 kHz, on the card,
+    # against the port's float64 run on the CPU. D50 and centre time at
+    # rtol 1e-5; C80 within 1e-3 dB (its late energy e_total − e_80 is a
+    # difference of float32 sums up to 27 dB apart: ×500 their relative
+    # error); an RT row may flip a fit-mask sample at a dB edge (the
+    # float32 EDC's sums in another order, ROADMAP C5): rows whose mask
+    # matches the float64 one at rtol 1e-5, the others at 1e-3
+    rirs_np = rm.battery_rirs()
+    rirs = torch.from_numpy(rirs_np).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = rm.battery(rirs)
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated() - base
+    cpu64 = torch.from_numpy(rirs_np).double()
+    ref64 = rm.battery(cpu64)
+    label = f"room (b) config 4, {rirs.shape[0]} RIRs x {rirs.shape[1]} at {rm.BATTERY_FS} Hz"
+    descriptors_held(label, got, ref64)
+    edc_k = batch_energy_decay(rirs).cpu()
+    edc_64 = batch_energy_decay(cpu64)
+    for mode, (hi, lo) in (("EDT", (0.0, -10.0)), ("T20", (-5.0, -25.0)),
+                           ("T30", (-5.0, -35.0))):
+        flips = (((edc_k <= hi) & (edc_k >= lo)) != ((edc_64 <= hi) & (edc_64 >= lo))).any(1)
+        held(f"{label} {mode} vs float64 CPU", got[mode].double().cpu().numpy(),
+             ref64[mode].numpy(), flips.numpy(), 1e-5, 1e-3)
+    bat_ms, base_ms = time_pair(lambda: rm.battery(rirs),
+                                lambda: (batch_descriptors(rirs, rm.BATTERY_FS),
+                                         batch_reverb_times(rirs, rm.BATTERY_FS, "T20")),
+                                n=20, warm=1)
+    B = rirs.shape[0]
+    print(f"time {label} [{card}]: D50 + C80 + Ts + T20 {base_ms:.4f} ms "
+          f"({B / (base_ms * 1e-3):.0f} RIRs/s); with EDT and T30 too {bat_ms:.4f} ms "
+          f"({B / (bat_ms * 1e-3):.0f} RIRs/s); peak device memory {peak_b / 2**20:.1f} MiB "
+          "above the inputs")
+
+    # 23. (c) the image-source fleet: 64 pairs, LIMIT 40, 0.5 s at 16 kHz;
+    # rows held against the numpy float64 oracle (identical support, values
+    # within 2e-7·max), as is the max_order-14 RIR at 44.1 kHz
+    room = rm.room()
+    s, r = rm.fleet_positions()
+    limit, _ = rbk.ism_limits(room.dimensions_m, room.t60_s, None, rm.FLEET_FS)
+    n_images = s.shape[0] * (2 * limit + 1) ** 3 * 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fleet, fleet_desc = rm.ism_fleet(room, s, r)
+    torch.cuda.synchronize()
+    peak_c = torch.cuda.max_memory_allocated() - base
+    label = f"room (c) ISM fleet, {s.shape[0]} pairs, LIMIT {limit}, {n_images} images"
+    if (tuple(fleet.shape) != (s.shape[0], int(rm.FLEET_FS * rm.FLEET_SECONDS))
+            or not bool(torch.isfinite(fleet).all())):
+        fail(f"{label}: shape {tuple(fleet.shape)} or non-finite")
+    fleet_np = fleet.cpu().numpy()
+    t0 = time.perf_counter()
+    rbk.set_ism_device(False)
+    try:
+        oracle = [generate_synthetic_rir(room, s[b], r[b], rm.FLEET_FS, rm.FLEET_SECONDS)
+                  for b in range(min(4, len(s)))]
+        one64 = generate_synthetic_rir(rm.room(), [1.23, 2.17, 1.31], [4.29, 1.17, 1.63],
+                                       44100, max_order=14)
+    finally:
+        rbk.set_ism_device(None)
+    one = generate_synthetic_rir(rm.room(), [1.23, 2.17, 1.31], [4.29, 1.17, 1.63], 44100,
+                                 max_order=14)
+    rows = [(f"row {b}", fleet_np[b], o.time_data[:, 0].cpu().numpy())
+            for b, o in enumerate(oracle)]
+    rows.append(("max_order 14 at 44.1 kHz", one.time_data[:, 0].cpu().numpy(),
+                 one64.time_data[:, 0].cpu().numpy()))
+    for name, g, w in rows:
+        same = np.array_equal(np.nonzero(g)[0], np.nonzero(w)[0])
+        err = float(np.abs(g - w).max() / np.abs(w).max())
+        print(f"{label} {name} vs numpy float64 oracle: support identical {same} "
+              f"({np.count_nonzero(w)} bins), values scale-rel {err:.3e} (tol 2e-7)")
+        if not (same and err <= 2e-7):
+            fail(f"{label}: {name} disagrees with the float64 oracle")
+    ism_indices_held(label, room, s, r, rm.FLEET_FS, fleet.shape[1], dev)
+    descriptors_held(f"{label} (on the fleet)", fleet_desc,
+                     batch_descriptors(fleet.double().cpu(), rm.FLEET_FS))
+    print(f"{label}: oracle checks {time.perf_counter() - t0:.1f} s on the host")
+    gen_ms, fleet_ms = time_pair(
+        lambda: batch_synthetic_rirs(room, s, r, rm.FLEET_FS, rm.FLEET_SECONDS),
+        lambda: rm.ism_fleet(room, s, r), n=5, warm=1)
+    print(f"time {label} [{card}]: generator {gen_ms:.3f} ms "
+          f"({n_images / (gen_ms * 1e-3):.4g} images/s), with the descriptors "
+          f"{fleet_ms:.3f} ms; peak device memory {peak_c / 2**20:.1f} MiB")
+    return {"iir_lead": launched["iir_lead"], "iir_bank": launched["iir_bank"],
+            "iir_lead_err": b2_err}
 
 
 def main() -> int:
@@ -1078,13 +1407,19 @@ def main() -> int:
                   f"{p_ms:.4f} ms ({G * n_bins / (p_ms * 1e-3):.4g} point-bins/s)")
 
     # 10-14. the transfer-function measurement path and B4
-    b4 = measurement_phase(dev, rng)
+    b4, windowed_irs = measurement_phase(dev, rng)
 
     # 15-19. the filter-bank path (config 3) and B3
     b3 = filterbank_phase(dev, rng)
     b3_chain = chain_launches["banked"]["iir_bank"]
     b3["launches_by_path"] = {"chain_banked": b3_chain, "config3": b3["launches"]}
     b3["launches"] += b3_chain
+
+    # 20-23. room acoustics: the measured room's RT and descriptors (B3 for
+    # the octave bank, B2 for the bass ratio), config 4, the ISM fleet
+    room = room_phase(dev, windowed_irs, card)
+    b3["launches_by_path"]["room"] = room["iir_bank"]
+    b3["launches"] += room["iir_bank"]
 
     # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
     # band: x·H in fp32, H lower-triangular
@@ -1121,7 +1456,10 @@ def main() -> int:
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
-         "launches": launches["iir_lead"], "max_abs_err": b2_err,
+         "launches": launches["iir_lead"] + room["iir_lead"],
+         "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"]},
+         "max_abs_err": max(b2_err, room["iir_lead_err"]),
+         "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"]},
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
         b3,

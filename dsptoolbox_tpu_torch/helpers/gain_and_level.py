@@ -1,8 +1,10 @@
-"""Normalization and fades (`dsptoolbox_tpu/helpers/gain_and_level.py`):
-what the sweep generator needs.
+"""dB conversions, normalization and fades
+(`dsptoolbox_tpu/helpers/gain_and_level.py`).
 
 Array convention: time on ``axis`` (the last by default); the ramps are
-host float64 numpy, applied on the data's device.
+host float64 numpy, applied on the data's device. `to_db` and `from_db`
+take numpy (or scalars) or tensors and return the same kind: host decision
+logic stays in numpy, device data on its device.
 """
 
 from __future__ import annotations
@@ -11,6 +13,48 @@ import numpy as np
 import torch
 
 from ..standard.enums import FadeType
+
+
+def to_db(
+    x,
+    amplitude_input: bool = True,
+    dynamic_range_db: float | None = None,
+    min_value: float | None = float(np.finfo(np.float64).smallest_normal),
+):
+    """Magnitude (or power) → dB (`helpers/gain_and_level.py:19`).
+
+    ``dynamic_range_db`` floors values at ``max - range`` (in dB);
+    ``min_value`` floors absolute values before the log. With both None
+    the raw log is taken (may give -inf).
+    """
+    factor = 20.0 if amplitude_input else 10.0
+    if torch.is_tensor(x):
+        x_abs = x.abs()
+        if min_value is None and dynamic_range_db is None:
+            return factor * torch.log10(x_abs)
+        if dynamic_range_db is not None:
+            min_val = x_abs.max() * 10.0 ** (-abs(dynamic_range_db) / factor)
+        else:
+            min_val = min_value
+        return factor * torch.log10(torch.clamp(x_abs, min=min_val))
+    x = np.asarray(x)
+    if min_value is None and dynamic_range_db is None:
+        with np.errstate(divide="ignore"):
+            return factor * np.log10(np.abs(x))
+    x_abs = np.abs(x)
+    if dynamic_range_db is not None:
+        min_val = np.max(x_abs) * 10.0 ** (-abs(dynamic_range_db) / factor)
+    else:
+        min_val = min_value
+    return factor * np.log10(np.maximum(x_abs, min_val))
+
+
+def from_db(x, amplitude_output: bool = True):
+    """dB → linear amplitude (or power) (`helpers/gain_and_level.py:60`)."""
+    factor = 20.0 if amplitude_output else 10.0
+    if torch.is_tensor(x):
+        return 10.0 ** (x / factor)
+    return 10.0 ** (np.asarray(x) / factor)
 
 
 def normalize(

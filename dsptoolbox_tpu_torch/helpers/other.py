@@ -1,5 +1,5 @@
-"""Array helpers (`dsptoolbox_tpu/helpers/other.py`): host numpy index
-and band helpers, and a phase `unwrap` on tensors."""
+"""Array helpers (`dsptoolbox_tpu/helpers/other.py`): host numpy index,
+band and correlation helpers, and a phase `unwrap` on tensors."""
 
 from __future__ import annotations
 
@@ -21,6 +21,17 @@ def fractional_octave_bandwidth(f_c: float, fraction: int = 1) -> np.ndarray:
     return np.array(
         [f_c * 2 ** (-1 / fraction / 2), f_c * 2 ** (1 / fraction / 2)]
     )
+
+
+def pearson_correlation(x, y) -> float:
+    """Pearson correlation coefficient of two 1-D arrays, 0.0 when either
+    is constant (`helpers/other.py:105`). Host numpy."""
+    x = np.asarray(x)
+    y = np.asarray(y)
+    xc = x - x.mean()
+    yc = y - y.mean()
+    denom = np.sqrt((xc**2).sum() * (yc**2).sum())
+    return float((xc * yc).sum() / denom) if denom > 0 else 0.0
 
 
 def unwrap(p: torch.Tensor, dim: int = 0) -> torch.Tensor:

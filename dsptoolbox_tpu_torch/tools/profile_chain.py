@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb ra | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -30,6 +30,12 @@ channels × 10 s at 44.1 kHz): the filter-bank kernel (B3) against its
 plain version at the gammatone and 1/3-octave banks, and the whole path and
 its four steps (LR crossover, gammatone, resampling, 1/3 octave), through
 the kernels and on the plain paths.
+
+``ra``: room acoustics (`tools.room_measurement`): (a) on the measurement
+path's 16 windowed IRs, the octave bank (B3) against its plain path, the
+reverberation-time fits, the descriptors with the bass ratio (B2) and the
+whole step (host-bound: a few calls each); (b) config 4's battery of 1000
+RIRs; (c) the image-source fleet's generator (64 pairs, 272 M images).
 
 For each case it prints the device time per kernel and per call, the host
 time per call (calls issued without waiting), the wall time per call, the
@@ -73,9 +79,13 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_call(label: str, fn, runs: int) -> None:
-    """Device time per kernel (torch.profiler), host and wall time per call."""
-    for _ in range(3):
+def profile_call(label: str, fn, runs: int, host_calls: int = 50, event_calls: int = 20,
+                 warm: int = 3) -> dict:
+    """Device time per kernel (torch.profiler) over ``runs`` calls, host and
+    wall time per call over ``host_calls``, CUDA-event time over
+    ``event_calls``, after ``warm`` warm-up calls; printed, and returned as
+    ``{"busy_us", "host_us", "wall_us", "idle", "events_ms"}`` a call."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -93,7 +103,7 @@ def profile_call(label: str, fn, runs: int) -> None:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
 
-    n = 50
+    n = host_calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -105,7 +115,7 @@ def profile_call(label: str, fn, runs: int) -> None:
     wall = (t2 - t0) / n * 1e6
 
     events = []
-    for _ in range(20):
+    for _ in range(event_calls):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -114,13 +124,16 @@ def profile_call(label: str, fn, runs: int) -> None:
         end.synchronize()
         events.append(start.elapsed_time(end))
 
+    idle = max(0.0, 1 - busy / wall)
     print(f"===== {label}")
     print(f"device busy {busy:.1f} us/call; host {host:.1f} us/call; "
           f"wall {wall:.1f} us/call; device idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}; CUDA events "
+          f"{idle:.3f}; CUDA events "
           f"{statistics.median(events):.4f} ms/call")
     for key, us, count, per_launch in rows[:16]:
         print(f"  {us:10.1f} us/call  {per_launch:10.1f} us/launch x{count:<4d} {key[:80]}")
+    return {"busy_us": busy, "host_us": host, "wall_us": wall, "idle": idle,
+            "events_ms": statistics.median(events)}
 
 
 def host_breakdown(x, win, step: int, pad: int) -> None:
@@ -298,10 +311,41 @@ def profile_fb(dev, runs: int) -> None:
         profile_call(f"config-3 {label}, plain paths", plain_paths(fn), runs)
 
 
+def profile_ra(dev, runs: int) -> None:
+    from ..room_acoustics import batch_synthetic_rirs
+    from ..transfer_functions import spectral_deconvolve, window_ir
+    from . import measurement
+    from . import room_measurement as rm
+
+    sweep = measurement.excitation()
+    rec = measurement.recording(sweep, measurement.room_irs()[0])
+    win, _ = window_ir(spectral_deconvolve(rec, sweep), measurement.IR_LENGTH,
+                       return_device=True)
+    bank = rm.octave_bank(measurement.FS)
+    bands = rm.octave_bands(win, bank)
+    label = f"room (a) {win.number_of_channels} IRs x {win.length_samples}"
+    profile_call(f"{label}: octave bank (B3), kernels", lambda: rm.octave_bands(win, bank), runs)
+    profile_call(f"{label}: octave bank, plain paths",
+                 plain_paths(lambda: rm.octave_bands(win, bank)), runs)
+    # the host-bound steps take seconds a call: few calls each
+    few = dict(runs=2, host_calls=2, event_calls=3, warm=1)
+    for what, fn in (("RT fits (4 modes)", lambda: rm.band_reverb_times(bands)),
+                     ("descriptors + bass ratio (B2)", lambda: rm.channel_descriptors(win)),
+                     ("whole step", lambda: rm.measured_room(win, bank))):
+        profile_call(f"{label}: {what}, kernels", fn, **few)
+    rirs = torch.from_numpy(rm.battery_rirs()).to(dev)
+    profile_call(f"room (b) config 4, {tuple(rirs.shape)}", lambda: rm.battery(rirs), runs)
+    room = rm.room()
+    s, r = rm.fleet_positions()
+    profile_call(f"room (c) ISM fleet generator, {len(s)} pairs",
+                 lambda: batch_synthetic_rirs(room, s, r, rm.FLEET_FS, rm.FLEET_SECONDS),
+                 runs=3, host_calls=3, event_calls=5, warm=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "all"), nargs="+",
+    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "ra", "all"), nargs="+",
                     default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -321,13 +365,15 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = {"chain", "das", "tf", "fb"} if "all" in args.case else set(args.case)
+    cases = {"chain", "das", "tf", "fb", "ra"} if "all" in args.case else set(args.case)
     if "das" in cases:
         profile_das(dev, args.runs)
     if "tf" in cases:
         profile_tf(dev, args.runs)
     if "fb" in cases:
         profile_fb(dev, args.runs)
+    if "ra" in cases:
+        profile_ra(dev, args.runs)
     if "chain" not in cases:
         return 0
     rng = np.random.default_rng(0)

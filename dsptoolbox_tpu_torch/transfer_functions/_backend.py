@@ -1,7 +1,7 @@
 """Transfer-function measurement backend
 (`dsptoolbox_tpu/transfer_functions/_backend.py`): regularized spectral
 deconvolution, peak-aligned IR windowing and fractional-octave complex
-smoothing.
+smoothing, and the IR trimming indices that the room-acoustics fits use.
 
 Behavioral reference: `dsptoolbox/transfer_functions/_transfer_functions.py`.
 Host float64 numpy constructions (the regularization window, the windowing's
@@ -15,11 +15,14 @@ package's dense (F×F) operator at ≤ 4096 bins is not ported.
 from __future__ import annotations
 
 from functools import lru_cache
+from warnings import warn
 
 import numpy as np
 import torch
 
-from ..helpers.other import find_nearest_points_index_in_vector
+from ..helpers.gain_and_level import to_db
+from ..helpers.other import find_nearest_points_index_in_vector, pearson_correlation
+from ..helpers.smoothing import time_smoothing_host
 from ..helpers.windows_extra import calculate_tukey_like_window
 from ..ops.banded import banded_apply, plan_to_torch
 from ..standard.enums import Window
@@ -495,3 +498,97 @@ def complex_smoothing_host(
         w, ind_low_c, ind_high_c = row
         out[i] = w @ x[ind_low_c:ind_high_c]
     return out[:, 0] if transposed else out
+
+
+def trim_ir_indices(
+    time_data: np.ndarray,
+    fs_hz: int,
+    offset_start_s: float,
+    safety_distance_to_noise_floor_db: float = 10.0,
+) -> tuple[int, int, int]:
+    """Start, stop and impulse indices for smart IR trimming
+    (`_transfer_functions.py:276-411`): 1-D decision logic on host numpy
+    data (scipy Hilbert envelope, EMA, a decay scan over five window
+    lengths).
+
+    parity: the Hilbert transform runs at the padded ``next_fast_len``
+    length and the decay scan and the fallback averaging use that full
+    padded envelope, as the reference does (`_transfer_functions.py:307-315`).
+    """
+    from scipy.fft import next_fast_len
+    from scipy.signal import hilbert
+
+    time_data = np.asarray(time_data).reshape(-1)
+    impulse_index = int(np.argmax(np.abs(time_data)))
+    offset_start_samples = int(offset_start_s * fs_hz + 0.5)
+    start_index = int(np.max([0, impulse_index - 1 - offset_start_samples]))
+    impulse_index -= start_index
+
+    tail = time_data[start_index + impulse_index:]
+    env_c = hilbert(tail, N=next_fast_len(len(tail), False))
+    etc = np.asarray(to_db(np.abs(env_c), True))
+    envelope = time_smoothing_host(etc, fs_hz, 20e-3)
+
+    window_lengths = (np.array([10, 30, 50, 70, 90]) * 1e-3 * fs_hz + 0.5).astype(int)
+    end = np.zeros(len(window_lengths))
+    x = np.arange(len(envelope))
+    corr_coeff = np.zeros(len(window_lengths))
+    for ind, wl in enumerate(window_lengths):
+        pos = 0
+        current_mean = 0.0
+        for _ in range(len(envelope) // wl):
+            new_mean = np.mean(envelope[pos:pos + wl])
+            if current_mean <= new_mean:
+                break
+            current_mean = new_mean
+            pos += wl
+        end_cur = min((pos * 2 + wl) // 2, len(envelope))
+        corr_coeff[ind] = pearson_correlation(x[:end_cur], envelope[:end_cur])
+        end[ind] = end_cur
+
+    select = int(np.argmin(corr_coeff))
+    if corr_coeff[select] <= -0.95:
+        end_point = int(end[select])
+    elif np.any(corr_coeff <= -0.9):
+        end_point = int(np.mean(end[corr_coeff <= -0.9]))
+    elif np.any(corr_coeff <= -0.7):
+        inds = corr_coeff <= -0.7
+        end_point = int(np.mean(np.hstack([np.ones(9) * end[select], end[inds]])))
+    else:
+        warn("No satisfactory estimation for trimming the rir could be made")
+        end_point = int(np.mean(np.hstack([np.ones(5) * len(envelope), end])))
+
+    stop = end_point + start_index + impulse_index
+    if safety_distance_to_noise_floor_db != 0.0:
+        end_point = _find_index_above_noise_floor(
+            envelope[:end_point],
+            float(to_db(np.var(time_data[stop:]), False))
+            if stop < len(time_data)
+            else -np.inf,
+            abs(safety_distance_to_noise_floor_db),
+        )
+        stop = end_point + start_index + impulse_index
+    return start_index, stop, impulse_index
+
+
+def _find_index_above_noise_floor(
+    envelope: np.ndarray,
+    noise_floor_db: float,
+    distance_to_noise_floor_db: float,
+) -> int:
+    """Where the envelope's fitted line meets the noise floor plus a
+    distance, within [0.75, 1] of its length
+    (`_transfer_functions.py:841`)."""
+    if not np.isfinite(noise_floor_db):
+        return len(envelope)
+    poly = (
+        np.polynomial.Polynomial.fit(np.arange(len(envelope)), envelope, 1)
+        .convert()
+        .coef
+    )
+    if poly[1] > 0.0:
+        return len(envelope)
+    new_stop = int(
+        ((noise_floor_db + distance_to_noise_floor_db) - poly[0]) / poly[1] + 0.5
+    )
+    return int(np.clip(new_stop, int(len(envelope) * 0.75 + 0.5), len(envelope)))

@@ -646,3 +646,111 @@ def test_bank_kernel_block_lengths(dev, L):
     torch.cuda.synchronize()
     assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
     assert float((s_k - s_p).abs().max()) <= 1e-6 * max(1.0, float(s_p.abs().max()))
+
+
+def test_ism_lattice_on_card_matches_host_oracle(dev):
+    """The float64 image lattice on the card places every image in the
+    host float64 oracle's bin (max_order 14 at 44.1 kHz, and a fleet of 3
+    pairs at 16 kHz); values within 2e-7·max."""
+    from dsptoolbox_tpu_torch.room_acoustics import _backend as ra_bk
+    from dsptoolbox_tpu_torch.room_acoustics import batch_synthetic_rirs
+    from dsptoolbox_tpu_torch.tools import room_measurement as rm
+
+    room = rm.room()
+    b1, b2 = ra_bk.wall_reflection_factors(room.absorption_coefficient)
+    s, r = rm.fleet_positions(3, seed=2)
+    cases = [(44100, 14, np.array([[1.23, 2.17, 1.31]]), np.array([[4.29, 1.17, 1.63]]))]
+    cases += [(16000, 12, s, r)]
+    for fs, mo, s, r in cases:
+        limit, n = ra_bk.ism_limits(room.dimensions_m, room.t60_s, mo, fs)
+        got = ra_bk.ism_lattice(room.dimensions_m, b1, b2, s, r, fs, limit, n, dev).cpu().numpy()
+        for p in range(len(s)):
+            want = ra_bk.generate_rir_host(room.dimensions_m, b1, b2, s[p], r[p], fs,
+                                           ra_bk.SPEED_OF_SOUND, limit, n, "cpu").numpy()
+            np.testing.assert_array_equal(np.nonzero(got[p])[0], np.nonzero(want)[0])
+            assert np.max(np.abs(got[p] - want)) <= 2e-7 * np.max(np.abs(want))
+    old = _config.default_device()
+    _config.set_default_device(dev)
+    try:
+        fleet = batch_synthetic_rirs(room, s, r, 16000, max_order=12)
+    finally:
+        _config.set_default_device(old)
+    assert fleet.is_cuda and tuple(fleet.shape) == (3, 8000)
+    fleet = fleet.cpu().numpy()
+    np.testing.assert_array_equal(np.argwhere(fleet), np.argwhere(got[:, :8000]))
+    assert np.max(np.abs(fleet - got[:, :8000])) <= 1e-7 * np.max(np.abs(got))
+
+
+@pytest.mark.parametrize("fs,max_order,n_pairs", [(44100, 14, 1), (16000, None, 4)])
+def test_ism_images_on_card_match_host_oracle_per_image(dev, fs, max_order, n_pairs):
+    """Every image of the float64 lattice on the card (`_backend.ism_images`;
+    max_order 14 at 44.1 kHz, and 4 fleet pairs at the fleet's LIMIT 40
+    on the cells within reach of 0.5 s) holds the host float64 oracle's
+    sample index exactly (`_host_group_images` on the same cells), and its
+    value within 1e-12 relative."""
+    from dsptoolbox_tpu_torch.room_acoustics import _backend as ra_bk
+    from dsptoolbox_tpu_torch.tools import room_measurement as rm
+
+    room = rm.room()
+    dim = np.asarray(room.dimensions_m, np.float64)
+    b1, b2 = ra_bk.wall_reflection_factors(room.absorption_coefficient)
+    if n_pairs == 1:
+        s, r = np.array([[1.23, 2.17, 1.31]]), np.array([[4.29, 1.17, 1.63]])
+        reach = None
+    else:
+        s, r = rm.fleet_positions(n_pairs, seed=5)
+        reach = int(fs * rm.FLEET_SECONDS)
+    limit, _ = ra_bk.ism_limits(dim, room.t60_s, max_order, fs)
+    n_images = 0
+    for lv, idx, vals in ra_bk.ism_images(dim, b1, b2, s, r, fs, limit, dev):
+        keep = torch.ones(idx.shape[:2], dtype=torch.bool, device=dev) if reach is None \
+            else (idx <= reach).any(-1)
+        for p in range(len(s)):
+            cells = lv[keep[p]].cpu().numpy()
+            if len(cells) == 0:
+                continue
+            want_idx, want_vals = ra_bk._host_group_images(cells, dim, b1, b2, s[p], r[p], fs,
+                                                           ra_bk.SPEED_OF_SOUND)
+            np.testing.assert_array_equal(idx[p][keep[p]].cpu().numpy().reshape(-1), want_idx)
+            np.testing.assert_allclose(vals[p][keep[p]].cpu().numpy().reshape(-1), want_vals,
+                                       rtol=1e-12, atol=0)
+            n_images += want_idx.size
+    assert n_images > 0
+
+
+def test_room_octave_bank_and_bass_ratio_launch_kernels(dev):
+    """The measured-room step on the card: its octave bank goes through B3
+    (one launch), its bass ratio's zero-phase bands through B2 (two leads a
+    band); octave bands within 5e-6 of scipy's float64 sosfilt, the bass
+    ratio's bands within 5e-6 of scipy's float64 sosfiltfilt and 2e-5 of
+    the plain paths (scale-relative)."""
+    from scipy.signal import sosfiltfilt
+
+    from dsptoolbox_tpu_torch.room_acoustics.room_acoustics import _bass_ratio_bank
+    from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
+    from dsptoolbox_tpu_torch.tools import measurement
+    from dsptoolbox_tpu_torch.tools import room_measurement as rm
+
+    x = (measurement.room_irs()[0][:, :2] * 0.9).astype(np.float32)
+    ir = ImpulseResponse(None, x, measurement.FS, device=dev)
+    bank = rm.octave_bank(measurement.FS)
+    b2, b3 = cuda_iir.launches, cuda_iir_bank.launches
+    out = rm.measured_room(ir, bank)
+    torch.cuda.synchronize()
+    assert cuda_iir_bank.launches == b3 + 1
+    assert cuda_iir.launches == b2 + 8
+    for f, band in zip(bank.filters, out["bands"].bands):
+        want = sosfilt(f.sos, x.astype(np.float64), axis=0)
+        assert _rel(band.time_data, want) <= 5e-6
+    assert all(np.all(np.isfinite(v)) for v in out["rt"].values())
+    octs = _bass_ratio_bank(measurement.FS)
+    b2 = cuda_iir.launches
+    zero_phase = octs.filter_signal(ir, FilterBankMode.Parallel, zero_phase=True)
+    torch.cuda.synchronize()
+    assert cuda_iir.launches == b2 + 2 * len(octs.filters)
+    with _config.kernels_off():
+        zp = octs.filter_signal(ir, FilterBankMode.Parallel, zero_phase=True)
+    for f, band, band_p in zip(octs.filters, zero_phase.bands, zp.bands):
+        want = np.ascontiguousarray(sosfiltfilt(f.sos, x.astype(np.float64), axis=0))
+        assert _rel(band.time_data, want) <= 5e-6
+        assert _rel(band.time_data, band_p.time_data.cpu().numpy()) <= 2e-5

@@ -34,6 +34,8 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.beamforming, dsptoolbox_tpu_torch.classes\n"
         "import dsptoolbox_tpu_torch.tools.camera, dsptoolbox_tpu_torch.tools.measurement\n"
         "import dsptoolbox_tpu_torch.transfer_functions, dsptoolbox_tpu_torch.generators\n"
+        "import dsptoolbox_tpu_torch.room_acoustics, dsptoolbox_tpu_torch.tools.room_measurement\n"
+        "import dsptoolbox_tpu_torch.standard.pad_trim_methods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
         "assert not bad, bad\n"
