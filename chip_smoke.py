@@ -52,7 +52,22 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   the port's float64 run on the CPU; (c) the image-source fleet, 64 pairs
   at a lattice limit of 40 (272 M images), whose rows and a max_order-14
   RIR must have the numpy float64 oracle's support, and every image within
-  reach of the kept samples the oracle's sample index.
+  reach of the kept samples the oracle's sample index;
+- config 2 (`dsptoolbox_tpu_torch.tools.speech_chain`: `get_spectrogram` →
+  `transforms.istft` → `get_spectrum` → `append_signals` → `get_csm`, pink
+  noise from a seed) at 1 channel × 4 s and 16 channels × 60 s at 48 kHz:
+  counted (B1: the STFT, the Welch spectrum, the appended signal's Welch
+  CSM), B1 against its plain version at the chain's shapes, the ISTFT
+  round trip within 1e-5, the outputs against the plain paths and a
+  float64 numpy run (also the FFT-method CSM, at 60 s on 2 channels and
+  their reconstructions), timed against the plain paths;
+- the standard functions on the 60 s recording (`speech_chain.standard_calls`):
+  `lufs_integrated` on 5 channels (B2), true peak, RMS, crest factor, the
+  latencies of copies shifted by `delay` and `fractional_delay`, the
+  activity detector with a zero-phase pre-filter (B2) and the envelope,
+  counted, B2's outputs against the plain paths and scipy float64, each
+  call against the plain paths (the activity mask's flips against a
+  float64 recursion printed), each timed with its device idle share.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -748,13 +763,6 @@ def room_phase(dev, win, card: str) -> dict:
     from scipy.signal import sosfilt as scipy_sosfilt
     from scipy.signal import sosfiltfilt
 
-    from dsptoolbox_tpu_torch.ops import (
-        cuda_banded,
-        cuda_das,
-        cuda_framing,
-        cuda_iir,
-        cuda_iir_bank,
-    )
     from dsptoolbox_tpu_torch.room_acoustics import (
         ReverbTime,
         batch_descriptors,
@@ -777,13 +785,7 @@ def room_phase(dev, win, card: str) -> dict:
     fs = win.sampling_rate_hz
     C, T = win.number_of_channels, win.length_samples
     bank = rm.octave_bank(fs)
-    modules = {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
-               "banded": cuda_banded, "iir_bank": cuda_iir_bank}
-    for m in modules.values():
-        m.launches = 0
-    out = rm.measured_room(win, bank)
-    torch.cuda.synchronize()
-    launched = {name: m.launches for name, m in modules.items()}
+    out, launched = counted_run(lambda: rm.measured_room(win, bank))
     label = f"room (a) {C} IRs x {T} samples at {fs} Hz"
     print(f"{label}: launches {launched}")
     if launched["iir_bank"] < 1 or launched["iir_lead"] < 1:
@@ -987,6 +989,342 @@ def room_phase(dev, win, card: str) -> dict:
           f"{fleet_ms:.3f} ms; peak device memory {peak_c / 2**20:.1f} MiB")
     return {"iir_lead": launched["iir_lead"], "iir_bank": launched["iir_bank"],
             "iir_lead_err": b2_err}
+
+
+def np_frames(x, L: int, step: int, pad: int = 0, detrend: bool = False):
+    """float64 numpy frames of ``x (C, T)``: padded with ``pad`` zeros at
+    both ends, hop ``step``, ceil(T / step) frames zero-padded at the end,
+    times the periodic Hann window, minus each frame's mean with
+    ``detrend`` (after the window, as the package does)."""
+    import numpy as np
+    from scipy.signal import get_window
+
+    x = np.pad(x, ((0, 0), (pad, pad)))
+    K = -(-x.shape[-1] // step)
+    x = np.pad(x, ((0, 0), (0, max(0, (K - 1) * step + L - x.shape[-1]))))
+    frames = x[:, np.arange(K)[:, None] * step + np.arange(L)] * get_window("hann", L)
+    if detrend:
+        frames -= frames.mean(axis=-1, keepdims=True)
+    return frames
+
+
+def np_sqrt(z):
+    """Complex sqrt with a zero imaginary part taken as +0 (the package's)."""
+    import numpy as np
+
+    return np.sqrt(z.real + 1j * (z.imag + 0.0))
+
+
+def np_welch(x, L: int = 1024):
+    """float64 numpy Welch spectrum ``(F, C)`` at the Signal's defaults
+    (Hann, 50 %, detrend, mean, FFTBackward: the mean |X|²'s square root)."""
+    import numpy as np
+
+    X = np.fft.rfft(np_frames(x, L, L // 2, detrend=True), axis=-1)
+    return np.sqrt(np.mean(np.abs(X) ** 2, axis=-2)).T
+
+
+def np_assemble(Q):
+    """The package's Hermitian assembly of ``Q (F, C, C)``: the lower
+    triangle of Qᵀ, half its diagonal, plus its conjugate transpose."""
+    import numpy as np
+
+    mask = np.tril(np.ones(Q.shape[-2:]))
+    np.fill_diagonal(mask, 0.5)
+    lower = np.swapaxes(Q, -1, -2) * mask
+    return lower + np.conj(np.swapaxes(lower, -1, -2))
+
+
+def np_csm_welch(x, L: int = 1024):
+    """float64 numpy Welch CSM ``(F, C, C)`` at the Signal's defaults: the
+    per-pair square root (FFTBackward is an amplitude scaling), then the
+    assembly."""
+    import numpy as np
+
+    X = np.fft.rfft(np_frames(x, L, L // 2, detrend=True), axis=-1)  # (C, K, F)
+    Q = np.einsum("akf,bkf->fab", np.conj(X), X) / X.shape[-2]
+    return np_assemble(np_sqrt(Q))
+
+
+def np_csm_fft(x, n: int):
+    """float64 numpy FFT-method CSM ``(F, C, C)`` (FFTBackward)."""
+    import numpy as np
+
+    sp = np.fft.rfft(x, n=n, axis=-1).T  # (F, C)
+    return np_assemble(np.conj(sp)[:, :, None] * sp[:, None, :])
+
+
+def counted_modules() -> dict:
+    from dsptoolbox_tpu_torch.ops import (
+        cuda_banded,
+        cuda_das,
+        cuda_framing,
+        cuda_iir,
+        cuda_iir_bank,
+    )
+
+    return {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
+            "banded": cuda_banded, "iir_bank": cuda_iir_bank}
+
+
+def counted_run(fn):
+    """``(fn(), launches)``: every kernel's count set to 0 just before
+    ``fn`` and read just after it."""
+    import torch
+
+    modules = counted_modules()
+    for m in modules.values():
+        m.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: m.launches for name, m in modules.items()}
+
+
+def config2_phase(dev, card: str) -> dict:
+    """Config 2 (`tools/speech_chain.py`: STFT → ISTFT, Welch spectrum,
+    append, Welch CSM) at (a) the JAX package's size, 1 channel × 4 s, and
+    (b) full width, 16 channels × 60 s at 48 kHz: counted (B1), against the
+    plain paths (2e-5 scale-relative) and a float64 numpy run (1e-4); the
+    ISTFT round trip within 1e-5 of the input; the FFT-method CSM too
+    (at (b) on 2 channels and their reconstructions: all 32 would be 12 GB).
+    Timed with CUDA events against the plain paths. Returns B1's launches,
+    its error against its plain version at the path's shapes, and the
+    60 s recording for the standard phase."""
+    import numpy as np
+    import torch
+
+    from dsptoolbox_tpu_torch.ops import cuda_framing
+    from dsptoolbox_tpu_torch.ops.fft_conv import next_fast_len
+    from dsptoolbox_tpu_torch.ops.windows import get_window
+    from dsptoolbox_tpu_torch.standard import append_signals
+    from dsptoolbox_tpu_torch.standard.enums import SpectrumMethod, Window
+    from dsptoolbox_tpu_torch.tools import speech_chain as sc
+
+    launches, b1_err, times = 0, 0.0, []
+    minute = None
+    for name, (C, seconds) in (("(a)", sc.SPEECH), ("(b)", sc.MINUTE)):
+        sig = sc.signal(C, seconds)
+        T = sig.length_samples
+        label = f"config 2 {name} {C} ch x {seconds:g} s at {sc.FS} Hz"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (y, sp, csm), launched = counted_run(lambda: sc.run(sig))
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"{label}: launches {launched}; peak device memory {peak / 2**20:.1f} MiB "
+              "above the input")
+        if launched["framing"] < 3:
+            fail(f"{label}: the chain did not run B1 for the STFT, Welch and the CSM")
+        launches += launched["framing"]
+        F = sc.WINDOW // 2 + 1
+        shapes = {"y": (T, C), "welch": (F,) if C == 1 else (F, C), "csm": (F, 2 * C, 2 * C)}
+        outs = {"y": y.time_data, "welch": sp, "csm": csm}
+        for k, v in outs.items():
+            if tuple(v.shape) != shapes[k] or not bool(torch.isfinite(v).all()):
+                fail(f"{label} {k}: shape {tuple(v.shape)} or non-finite")
+        x = sig._x
+        rt = float((y._x - x).abs().max())
+        print(f"{label}: ISTFT round trip max abs err {rt:.3e} (tol 1e-5)")
+        if not rt <= 1e-5:
+            fail(f"{label}: the ISTFT does not reconstruct the input")
+        ref = plain(lambda: sc.run(sig))
+        for k, want in zip(outs, (ref[0].time_data, ref[1], ref[2])):
+            err = rel_err(outs[k], want)
+            print(f"{label} {k} vs plain paths: scale-rel {err:.3e} (tol 2e-5)")
+            if not err <= 2e-5:
+                fail(f"{label} {k} disagrees with the plain paths")
+        # float64 numpy: the Welch spectrum on every channel; the Welch CSM
+        # on 2 channels and their reconstructions (the CSM's entries of
+        # those 4 channels of the appended signal)
+        x64 = x.double().cpu().numpy()
+        welch64 = np_welch(x64)
+        err = rel_err(sp, welch64[:, 0] if C == 1 else welch64)
+        print(f"{label} welch vs float64 numpy: scale-rel {err:.3e} (tol 1e-4)")
+        if not err <= 1e-4:
+            fail(f"{label}: the Welch spectrum disagrees with float64 numpy")
+        sub = [0, 1] if C > 1 else [0]
+        idx = sub + [C + c for c in sub]
+        both64 = np.concatenate([x64[sub], x64[sub]])  # y's float64 run is x
+        err = rel_err(csm[:, idx][:, :, idx], np_csm_welch(both64))
+        print(f"{label} Welch CSM (channels {idx}) vs float64 numpy: scale-rel {err:.3e} "
+              "(tol 1e-4)")
+        if not err <= 1e-4:
+            fail(f"{label}: the Welch CSM disagrees with float64 numpy")
+        two = append_signals([sig.get_channels(sub), y.get_channels(sub)])
+        two.set_spectrum_parameters(method=SpectrumMethod.FFT)
+        fft_csm = two.get_csm()[1]
+        err_p = rel_err(fft_csm, plain(lambda: two.get_csm(force_computation=True)[1]))
+        err_64 = rel_err(fft_csm, np_csm_fft(both64, next_fast_len(T, True)))
+        print(f"{label} FFT-method CSM ({len(idx)} channels, {fft_csm.shape[0]} bins): vs "
+              f"plain paths scale-rel {err_p:.3e} (tol 2e-5), vs float64 numpy {err_64:.3e} "
+              "(tol 1e-4)")
+        if not (err_p <= 2e-5 and err_64 <= 1e-4):
+            fail(f"{label}: the FFT-method CSM disagrees")
+        del two, fft_csm, ref
+        # B1 against its plain version at the chain's shapes: the STFT's
+        # padded frames and the CSM's detrended frames of the appended signal
+        win = torch.as_tensor(get_window(Window.Hann, sc.WINDOW), dtype=torch.float32,
+                              device=dev)
+        for xin, pad_, det in ((x, sc.WINDOW // 2, False),
+                               (torch.cat([x, y._x]), 0, True)):
+            err = float((cuda_framing.windowed_frames_cuda(xin, win, sc.WINDOW // 2, det, pad_)
+                         - cuda_framing.windowed_frames_plain(xin, win, sc.WINDOW // 2, det,
+                                                              pad_)).abs().max())
+            b1_err = max(b1_err, err)
+            print(f"{label}: B1 x {tuple(xin.shape)} pad={pad_} detrend={det} vs plain: "
+                  f"max abs err {err:.3e} (tol 1e-6)")
+            if not err <= 1e-6:
+                fail(f"{label}: B1 disagrees with its plain version")
+        k_ms, p_ms = time_pair(lambda: sc.run(sig), lambda: plain(lambda: sc.run(sig)))
+        audio = C * seconds
+        print(f"time {label} [{card}]: kernels {k_ms:.4f} ms ({audio / (k_ms * 1e-3):.1f} "
+              f"audio-s/s), plain paths {p_ms:.4f} ms ({audio / (p_ms * 1e-3):.1f} audio-s/s)")
+        times.append({"size": name, "shape": [C, T], "ms": k_ms, "plain_ms": p_ms})
+        if name == "(b)":
+            minute = sig
+        del y, sp, csm, outs
+    return {"framing": launches, "framing_err": b1_err, "times": times, "minute": minute}
+
+
+def activity_mask_f64(x, threshold_dbfs: float, release: float):
+    """The activity detector's recursion, sequential in float64 numpy on
+    ``x`` normalised to its peak: g[i] = c·p[i] + (1 − c)·g[i−1] with c the
+    release coefficient where the previous power is > 0, else 0. Returns
+    the mask and the gain in dB."""
+    import numpy as np
+
+    p = (np.asarray(x, np.float64) / np.max(np.abs(x))) ** 2
+    c = np.where(p[:-1] > 0, release, 0.0)
+    g = np.zeros_like(p)
+    gi = 0.0
+    for i, (ci, pi) in enumerate(zip(c.tolist(), p[1:].tolist()), start=1):
+        gi = ci * pi + (1 - ci) * gi
+        g[i] = gi
+    with np.errstate(divide="ignore"):
+        db = 10 * np.log10(g)
+    return db > threshold_dbfs, db
+
+
+def standard_phase(dev, sig, card: str) -> dict:
+    """The standard functions on config 2's 16 × 60 s recording (c):
+    `lufs_integrated` on 5 channels (its K-weighting through B2),
+    `true_peak_level`, `rms` and `crest_factor` on all 16, `latency` of the
+    16 channels against copies shifted by `delay` and `fractional_delay`,
+    `activity_detector` on one channel with a zero-phase high-pass
+    pre-filter (B2, two leads), `envelope`; and `lufs_integrated` of a
+    full-scale sine of the same length (−3.01 LUFS). Counted; B2's outputs against
+    the plain paths (2e-5) and scipy float64 (5e-6); each call against the
+    plain paths, and timed with its device idle share
+    (`tools.profile_chain.profile_call`). Returns B2's launches and error."""
+    import numpy as np
+    import torch
+    from scipy.signal import sosfilt as scipy_sosfilt
+    from scipy.signal import sosfiltfilt
+
+    from dsptoolbox_tpu_torch import generators, standard
+    from dsptoolbox_tpu_torch.helpers.smoothing import get_smoothing_factor_ema
+    from dsptoolbox_tpu_torch.standard.gain_and_level import _k_weighting
+    from dsptoolbox_tpu_torch.tools import speech_chain as sc
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    fs, C, T = sig.sampling_rate_hz, sig.number_of_channels, sig.length_samples
+    label = f"standard (c) {C} ch x {T / fs:g} s"
+    calls = sc.standard_calls(sig)
+    five = sig.get_channels(list(range(5)))
+    hp = sc.activity_pre_filter(fs)
+    shift, frac_shift = sc.SHIFT, sc.FRACTIONAL_SHIFT
+    out, launches = {}, {}
+    for name, fn in calls.items():
+        out[name], launches[name] = counted_run(fn)
+    print(f"{label}: launches {launches}")
+    # a steady full-scale 997 Hz sine of the recording's length: -3.01 LUFS
+    # (`tests/test_standard.py:146-152`), its K-weighting through B2; without
+    # the default 3 s fades, which lower a minute's gated loudness to -3.17
+    sine = generators.oscillator(997.0, fs, T / fs, peak_level_dbfs=0.0, fade=None)
+    lufs_sine, launches["lufs_integrated (sine)"] = counted_run(
+        lambda: standard.lufs_integrated(sine))
+    print(f"{label}: lufs_integrated of a full-scale 997 Hz sine {lufs_sine:.4f} LUFS "
+          "(-3.01 +- 0.07)")
+    if abs(lufs_sine + 3.01) > 0.07 or launches["lufs_integrated (sine)"]["iir_lead"] < 1:
+        fail(f"{label}: lufs_integrated of a full-scale sine is off or did not run B2")
+    b2 = sum(v["iir_lead"] for v in launches.values())
+    if (launches["lufs_integrated (5 ch, B2)"]["iir_lead"] < 1
+            or launches["activity_detector (zero-phase pre-filter, B2)"]["iir_lead"] < 2):
+        fail(f"{label}: lufs_integrated or activity_detector did not run B2")
+
+    # B2's outputs: the K-weighted 5 channels and the activity pre-filter
+    k_filter = _k_weighting(fs)
+    x64 = five._x.double().cpu().numpy()
+    kw = k_filter.filter_signal(five)._x
+    kw_p = plain(lambda: k_filter.filter_signal(five)._x)
+    act_ch = sig.get_channels(sc.ACTIVITY_CHANNEL)
+    zp = hp.filter_signal(act_ch, zero_phase=True)._x
+    zp_p = plain(lambda: hp.filter_signal(act_ch, zero_phase=True)._x)
+    act64 = act_ch._x[0].double().cpu().numpy()
+    zp64 = np.ascontiguousarray(sosfiltfilt(hp.sos, act64))
+    b2_err = max(float((kw - kw_p).abs().max()), float((zp - zp_p).abs().max()))
+    for what, got, want_p, want_64 in (
+        ("K-weighting (5 ch)", kw, kw_p, scipy_sosfilt(k_filter.sos, x64, axis=-1)),
+        ("activity pre-filter, zero phase", zp, zp_p, zp64[None]),
+    ):
+        e_p, e_64 = rel_err(got, want_p), rel_err(got, want_64)
+        print(f"{label}: {what} (B2) vs plain paths scale-rel {e_p:.3e} (tol 2e-5), vs scipy "
+              f"f64 {e_64:.3e} (tol 5e-6)")
+        if not (e_p <= 2e-5 and e_64 <= 5e-6):
+            fail(f"{label}: {what} disagrees")
+
+    # each call against the plain paths
+    ref = {name: plain(fn) for name, fn in calls.items()}
+    lufs = out["lufs_integrated (5 ch, B2)"]
+    d = abs(lufs - ref["lufs_integrated (5 ch, B2)"])
+    print(f"{label}: lufs_integrated {lufs:.4f} LUFS, vs plain paths {d:.2e} LU (tol 1e-3)")
+    if not d <= 1e-3:
+        fail(f"{label}: lufs_integrated disagrees with the plain paths")
+    for name in ("true_peak_level", "rms", "crest_factor"):
+        got = np.atleast_2d(np.asarray(out[name]))
+        want = np.atleast_2d(np.asarray(ref[name]))
+        d = float(np.abs(got - want).max())
+        print(f"{label}: {name} mean {got.mean(axis=-1).round(3).tolist()} dB, vs plain "
+              f"paths max {d:.2e} dB (tol 1e-4)")
+        if got.shape[-1] != C or not np.all(np.isfinite(got)) or not d <= 1e-4:
+            fail(f"{label}: {name} disagrees with the plain paths or is not finite")
+    lat, corr = out["latency vs delay"]
+    lat_f, corr_f = out["latency vs fractional_delay (polynomial 2)"]
+    print(f"{label}: latency vs delay({shift}): {sorted(set(lat.tolist()))}, correlation min "
+          f"{corr.min():.6f}; vs fractional_delay({frac_shift}): "
+          f"{np.round(lat_f, 3).tolist()[:4]}..., max |err| {np.abs(lat_f - frac_shift).max():.3f} "
+          f"(tol 0.5), correlation min {corr_f.min():.6f}")
+    if not (np.all(lat == shift) and np.all(np.abs(lat_f - frac_shift) < 0.5)
+            and corr.min() > 0.99):
+        fail(f"{label}: latency does not recover the delays")
+    # the activity mask against the float64 recursion and the plain paths
+    _, others = out["activity_detector (zero-phase pre-filter, B2)"]
+    mask = others["signal_indices"]
+    release = get_smoothing_factor_ema(25e-3, fs)
+    t0 = time.perf_counter()
+    mask64, db64 = activity_mask_f64(zp64, sc.ACTIVITY_THRESHOLD_DB, release)
+    flips = np.flatnonzero(mask != mask64)
+    flips_p = np.flatnonzero(mask != ref["activity_detector (zero-phase pre-filter, B2)"][1][
+        "signal_indices"])
+    edge = float(np.abs(db64[flips] - sc.ACTIVITY_THRESHOLD_DB).max()) if flips.size else 0.0
+    print(f"{label}: activity mask {mask.mean():.4f} active; {flips.size} flips of {T} vs the "
+          f"float64 recursion (farthest {edge:.2e} dB from the threshold), {flips_p.size} vs "
+          f"the plain paths; float64 recursion {time.perf_counter() - t0:.1f} s on the host")
+    if flips.size > 1e-3 * T or edge > 1e-2:
+        fail(f"{label}: the activity mask flips beyond the threshold's edge")
+    env = out["envelope"]
+    err = rel_err(env, ref["envelope"])
+    print(f"{label}: envelope {tuple(env.shape)} vs plain paths scale-rel {err:.3e} (tol 2e-5)")
+    if tuple(env.shape) != (T, C) or not err <= 2e-5:
+        fail(f"{label}: envelope disagrees with the plain paths")
+    del ref
+
+    # times: CUDA events and the device's idle share, a few calls each
+    for name, fn in calls.items():
+        r = profile_call(f"{label}: {name}", fn, runs=2, host_calls=3, event_calls=5, warm=1)
+        print(f"time {label} {name} [{card}]: {r['events_ms']:.3f} ms (CUDA events), device "
+              f"busy {r['busy_us']:.0f} us, idle share {r['idle']:.4f}")
+    return {"iir_lead": b2, "iir_lead_err": b2_err}
 
 
 def main() -> int:
@@ -1421,6 +1759,11 @@ def main() -> int:
     b3["launches_by_path"]["room"] = room["iir_bank"]
     b3["launches"] += room["iir_bank"]
 
+    # 24-25. config 2 at 1 x 4 s and 16 x 60 s (B1), and the standard
+    # functions on the 60 s recording (B2)
+    c2 = config2_phase(dev, card)
+    std = standard_phase(dev, c2.pop("minute"), card)
+
     # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
     # band: x·H in fp32, H lower-triangular
     # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
@@ -1447,19 +1790,23 @@ def main() -> int:
         {"name": "windowed_frames", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
-         "launches": launches["framing"] + das_launches["framing"],
+         "launches": launches["framing"] + das_launches["framing"] + c2["framing"],
          "launches_by_path": {"chain": launches["framing"],
-                              "das": das_launches["framing"]},
-         "max_abs_err": b1_err, "ms": b1_ms, "plain_ms": b1_plain,
+                              "das": das_launches["framing"], "config2": c2["framing"]},
+         "max_abs_err": max(b1_err, c2["framing_err"]),
+         "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"]},
+         "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
-         "by_path_shape": b1_shapes},
+         "by_path_shape": b1_shapes, "config2_times": c2["times"]},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
-         "launches": launches["iir_lead"] + room["iir_lead"],
-         "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"]},
-         "max_abs_err": max(b2_err, room["iir_lead_err"]),
-         "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"]},
+         "launches": launches["iir_lead"] + room["iir_lead"] + std["iir_lead"],
+         "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
+                              "standard": std["iir_lead"]},
+         "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"]),
+         "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
+                                 "standard": std["iir_lead_err"]},
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
         b3,

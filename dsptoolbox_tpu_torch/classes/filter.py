@@ -2,20 +2,26 @@
 (`dsptoolbox_tpu/classes/filter.py`).
 
 Designs and conversions are host numpy/scipy; `filter_signal` runs on the
-signal's device through `filter_helpers`. Not ported yet: the biquad and
-FIR designers, ``filter_and_resample_signal``, coefficient conversions,
-group delay, metadata, plots, saving and copies.
+signal's device through `filter_helpers`. Not ported yet: the FIR
+designer, ``filter_and_resample_signal``, group delay, metadata, plots and
+saving.
 """
 
 from __future__ import annotations
 
+from copy import deepcopy
 from warnings import warn
 
 import numpy as np
 import scipy.signal as sig
 
-from ..standard.enums import FilterCoefficientsType, FilterPassType, IirDesignMethod
-from .filter_helpers import filter_on_signal, filter_on_signal_ba, impulse
+from .._enums import (
+    BiquadEqType,
+    FilterCoefficientsType,
+    FilterPassType,
+    IirDesignMethod,
+)
+from .filter_helpers import biquad_coefficients, filter_on_signal, filter_on_signal_ba, impulse
 from .impulse_response import ImpulseResponse
 from .signal import Signal
 
@@ -66,6 +72,28 @@ class Filter:
             output="zpk",
         )
         return Filter({FilterCoefficientsType.Zpk: zpk}, sampling_rate_hz)
+
+    @staticmethod
+    def biquad(
+        eq_type: BiquadEqType,
+        frequency_hz: float,
+        gain_db: float,
+        q: float,
+        sampling_rate_hz: int,
+    ) -> "Filter":
+        """RBJ-cookbook biquad as ``ba`` (`classes/filter.py:88`)."""
+        return Filter(
+            {
+                FilterCoefficientsType.Ba: biquad_coefficients(
+                    eq_type=eq_type,
+                    frequency_hz=frequency_hz,
+                    gain_db=gain_db,
+                    q=q,
+                    fs_hz=sampling_rate_hz,
+                )
+            },
+            sampling_rate_hz,
+        )
 
     @staticmethod
     def from_ba(b, a, sampling_rate_hz: int) -> "Filter":
@@ -224,6 +252,32 @@ class Filter:
         return new_signal
 
     # ======== Getters =======================================================
+    def get_coefficients(self, coefficients_mode: FilterCoefficientsType):
+        """Coefficients in the requested representation, host scipy
+        (`classes/filter.py:522`)."""
+        if coefficients_mode == FilterCoefficientsType.Sos:
+            if self.has_sos:
+                return self.sos.copy()
+            if self.order > 500:
+                warn("Order is above 500. Computing SOS might take a long time")
+            return sig.tf2sos(self.ba[0], self.ba[1])
+        if coefficients_mode == FilterCoefficientsType.Ba:
+            if self.has_sos:
+                return list(sig.sos2tf(self.sos))
+            return deepcopy(self.ba)
+        if coefficients_mode == FilterCoefficientsType.Zpk:
+            if self.has_zpk:
+                return tuple(deepcopy(self.zpk))
+            if self.has_sos:
+                return sig.sos2zpk(self.sos)
+            if self.order > 500:
+                warn("Order is above 500. Computing zpk might take a long time")
+            return sig.tf2zpk(self.ba[0], self.ba[1])
+        raise ValueError(f"{coefficients_mode} is not valid. Use sos, ba or zpk")
+
+    def copy(self) -> "Filter":
+        return deepcopy(self)
+
     def get_ir(self, length_samples: int, zero_phase: bool = False, device=None):
         """Impulse response of the filter (`classes/filter.py:461`), on
         ``device`` (default: `_config.default_device()`)."""

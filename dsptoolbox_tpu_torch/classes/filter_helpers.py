@@ -4,7 +4,8 @@ Coefficients stay host numpy; the data runs through `ops.iir` (the blocked
 IIR, kernel B2 on a CUDA tensor) and `ops.fft_conv`, channels-first, on the
 signal's device. Not ported: the float64 host-scipy routing of the JAX
 package's ``_oracle_exact_f64`` (float64 mode runs the same torch paths in
-float64), zero-phase ``ba`` filtering and the biquad designers.
+float64), and zero-phase ``ba`` filtering. The RBJ biquad coefficients are host
+float64 numpy, copied.
 """
 
 from __future__ import annotations
@@ -17,6 +18,95 @@ import torch
 from ..ops.fft_conv import fft_convolve
 from ..ops.iir import sosfilt, sosfilt_zero_state, sosfiltfilt
 from ..ops.iir_block import lfilter_block
+from .._enums import BiquadEqType
+
+
+def biquad_coefficients(
+    eq_type: BiquadEqType,
+    fs_hz: int,
+    frequency_hz: float,
+    gain_db: float,
+    q: float,
+):
+    """RBJ audio-EQ-cookbook biquad coefficients.
+
+    parity: like the reference (`classes/filter_helpers.py:30-44`), the
+    linear gain ``A`` multiplies the numerator of *every* eq type (not only
+    peak/shelf, where the cookbook defines it as 10^(G/40)).
+    """
+    shelf_like = eq_type in (
+        BiquadEqType.Peaking,
+        BiquadEqType.Lowshelf,
+        BiquadEqType.Highshelf,
+    )
+    A = 10 ** (gain_db / 40) if shelf_like else 10 ** (gain_db / 20)
+    Omega = 2.0 * np.pi * (frequency_hz / fs_hz)
+    sn, cs = np.sin(Omega), np.cos(Omega)
+    alpha = sn / (2.0 * q)
+    sqA = np.sqrt(A)
+    b = np.zeros(3)
+    a = np.zeros(3)
+    if eq_type == BiquadEqType.Peaking:
+        b[:] = 1 + alpha * A, -2 * cs, 1 - alpha * A
+        a[:] = 1 + alpha / A, -2 * cs, 1 - alpha / A
+    elif eq_type == BiquadEqType.Lowpass:
+        b[:] = (1 - cs) / 2 * A, (1 - cs) * A, (1 - cs) / 2 * A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.Highpass:
+        b[:] = (1 + cs) / 2 * A, -(1 + cs) * A, (1 + cs) / 2 * A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.BandpassSkirt:
+        b[:] = sn / 2 * A, 0.0, -sn / 2 * A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.BandpassPeak:
+        b[:] = alpha * A, 0.0, -alpha * A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.Notch:
+        b[:] = A, -2 * cs * A, A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.Allpass:
+        b[:] = (1 - alpha) * A, -2 * cs * A, (1 + alpha) * A
+        a[:] = 1 + alpha, -2 * cs, 1 - alpha
+    elif eq_type == BiquadEqType.Lowshelf:
+        b[:] = (
+            A * ((A + 1) - (A - 1) * cs + 2 * sqA * alpha),
+            2 * A * ((A - 1) - (A + 1) * cs),
+            A * ((A + 1) - (A - 1) * cs - 2 * sqA * alpha),
+        )
+        a[:] = (
+            (A + 1) + (A - 1) * cs + 2 * sqA * alpha,
+            -2 * ((A - 1) + (A + 1) * cs),
+            (A + 1) + (A - 1) * cs - 2 * sqA * alpha,
+        )
+    elif eq_type == BiquadEqType.Highshelf:
+        b[:] = (
+            A * ((A + 1) + (A - 1) * cs + 2 * sqA * alpha),
+            -2 * A * ((A - 1) + (A + 1) * cs),
+            A * ((A + 1) + (A - 1) * cs - 2 * sqA * alpha),
+        )
+        a[:] = (
+            (A + 1) - (A - 1) * cs + 2 * sqA * alpha,
+            2 * ((A - 1) - (A + 1) * cs),
+            (A + 1) - (A - 1) * cs - 2 * sqA * alpha,
+        )
+    elif eq_type == BiquadEqType.LowpassFirstOrder:
+        K = 1.0 / np.tan(Omega / 2.0)
+        b[:] = A, A, 0.0
+        a[:] = 1.0 + K, 1.0 - K, 0.0
+    elif eq_type == BiquadEqType.HighpassFirstOrder:
+        K = 1.0 / np.tan(Omega / 2.0)
+        b[:] = K * A, -K * A, 0.0
+        a[:] = 1.0 + K, 1.0 - K, 0.0
+    elif eq_type == BiquadEqType.AllpassFirstOrder:
+        K = 1.0 / np.tan(Omega / 2.0)
+        b[:] = (1.0 - K) * A, (1.0 + K) * A, 0.0
+        a[:] = 1.0 + K, 1.0 - K, 0.0
+    elif eq_type == BiquadEqType.Inverter:
+        b[:] = A, 0.0, 0.0
+        a[:] = 1.0, 0.0, 0.0
+    else:
+        raise ValueError("eq_type not supported")
+    return b, a
 
 
 def impulse(length_samples: int = 512, delay_samples: int = 0) -> np.ndarray:

@@ -9,16 +9,18 @@ dtype, device) and kept on the device. The bands stay on the device as
 views of the bank's output planes. Not ported: ``mesh=`` (band-parallel
 banks over several devices), the frequency-sampling bank path, multirate
 filtering of a MultiBandSignal, the bank's transfer function, filter
-removal and reordering, copies, saving and plots.
+removal and reordering, saving and plots.
 """
 
 from __future__ import annotations
+
+from copy import deepcopy
 
 import numpy as np
 import torch
 
 from ..ops.iir_block import bank_device_operators, sosfilt_bank_apply_planes, stack_sos_bank
-from ..standard.enums import FilterBankMode
+from .._enums import FilterBankMode
 from .filter import Filter
 from .filter_helpers import _replace_channels, impulse
 from .impulse_response import ImpulseResponse
@@ -180,6 +182,9 @@ class FilterBank:
         filters = filters + [filt] if index == -1 else filters[:index] + [filt] + filters[index:]
         self.filters = filters
         return self
+
+    def copy(self) -> "FilterBank":
+        return deepcopy(self)
 
     def initialize_zi(self, number_of_channels: int = 1) -> "FilterBank":
         for f in self.filters:

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from ..standard.enums import SpectrumMethod
+from .._enums import SpectrumMethod
 from .signal import Signal
 
 

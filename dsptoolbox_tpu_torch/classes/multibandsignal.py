@@ -1,10 +1,12 @@
 """MultiBandSignal: a list of per-band Signals, optionally multirate
 (`dsptoolbox_tpu/classes/multibandsignal.py`). The bands' data stays on
 their device. Not ported: band removal and reordering, ``get_all_bands``,
-metadata strings, plots, saving and copies.
+metadata strings, plots and saving.
 """
 
 from __future__ import annotations
+
+from copy import deepcopy
 
 import numpy as np
 import torch
@@ -109,6 +111,10 @@ class MultiBandSignal:
 
     def __iter__(self):
         return iter(self.bands)
+
+    def copy(self) -> "MultiBandSignal":
+        """A deep copy: the bands' tensors are copied on their device."""
+        return deepcopy(self)
 
     # ======== Band management ===============================================
     def add_band(self, sig: Signal, index: int = -1) -> "MultiBandSignal":

@@ -8,8 +8,10 @@ to ``device`` or `_config.default_device()`), in the package's default
 complex or float dtype; the JAX package holds it as host complex128 or
 float64 numpy.
 
-Not ported yet: interpolation, trimming, resampling, octave smoothing,
-coherence, saving and plots.
+`get_interpolated_spectrum` interpolates linearly on the data's device
+(what `standard.append_spectra` needs). Not ported yet: the cubic and PCHIP
+interpolation schemes (they raise `NotImplementedError`), trimming,
+resampling, octave smoothing, coherence, saving and plots.
 """
 
 from __future__ import annotations
@@ -20,7 +22,15 @@ import numpy as np
 import torch
 
 from .._config import default_complex, default_device, default_float
-from ..standard.enums import FrequencySpacing, SpectrumType
+from ..helpers.gain_and_level import to_db
+from ..helpers.other import unwrap
+from .._enums import (
+    FrequencySpacing,
+    InterpolationDomain,
+    InterpolationEdgeHandling,
+    InterpolationScheme,
+    SpectrumType,
+)
 
 
 class Spectrum:
@@ -31,6 +41,7 @@ class Spectrum:
         self._numpy_device = default_device() if device is None else device
         self.frequency_vector_hz = frequency_vector_hz
         self.spectral_data = spectral_data
+        self.set_interpolator_parameters()
 
     @staticmethod
     def from_signal(sig, complex: bool = False) -> "Spectrum":
@@ -106,6 +117,102 @@ class Spectrum:
     @property
     def spectrum_type(self) -> SpectrumType:
         return SpectrumType.Complex if self.is_complex else SpectrumType.Magnitude
+
+    # ======== Interpolation =================================================
+    def set_interpolator_parameters(
+        self,
+        domain: InterpolationDomain = InterpolationDomain.Power,
+        scheme: InterpolationScheme = InterpolationScheme.Linear,
+        edges_handling: InterpolationEdgeHandling = InterpolationEdgeHandling.ZeroPad,
+    ) -> "Spectrum":
+        """How `get_interpolated_spectrum` interpolates
+        (`classes/spectrum.py:366`)."""
+        if domain in (InterpolationDomain.Complex, InterpolationDomain.MagnitudePhase):
+            assert not self.is_magnitude, (
+                "No complex interpolation is possible with this data"
+            )
+        self._int_domain = domain
+        self._int_scheme = scheme
+        self._int_edges = edges_handling
+        return self
+
+    def _interp_linear(self, data: torch.Tensor, fq: np.ndarray) -> torch.Tensor:
+        """Linear interpolation of ``data (F, C)`` onto ``fq``: bracketing
+        indices and weights from the host grid, a gather on the device
+        (`helpers/interpolation.py:29 linear_interpolate`)."""
+        if self._int_scheme != InterpolationScheme.Linear:
+            raise NotImplementedError(
+                f"{self._int_scheme} interpolation is not ported yet; use Linear"
+            )
+        f = self.frequency_vector_hz
+        idx = np.clip(np.searchsorted(f, fq, side="right") - 1, 0, len(f) - 2)
+        denom = f[idx + 1] - f[idx]
+        w = (fq - f[idx]) / np.where(denom == 0, 1.0, denom)
+        i = torch.as_tensor(idx, device=data.device)
+        wj = torch.as_tensor(w, dtype=data.dtype, device=data.device)[:, None]
+        return data[i] * (1 - wj) + data[i + 1] * wj
+
+    def get_interpolated_spectrum(self, requested_frequency, output_type: SpectrumType):
+        """The spectrum at the requested frequencies, in the interpolation
+        domain set by `set_interpolator_parameters`, edges per its edge
+        handling (`classes/spectrum.py:405`)."""
+        fq = np.asarray(requested_frequency, dtype=np.float64).reshape(-1)
+        f = self.frequency_vector_hz
+        if output_type == SpectrumType.Complex:
+            assert not self.is_magnitude, "Complex output is not supported"
+        outside_left = fq < f[0]
+        outside_right = fq > f[-1]
+        if self._int_edges == InterpolationEdgeHandling.Error:
+            assert 0 == np.sum(outside_left | outside_right), (
+                "Frequencies are not in the given range and edge handling "
+                "does not support it"
+            )
+        dom = self._int_domain
+        sp = self.spectral_data
+        data_imag = None
+        if dom == InterpolationDomain.Power:
+            data = sp.abs() ** 2.0
+        elif dom == InterpolationDomain.Magnitude:
+            data = sp.abs()
+        elif dom == InterpolationDomain.Complex:
+            data, data_imag = sp.real, sp.imag
+        else:  # MagnitudePhase
+            data, data_imag = sp.abs(), unwrap(torch.angle(sp), dim=0)
+        out = self._interp_linear(data, fq)
+        if self._int_edges == InterpolationEdgeHandling.ZeroPad:
+            left_val = right_val = torch.zeros_like(data[0])
+        elif self._int_edges == InterpolationEdgeHandling.OnePad:
+            left_val = right_val = torch.ones_like(data[0])
+        else:  # Extend / Error (already validated)
+            left_val, right_val = data[0], data[-1]
+        lmask = torch.as_tensor(outside_left, device=out.device)[:, None]
+        rmask = torch.as_tensor(outside_right, device=out.device)[:, None]
+        if data_imag is not None:
+            out_imag = self._interp_linear(data_imag, fq)
+            # parity: the reference overwrites the *combined* output with
+            # the edge value after combining
+            if dom == InterpolationDomain.Complex:
+                out = torch.complex(out, out_imag)
+            else:
+                out = out * torch.exp(1j * out_imag)
+            left_val, right_val = left_val.to(out.dtype), right_val.to(out.dtype)
+        out = torch.where(lmask, left_val[None], out)
+        out = torch.where(rmask, right_val[None], out)
+        if output_type == SpectrumType.Complex:
+            return out
+        if output_type == SpectrumType.Db:
+            if dom.is_complex():
+                return to_db(out.abs(), True)
+            return to_db(out, dom.is_linear())
+        if output_type == SpectrumType.Power:
+            if dom.is_complex():
+                return out.abs() ** 2.0
+            return out**2.0 if dom.is_linear() else out
+        if output_type == SpectrumType.Magnitude:
+            if dom.is_complex():
+                return out.abs()
+            return out if dom.is_linear() else out**0.5
+        raise ValueError("Some unexpected case happened!")
 
     def copy(self) -> "Spectrum":
         """A deep copy: the tensor is copied on its device."""

@@ -12,7 +12,7 @@ import numpy as np
 
 from ..classes.filter import Filter
 from ..classes.filterbank import FilterBank
-from ..standard.enums import FilterCoefficientsType, FilterPassType, IirDesignMethod
+from .._enums import FilterCoefficientsType, FilterPassType, IirDesignMethod
 from ..tools.frequencies import erb_frequencies, fractional_octave_frequencies
 from .gammatone import GammaToneFilterBank
 from .lr_filterbank import LRFilterBank

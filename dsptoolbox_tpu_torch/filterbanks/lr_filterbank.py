@@ -23,7 +23,7 @@ from ..classes.signal import Signal
 from ..ops.fft_conv import next_fast_len
 from ..ops.iir import sosfilt, sosfiltfilt
 from ..ops.iir_freq import decay_margin, sos_freq_response_host
-from ..standard.enums import FilterBankMode
+from .._enums import FilterBankMode
 
 
 def _get_2nd_order_linkwitz_riley(freq: float, fs: int):

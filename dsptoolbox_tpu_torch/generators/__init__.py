@@ -1,7 +1,8 @@
-"""Signal generators (`dsptoolbox_tpu/generators`); so far the sweeps.
-``noise``, ``dirac`` and ``oscillator`` are not ported yet."""
+"""Signal generators (`dsptoolbox_tpu/generators`): colored noise, sine
+sweeps, diracs and band-limited oscillators."""
 
-from .enums import ChirpType
-from .generators import chirp, sync_log_chirp
+from .enums import ChirpType, NoiseType, WaveForm
+from .generators import chirp, dirac, noise, oscillator, sync_log_chirp
 
-__all__ = ["chirp", "sync_log_chirp", "ChirpType"]
+__all__ = ["noise", "chirp", "dirac", "oscillator", "sync_log_chirp", "NoiseType",
+           "ChirpType", "WaveForm"]

@@ -1,7 +1,15 @@
-"""Generator option enums (`dsptoolbox_tpu/generators/enums.py`); so far
-the sweep types."""
+"""Generator option enums (`dsptoolbox_tpu/generators/enums.py`)."""
 
 from enum import Enum, auto
+
+
+class NoiseType(Enum):
+    White = auto()
+    Pink = auto()
+    Red = auto()
+    Blue = auto()
+    Violet = auto()
+    Grey = auto()
 
 
 class ChirpType(Enum):
@@ -11,3 +19,10 @@ class ChirpType(Enum):
     Linear = auto()
     Logarithmic = auto()
     SyncLog = auto()
+
+
+class WaveForm(Enum):
+    Harmonic = auto()
+    Square = auto()
+    Triangle = auto()
+    Sawtooth = auto()

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..standard.enums import FadeType
+from .._enums import FadeType
 
 
 def to_db(

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 from scipy.signal import windows as _sw
 
-from ..standard.enums import Window
+from .._enums import Window
 
 
 def calculate_tukey_like_window(

@@ -56,6 +56,14 @@ def fft_convolve(x: torch.Tensor, h: torch.Tensor, mode: str = "full") -> torch.
     return _crop(y[..., :n_full], T, K, mode)
 
 
+def fft_correlate(x: torch.Tensor, y: torch.Tensor, mode: str = "full") -> torch.Tensor:
+    """Cross-correlation along the last axis through the FFT, in
+    ``scipy.signal.correlate``'s order: ``convolve(x, flip(conj(y)))``
+    (`dsptoolbox_tpu/ops/fft_conv.py:109`)."""
+    y = y.flip(-1)
+    return fft_convolve(x, y.conj() if y.is_complex() else y, mode=mode)
+
+
 def upfirdn(h, x: torch.Tensor, up: int = 1, down: int = 1) -> torch.Tensor:
     """Upsample by ``up``, FIR filter with ``h`` (numpy or a tensor),
     downsample by ``down``; the output length of ``scipy.signal.upfirdn``,

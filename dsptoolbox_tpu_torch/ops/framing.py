@@ -5,6 +5,9 @@ Signals are channels-first ``(..., T)``. Framing is a strided view
 (`Tensor.unfold`) of the zero-padded signal; overlap-add accumulates the
 ``ceil(L / step)`` step-chunks of every frame with shifted dense adds.
 
+`reconstruct_framed_signal` divides the overlap-added frames by the
+window² envelope (host float64, cached on the device per shape).
+
 Behavioral reference: `dsptoolbox/standard/_framed_signal_representation.py`
 and `dsptoolbox/helpers/other.py:181-213` (frame-count convention).
 """
@@ -12,9 +15,13 @@ and `dsptoolbox/helpers/other.py:181-213` (frame-count convention).
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .pad_trim import pad_trim_axis
 
 
 def compute_number_frames(
@@ -91,3 +98,77 @@ def overlap_add(
     if rows * step >= total_length:
         return out[..., :total_length]
     return F.pad(out, (0, total_length - rows * step))
+
+
+def window_envelope(
+    window: np.ndarray,
+    total_length: int,
+    step: int,
+    n_frames: int,
+    squared: bool = True,
+) -> np.ndarray:
+    """Summed (optionally squared) window envelope across overlapped frames
+    (`dsptoolbox_tpu/ops/framing.py:126`), host float64
+    (reference `standard/_standard_backend.py:408`)."""
+    w = np.asarray(window, dtype=np.float64)
+    if squared:
+        w = w**2
+    env = np.zeros(total_length, dtype=np.float64)
+    for k in range(n_frames):
+        start = k * step
+        stop = min(start + len(w), total_length)
+        if start >= total_length:
+            break
+        env[start:stop] += w[: stop - start]
+    return env
+
+
+@lru_cache(maxsize=16)
+def _device_window_envelope(window: bytes, total_length: int, step: int, n_frames: int,
+                            safety_threshold, dtype: torch.dtype, device: torch.device):
+    """The window and its window² envelope's divisor on ``device``, cached
+    (a copy from host memory would wait for the queued device work):
+    ``(window, divisor, mask)``, the divisor the envelope clipped at
+    ``safety_threshold`` where it is not zero and 1 elsewhere, the mask
+    where it is not zero (None when everywhere)."""
+    w = np.frombuffer(window, np.float64).copy()
+    env = window_envelope(w, total_length, step, n_frames, squared=True)
+    if safety_threshold is not None:
+        env = np.clip(env, a_min=safety_threshold, a_max=None)
+    nonzero = env > np.finfo(np.float64).tiny
+    return (torch.as_tensor(w, dtype=dtype, device=device),
+            torch.as_tensor(np.where(nonzero, env, 1.0), dtype=dtype, device=device),
+            None if nonzero.all() else torch.as_tensor(nonzero, device=device))
+
+
+def reconstruct_framed_signal(
+    frames: torch.Tensor,
+    step: int,
+    window: np.ndarray | None = None,
+    original_signal_length: int | None = None,
+    safety_threshold: float = 1e-4,
+) -> torch.Tensor:
+    """Inverse of `frame_signal` with window² COLA normalisation
+    (`dsptoolbox_tpu/ops/framing.py:151`): ``frames (..., n_frames, L)`` →
+    ``(..., T)``. The frames are multiplied by the window (if given),
+    overlap-added and divided by the squared-window envelope clipped at
+    ``safety_threshold`` (reference `_framed_signal_representation.py:70`).
+    """
+    n_frames, wl = frames.shape[-2], frames.shape[-1]
+    # parity: the reference computes this length with the same float
+    # expression (`_framed_signal_representation.py:115-118`); for some
+    # (wl, step) pairs (e.g. wl=12, step=5) the truncation lands one sample
+    # short of the exact `step*n + wl - step`
+    total_length = int(step * n_frames + wl * (1 - step / wl))
+    if window is None:
+        out = overlap_add(frames, step, total_length)
+    else:
+        w, divisor, nonzero = _device_window_envelope(
+            np.asarray(window, dtype=np.float64).tobytes(), total_length, step, n_frames,
+            safety_threshold, frames.dtype, frames.device)
+        out = overlap_add(frames * w, step, total_length)
+        scaled = out / divisor
+        out = scaled if nonzero is None else torch.where(nonzero, scaled, out)
+    if original_signal_length is not None:
+        out = pad_trim_axis(out, original_signal_length, axis=-1)
+    return out

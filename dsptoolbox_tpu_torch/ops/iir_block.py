@@ -179,7 +179,9 @@ def sosfilt_block(
     """Blocked ``sosfilt`` over the last axis of ``x (..., T)``.
 
     Matches ``scipy.signal.sosfilt`` numerically, including the ``zi``/``zf``
-    state layout ``(..., S, 2)``. Returns ``(y, zf)``. The full blocks go
+    state layout ``(..., S, 2)``. Returns ``(y, zf)``: ``y`` in the input's
+    dtype, ``zf`` in the state path's (`cuda_iir.state_dtype`: float64 for
+    float32 data), as the lead carries it. The full blocks go
     through `cuda_iir.sosfilt_lead` (the CUDA kernel for float32 CUDA input,
     at any number of blocks), the remainder tail through one more block
     product. A cascade of more than 16 sections runs as a series of
@@ -193,10 +195,13 @@ def sosfilt_block(
     N = 2 * S
     T = x.shape[-1]
     if T == 0:
+        sdt = state_dtype(
+            torch.promote_types(x.dtype, torch.complex64) if np.iscomplexobj(sos) else x.dtype
+        )
         zf = (
-            torch.as_tensor(zi, dtype=x.dtype, device=x.device)
+            torch.as_tensor(zi, dtype=sdt, device=x.device)
             if zi is not None
-            else x.new_zeros(x.shape[:-1] + (S, 2))
+            else torch.zeros(x.shape[:-1] + (S, 2), dtype=sdt, device=x.device)
         )
         return x, zf
     if S > _MAX_SECTIONS:
@@ -245,7 +250,8 @@ def sosfilt_block(
         s_end = s_end @ Ar + x_tail.to(Mr.dtype) @ Mr
         y = torch.cat([y, y_tail], dim=-1)
 
-    zf = s_end.to(compute_dtype).reshape(batch + (S, 2))
+    # the state stays in the state path's dtype (float64 for float32 data)
+    zf = s_end.reshape(batch + (S, 2))
     return y.reshape(batch + (T,)), zf
 
 
@@ -270,10 +276,9 @@ def lfilter_block(
         sos = np.concatenate([bp, ap])[None, :]
         zi2 = None
         if zi is not None:
-            zi2 = x.new_zeros(x.shape[:-1] + (1, 2))
-            zi2[..., 0, :order] = torch.as_tensor(
-                zi, dtype=x.dtype, device=x.device
-            )
+            sdt = state_dtype(x.dtype)
+            zi2 = torch.zeros(x.shape[:-1] + (1, 2), dtype=sdt, device=x.device)
+            zi2[..., 0, :order] = torch.as_tensor(zi, dtype=sdt, device=x.device)
         y, zf = sosfilt_block(sos, x, zi=zi2, block_size=block_size)
         return y, zf[..., 0, :order]
     if zi is not None:
@@ -283,7 +288,7 @@ def lfilter_block(
     from scipy.signal import tf2sos
 
     y, _ = sosfilt_block(tf2sos(b, a), x, block_size=block_size)
-    zf = x.new_zeros(x.shape[:-1] + (order,))
+    zf = torch.zeros(x.shape[:-1] + (order,), dtype=state_dtype(x.dtype), device=x.device)
     return y, zf
 
 

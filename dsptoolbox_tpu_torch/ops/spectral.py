@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .._config import default_float
-from ..standard.enums import SpectrumScaling, Window
+from .._enums import SpectrumScaling, Window
 from .cuda_framing import windowed_frames
 from .windows import check_cola, get_window
 
@@ -236,6 +236,15 @@ def stft(
     return time_s, freqs_hz, S
 
 
+def _complex_sqrt(z: torch.Tensor) -> torch.Tensor:
+    """The JAX package's complex square root: a zero imaginary part counts
+    as +0, so a negative real takes the root +i·sqrt|z| whatever the sign
+    of its zero (C's csqrt, and torch's, give -i·sqrt|z| for -0)."""
+    if not z.is_complex():
+        return torch.sqrt(z)
+    return torch.sqrt(torch.complex(z.real, z.imag + 0.0))
+
+
 def _assemble_csm_reference_order(Q: torch.Tensor) -> torch.Tensor:
     """Build the Hermitian CSM exactly as the reference does
     (`_spectral_methods.py:351-370`): keep the lower triangle
@@ -283,10 +292,14 @@ def csm_welch(
 
     if average == "mean":
         K = X.shape[-2]
-        # Q[f, a, b] = mean_k conj(X[a,k,f]) X[b,k,f]
-        Q = torch.einsum("akf,bkf->fab", torch.conj(X), X) / K
-        # exact-real diagonal like the reference's |X|² autospectrum branch
-        diag_real = torch.einsum("akf,akf->fa", torch.conj(X), X).real / K
+        # Q[f, a, b] = mean_k conj(X[a,k,f]) X[b,k,f] = (Y Yᴴ)[f, b, a] with
+        # Y = X as (F, C, K): one layout copy, and the batched product reads
+        # Yᴴ as a conjugate-transposed view
+        Y = X.permute(2, 0, 1).contiguous()
+        Q = torch.matmul(Y, Y.mH).transpose(-1, -2) / K
+        # exact-real diagonal like the reference's |X|² autospectrum branch:
+        # the product's diagonal is Σ|y|² in its real part
+        diag_real = Q.diagonal(dim1=-2, dim2=-1).real
         eye = torch.eye(Q.shape[-1], dtype=Q.real.dtype, device=Q.device)
         Q = Q * (1 - eye) + diag_real[..., None] * eye
     else:
@@ -310,8 +323,36 @@ def csm_welch(
         Q = Q * _edge(Q.shape[0], (0.5, 0.5), Q)[:, None, None]
     # parity: per-pair sqrt applies for every amplitude scaling (see welch)
     if scaling.is_amplitude_scaling():
-        Q = torch.sqrt(Q)
+        Q = _complex_sqrt(Q)
 
     csm = _assemble_csm_reference_order(Q)
     f = np.fft.rfftfreq(window_length_samples, 1 / sampling_rate_hz)
     return f, csm
+
+
+def csm_from_spectrum(
+    spectrum: torch.Tensor,
+    scaling: SpectrumScaling,
+    window: np.ndarray | None,
+    sampling_rate_hz: int,
+) -> torch.Tensor:
+    """CSM ``(F, C, C)`` from a backward-normalised multichannel spectrum
+    ``(F, C)`` (`dsptoolbox_tpu/ops/spectral.py:337`).
+
+    Matches `dsptoolbox/standard/_spectral_methods.py:374-443` (`_csm_fft`),
+    including its use of ``F // 2 + 1`` as the length parameter for the
+    conversion factor (parity quirk).
+    """
+    Q = torch.conj(spectrum)[:, :, None] * spectrum[:, None, :]  # (F, a, b)
+    csm = _assemble_csm_reference_order(Q)
+    if scaling == SpectrumScaling.FFTBackward:
+        return csm
+    csm = csm * _edge(csm.shape[0], (0.5, 0.5), csm)[:, None, None]
+    w = None if window is None else np.asarray(window, dtype=np.float64).reshape(-1)
+    factor = SpectrumScaling.FFTBackward.conversion_factor(
+        scaling, spectrum.shape[0] // 2 + 1, sampling_rate_hz, w
+    )
+    csm = csm * factor
+    if scaling.is_amplitude_scaling():
+        csm = _complex_sqrt(csm)
+    return csm

@@ -11,7 +11,7 @@ from functools import lru_cache
 import numpy as np
 from scipy.signal import windows as _sw
 
-from ..standard.enums import Window
+from .._enums import Window
 
 _WINDOW_CACHE: dict = {}
 

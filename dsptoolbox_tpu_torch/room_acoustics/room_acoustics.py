@@ -21,7 +21,7 @@ from ..helpers.gain_and_level import to_db
 from ..helpers.other import find_nearest_points_index_in_vector
 from ..ops.fft_conv import fft_convolve
 from ..ops.pad_trim import pad_trim_axis
-from ..standard.enums import (
+from .._enums import (
     FilterBankMode,
     FilterPassType,
     IirDesignMethod,

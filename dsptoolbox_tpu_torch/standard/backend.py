@@ -1,14 +1,36 @@
-"""Static designs of the `standard` backend (`dsptoolbox_tpu/standard/backend.py`).
+"""Backend of the `standard` module (`dsptoolbox_tpu/standard/backend.py`).
 
 Host float64 numpy, copied as they are: the Kaiser-windowed-sinc fractional
-delay filters that the beamforming module's projections are built from, and
-the IEC fractional-octave center frequencies of the filter banks.
+delay filters (the beamforming module's projections and
+`standard.fractional_delay`), and the IEC fractional-octave center
+frequencies of the filter banks. On the data's device: the integer latency
+from the FFT cross-correlation's peak, and the activity detector's mask.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.special import iv as bessel_first_mod
+
+from ..ops.fft_conv import fft_correlate
+
+
+def latency_integer(in1: torch.Tensor, in2: torch.Tensor | None, *_) -> np.ndarray:
+    """Integer-sample latency from the cross-correlation's peak
+    (`_standard_backend.py:14-35`); ``in1``/``in2`` ``(T, C)`` on one
+    device, one fetch of the ``(C,)`` peak indices.
+
+    parity: without ``in2`` the reference's 2-D scipy correlate flips the
+    channel axis of its second input, so the latencies of 3+ channels come
+    back in reversed channel order (as `helpers.latency.fractional_latency`).
+    """
+    if in2 is None:
+        xcorr = fft_correlate(in1[:, :1].T, in1[:, 1:].flip(1).T)
+    else:
+        xcorr = fft_correlate(in2.T, in1.T)
+    peak_inds = xcorr.abs().argmax(dim=-1).cpu().numpy()
+    return in1.shape[0] - peak_inds - 1
 
 
 def kaiser_window_beta(A: float) -> float:
@@ -142,3 +164,74 @@ def exact_center_frequencies_fractional_octaves(
     Nmin = np.around(num_fractions * np.log2(ref_freq / frequency_range[0]))
     indices = np.arange(-Nmin, Nmax + 1)
     return ref_freq * 2 ** (indices / num_fractions)
+
+
+def first_order_scan(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``g[i] = A[i]·g[i-1] + B[i]`` from ``g[-1] = 0`` along ``A (T,)``,
+    ``B (T,)``: composed affine maps (A, B) ∘ (A', B') = (A·A', A·B' + B)
+    doubled over strides 1, 2, 4, …, log₂ T elementwise passes in the data's
+    dtype (the shape of the JAX package's ``associative_scan``)."""
+    s = 1
+    T = A.shape[0]
+    while s < T:
+        B = torch.cat([B[:s], A[s:] * B[:-s] + B[s:]])
+        A = torch.cat([A[:s], A[s:] * A[:-s]])
+        s *= 2
+    return B
+
+
+def indices_above_threshold_dbfs(
+    time_vec: torch.Tensor,
+    threshold_dbfs: float,
+    attack_smoothing_coeff: float,
+    release_smoothing_coeff: float,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """Boolean activity mask ``(T,)`` on the data's device from a smoothed
+    power envelope, the reference's recursion
+    (`dsptoolbox_tpu/standard/backend.py:230`)."""
+    x = time_vec.reshape(-1)
+    if normalize:
+        x = x / x.abs().max()
+    power = x**2
+    # parity: the reference compares momentary_gain[i] (still zero when
+    # read) with time_power[i-1], so the attack branch never fires and the
+    # coefficient is the release one unless the previous power is exactly
+    # 0 (`_standard_backend.py:324-380`). The coefficient depends only on
+    # the previous input power, not on the carry, so
+    #   g[i] = c[i]·p[i] + (1-c[i])·g[i-1]
+    # is a first-order recurrence with known coefficients
+    p_prev, p_cur = power[:-1], power[1:]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    coeff = torch.where(
+        p_prev < 0,
+        zero + attack_smoothing_coeff,
+        torch.where(p_prev > 0, zero + release_smoothing_coeff, zero),
+    )
+    gains = first_order_scan(1.0 - coeff, coeff * p_cur)
+    momentary_gain = torch.cat([x.new_zeros(1), gains])
+    return 10.0 * torch.log10(momentary_gain) > threshold_dbfs
+
+
+def indices_above_threshold_dbfs_packed(
+    time_vec: torch.Tensor,
+    threshold_dbfs: float,
+    attack_smoothing_coeff: float,
+    release_smoothing_coeff: float,
+    normalize: bool = True,
+) -> torch.Tensor:
+    """The mask of `indices_above_threshold_dbfs` packed on the device into
+    uint8 in ``np.unpackbits``' layout (big-endian bit order): an 8× smaller
+    fetch. Unpack with ``np.unpackbits(out.cpu().numpy())[:T].astype(bool)``
+    (`dsptoolbox_tpu/standard/backend.py:257`)."""
+    return pack_bits(indices_above_threshold_dbfs(
+        time_vec, threshold_dbfs, attack_smoothing_coeff, release_smoothing_coeff, normalize))
+
+
+def pack_bits(mask: torch.Tensor) -> torch.Tensor:
+    """A boolean ``(T,)`` mask as uint8 in ``np.unpackbits``' layout, on its
+    device."""
+    T = mask.shape[0]
+    bits = torch.cat([mask.to(torch.uint8), mask.new_zeros((-T) % 8, dtype=torch.uint8)])
+    weights = (2 ** torch.arange(7, -1, -1, device=mask.device)).to(torch.uint8)
+    return (bits.reshape(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)

@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb ra | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb ra c2 | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -36,6 +36,13 @@ path's 16 windowed IRs, the octave bank (B3) against its plain path, the
 reverberation-time fits, the descriptors with the bass ratio (B2) and the
 whole step (host-bound: a few calls each); (b) config 4's battery of 1000
 RIRs; (c) the image-source fleet's generator (64 pairs, 272 M images).
+
+``c2``: config 2 (`tools.speech_chain`) at 1 channel × 4 s and 16 channels
+× 60 s at 48 kHz: the whole chain (kernels and plain paths) and its steps
+(spectrogram, ISTFT, Welch spectrum, append, Welch CSM); then the standard
+functions on the 60 s recording (`speech_chain.standard_calls`: loudness,
+true peak, RMS, crest factor, latencies, the activity detector,
+the envelope), a few calls each.
 
 For each case it prints the device time per kernel and per call, the host
 time per call (calls issued without waiting), the wall time per call, the
@@ -342,10 +349,40 @@ def profile_ra(dev, runs: int) -> None:
                  runs=3, host_calls=3, event_calls=5, warm=1)
 
 
+def profile_c2(dev, runs: int) -> None:
+    from ..standard import append_signals
+    from ..transforms import istft
+    from . import speech_chain as sc
+
+    for C, seconds in (sc.SPEECH, sc.MINUTE):
+        sig = sc.signal(C, seconds)
+        label = f"config 2, {C} ch x {seconds:g} s"
+        _, _, S = sig.get_spectrogram()
+        y = istft(S, original_signal=sig)
+        steps = (
+            ("whole chain", lambda: sc.run(sig)),
+            ("get_spectrogram (B1)", lambda: sig.get_spectrogram(force_computation=True)),
+            ("istft", lambda: istft(S, original_signal=sig)),
+            ("get_spectrum, Welch (B1)", lambda: sig.get_spectrum()),
+            ("append_signals", lambda: append_signals([sig, y])),
+            ("get_csm of the appended signal, Welch (B1)",
+             lambda: append_signals([sig, y]).get_csm()),
+        )
+        for what, fn in steps:
+            profile_call(f"{label}: {what}, kernels", fn, runs, host_calls=10, event_calls=10)
+        profile_call(f"{label}: whole chain, plain paths", plain_paths(steps[0][1]), runs,
+                     host_calls=10, event_calls=10)
+        del S, y
+    # the standard functions on the 60 s recording: a few calls each
+    for name, fn in sc.standard_calls(sig).items():
+        profile_call(f"standard, {C} ch x {seconds:g} s: {name}", fn, runs=2, host_calls=3,
+                     event_calls=5, warm=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "ra", "all"), nargs="+",
+    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "ra", "c2", "all"), nargs="+",
                     default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -365,7 +402,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = {"chain", "das", "tf", "fb", "ra"} if "all" in args.case else set(args.case)
+    cases = {"chain", "das", "tf", "fb", "ra", "c2"} if "all" in args.case else set(args.case)
     if "das" in cases:
         profile_das(dev, args.runs)
     if "tf" in cases:
@@ -374,6 +411,8 @@ def main(argv=None) -> int:
         profile_fb(dev, args.runs)
     if "ra" in cases:
         profile_ra(dev, args.runs)
+    if "c2" in cases:
+        profile_c2(dev, args.runs)
     if "chain" not in cases:
         return 0
     rng = np.random.default_rng(0)

@@ -25,7 +25,7 @@ from ..helpers.other import find_nearest_points_index_in_vector, pearson_correla
 from ..helpers.smoothing import time_smoothing_host
 from ..helpers.windows_extra import calculate_tukey_like_window
 from ..ops.banded import banded_apply, plan_to_torch
-from ..standard.enums import Window
+from .._enums import Window
 
 
 def spectral_deconvolve_core(

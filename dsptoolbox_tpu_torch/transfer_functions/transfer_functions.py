@@ -26,7 +26,7 @@ import torch
 from ..classes import ImpulseResponse, Signal, Spectrum
 from ..helpers.other import unwrap
 from ..ops.pad_trim import pad_trim_axis
-from ..standard.enums import Window
+from .._enums import Window
 from . import _backend as bk
 from .enums import SmoothingDomain
 

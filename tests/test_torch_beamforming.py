@@ -449,8 +449,8 @@ def test_signal_csm_cache():
     ts.time_data = _noise(0.25, 6, channels=3)
     assert ts.get_csm()[1] is not c3
     ts.set_spectrum_parameters(method=SpectrumMethod.FFT)
-    with pytest.raises(NotImplementedError):
-        ts.get_csm()
+    f, c4 = ts.get_csm()  # the FFT-method CSM, cached on the parameters too
+    assert c4.shape == (len(f), 3, 3) and ts.get_csm()[1] is c4
 
 
 def test_signal_time_data_rules_match_jax():

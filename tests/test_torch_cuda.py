@@ -754,3 +754,74 @@ def test_room_octave_bank_and_bass_ratio_launch_kernels(dev):
         want = np.ascontiguousarray(sosfiltfilt(f.sos, x.astype(np.float64), axis=0))
         assert _rel(band.time_data, want) <= 5e-6
         assert _rel(band.time_data, band_p.time_data.cpu().numpy()) <= 2e-5
+
+
+@pytest.mark.parametrize("band", [(31.5, 1, 6, 48000), (63, 1, 4, 48000), (25, 3, 4, 44100)],
+                         ids=lambda b: f"{b[0]}Hz-1/{b[1]}")
+def test_low_bands_through_b2_meet_scipy_float64(dev, band):
+    """C6 on the card: the float32 zero-phase filter (two B2 leads) at T =
+    4096 and 16,384 and the streamed filter (16 chunks of 1024 samples, a B2
+    launch each, the float64 state carried) within 5e-6 of scipy's float64
+    ``sosfiltfilt`` / ``sosfilt``, scale-relative."""
+    from scipy.signal import sosfiltfilt
+
+    from dsptoolbox_tpu_torch import filterbanks
+    from dsptoolbox_tpu_torch.ops import iir
+
+    fc, fraction, order, fs = band
+    fb, _, _ = filterbanks.fractional_octave_bands([fc, fc * 1.01], fraction, order, fs)
+    sos = np.asarray(fb.filters[0].sos)
+    for T in (4096, 16384):
+        x = (0.1 * np.random.default_rng(1).standard_normal((2, T))).astype(np.float32)
+        before = cuda_iir.launches
+        y = iir.sosfiltfilt(sos, torch.from_numpy(x).to(dev))
+        torch.cuda.synchronize()
+        assert cuda_iir.launches == before + 2 and y.dtype == torch.float32
+        assert _rel(y, np.ascontiguousarray(sosfiltfilt(sos, x.astype(np.float64), axis=-1))) <= 5e-6
+    zi = np.tile(sosfilt_zi(sos)[None], (2, 1, 1))
+    state, parts = zi, []
+    before = cuda_iir.launches
+    for k in range(16):
+        y, state = iir.sosfilt(sos, torch.from_numpy(x[:, k * 1024:(k + 1) * 1024]).to(dev),
+                               zi=state)
+        parts.append(y)
+    torch.cuda.synchronize()
+    assert cuda_iir.launches == before + 16 and state.dtype == torch.float64
+    want = sosfilt(sos, x.astype(np.float64), axis=-1, zi=np.moveaxis(zi, 0, 1))[0]
+    assert _rel(torch.cat(parts, dim=-1), want) <= 5e-6
+
+
+def test_config2_chain_and_standard_on_card_match_cpu(dev):
+    """Config 2's chain (`tools.speech_chain`, 2 channels × 1 s) through B1
+    and the standard functions that reach B2 (`lufs_integrated`'s
+    K-weighting at 3.2 s, the activity detector's zero-phase pre-filter)
+    against the same calls on the CPU."""
+    from dsptoolbox_tpu_torch import generators, standard
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.standard.enums import FilterPassType
+    from dsptoolbox_tpu_torch.tools import speech_chain
+
+    x = speech_chain.signal(2, 1.0).time_data  # on the default device, the card
+    gpu = Signal(None, x, speech_chain.FS)
+    cpu = Signal(None, x.cpu(), speech_chain.FS)
+    for s in (gpu, cpu):
+        s.set_spectrogram_parameters(window_length_samples=speech_chain.WINDOW)
+    b1 = cuda_framing.launches
+    got = speech_chain.run(gpu)
+    torch.cuda.synchronize()
+    assert cuda_framing.launches >= b1 + 3  # STFT, Welch, Welch CSM
+    want = speech_chain.run(cpu)
+    for g, w in ((got[0].time_data, want[0].time_data), (got[1], want[1]), (got[2], want[2])):
+        assert _rel(g, w) <= 2e-5
+    np.testing.assert_allclose(got[0].time_data.cpu().numpy(), x.cpu().numpy(), atol=1e-5)
+    sine = generators.oscillator(997, 48000, 3.2, peak_level_dbfs=0.0)
+    b2 = cuda_iir.launches
+    lufs = standard.lufs_integrated(sine)
+    assert cuda_iir.launches == b2 + 1
+    np.testing.assert_allclose(lufs, -3.01, atol=0.07)
+    hp = Filter.iir_filter(4, 80.0, FilterPassType.Highpass, 48000)
+    b2 = cuda_iir.launches
+    _, on_card = standard.activity_detector(gpu, pre_filter=hp)
+    assert cuda_iir.launches == b2 + 2
+    _, on_cpu = standard.activity_detector(cpu, pre_filter=hp)
+    assert np.mean(on_card["signal_indices"] != on_cpu["signal_indices"]) <= 1e-3

@@ -35,7 +35,10 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.tools.camera, dsptoolbox_tpu_torch.tools.measurement\n"
         "import dsptoolbox_tpu_torch.transfer_functions, dsptoolbox_tpu_torch.generators\n"
         "import dsptoolbox_tpu_torch.room_acoustics, dsptoolbox_tpu_torch.tools.room_measurement\n"
-        "import dsptoolbox_tpu_torch.standard.pad_trim_methods\n"
+        "import dsptoolbox_tpu_torch.standard, dsptoolbox_tpu_torch.transforms\n"
+        "import dsptoolbox_tpu_torch.tools.speech_chain, dsptoolbox_tpu_torch.helpers.latency\n"
+        "import dsptoolbox_tpu_torch.helpers.frequency_conversion\n"
+        "import dsptoolbox_tpu_torch.tools.profile_chain\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
         "assert not bad, bad\n"
@@ -45,6 +48,20 @@ def test_import_leaves_jax_out_and_needs_no_triton():
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize(
+    "first", ["classes", "filterbanks", "standard", "generators", "transforms"])
+def test_each_layer_imports_first(first):
+    """No import cycle: the layers below `standard` take the enums from the
+    leaf module `_enums`, so any of them may be the first import."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run(
+        [sys.executable, "-c", f"import dsptoolbox_tpu_torch.{first}"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr
 
@@ -253,3 +270,48 @@ def test_default_device_is_cuda_and_numpy_follows_it():
         # no fallback to the CPU: numpy data without a device goes to "cuda"
         with pytest.raises((AssertionError, RuntimeError)):
             Signal(None, x, 48000)
+
+
+# the names of the JAX package's `standard` that wait: `spectral_difference`
+# for the Spectrum class's octave smoothing, `load_pkl_object` for `io`
+WAITING = {"spectral_difference", "load_pkl_object"}
+
+
+@pytest.mark.parametrize("namespace", ["standard", "generators"])
+def test_exports_match_the_jax_package(namespace):
+    import importlib
+
+    import dsptoolbox_tpu
+
+    jax_names = set(importlib.import_module(f"dsptoolbox_tpu.{namespace}").__all__)
+    port = importlib.import_module(f"dsptoolbox_tpu_torch.{namespace}")
+    assert set(port.__all__) == jax_names - WAITING
+    for name in port.__all__:
+        assert hasattr(port, name), name
+    assert dsptoolbox_tpu  # imported only to read the export list
+
+
+def test_config2_and_standard_paths_launch_no_kernel_on_cpu_tensors():
+    from dsptoolbox_tpu_torch import standard
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.standard.enums import FilterPassType
+    from dsptoolbox_tpu_torch.tools import speech_chain
+
+    cuda_framing.launches = 0
+    cuda_iir.launches = 0
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        sig = speech_chain.signal(2, 3.0)  # longer than the frequency-sampling window
+        y, sp, C = speech_chain.run(sig)
+        two = sig.get_channels([0, 1])
+        standard.lufs_integrated(two)
+        standard.activity_detector(
+            two, pre_filter=Filter.iir_filter(2, 80.0, FilterPassType.Highpass, 48000))
+        standard.true_peak_level(two)
+        standard.latency(two, standard.delay(two, 10))
+    finally:
+        _config.set_default_device(old)
+    assert C.device.type == "cpu" and y.device.type == "cpu"
+    assert cuda_framing.launches == 0
+    assert cuda_iir.launches == 0

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 from scipy.linalg import toeplitz
-from scipy.signal import butter, cheby1, sosfilt, sosfilt_zi
+from scipy.signal import butter, cheby1, sosfilt, sosfilt_zi, sosfiltfilt
 
 import jax.numpy as jnp
 from dsptoolbox_tpu.ops import iir as jiir
@@ -302,3 +302,52 @@ class TestBank:
             for b in range(4):
                 y_ref = sosfilt(self.bank[b], x[i].astype(np.float64))
                 assert _rel_err(got[b, i].numpy(), y_ref) < 5e-6
+
+
+# ======== C6: the float32 zero-phase and streamed IIR keep a float64 state ==
+# the low bands where a start state rounded to float32 missed scipy's float64
+# result by up to 1.6e-5 (zero phase) and 2.0e-5 (streamed): (centre Hz,
+# octave fraction, order, sampling rate), from the port's fractional-octave
+# bank design
+C6_BANDS = [(31.5, 1, 6, 48000), (63, 1, 4, 48000), (25, 3, 4, 44100)]
+
+
+def c6_band(fc, fraction, order, fs) -> np.ndarray:
+    from dsptoolbox_tpu_torch import filterbanks
+
+    fb, _, _ = filterbanks.fractional_octave_bands([fc, fc * 1.01], fraction, order, fs)
+    return np.asarray(fb.filters[0].sos)
+
+
+def c6_noise(T) -> np.ndarray:
+    """float32 noise, σ 0.1, 2 channels, seed 1."""
+    return (0.1 * np.random.default_rng(1).standard_normal((2, T))).astype(np.float32)
+
+
+@pytest.mark.parametrize("T", [4096, 16384])
+@pytest.mark.parametrize("band", C6_BANDS, ids=lambda b: f"{b[0]}Hz-1/{b[1]}")
+def test_float32_zero_phase_meets_scipy_f64_on_low_bands(band, T):
+    sos = c6_band(*band)
+    x = c6_noise(T)
+    got = iir.sosfiltfilt(sos, torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    want = sosfiltfilt(sos, x.astype(np.float64), axis=-1)
+    assert _rel_err(got.numpy(), want) < 5e-6
+
+
+@pytest.mark.parametrize("band", C6_BANDS, ids=lambda b: f"{b[0]}Hz-1/{b[1]}")
+def test_float32_streamed_state_meets_scipy_f64_on_low_bands(band):
+    """16 chunks of 1024 samples, the state carried between them: the
+    output stays float32, the state float64."""
+    sos = c6_band(*band)
+    x = c6_noise(16384)
+    zi = np.tile(sosfilt_zi(sos)[None], (2, 1, 1))
+    state, parts = zi, []
+    for k in range(16):
+        y, state = iir.sosfilt(sos, torch.from_numpy(x[:, k * 1024:(k + 1) * 1024]), zi=state)
+        assert y.dtype == torch.float32 and state.dtype == torch.float64
+        parts.append(y.numpy())
+    want, zf = sosfilt(sos, x.astype(np.float64), axis=-1, zi=_scipy_zi(zi))
+    assert _rel_err(np.concatenate(parts, axis=-1), want) < 5e-6
+    np.testing.assert_allclose(state.numpy(), np.moveaxis(zf, 1, 0), rtol=1e-6,
+                               atol=1e-6 * np.abs(zf).max())
