@@ -25,6 +25,17 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   timed there, at the two recordings' own shapes (also the library
   yardstick: the GEMM part on cuBLAS fp32, steering pre-built) and at M =
   160, the map against the plain path and the source's position;
+- config 5, every map of the acoustic camera on both recordings
+  (`tools.camera.map_calls`): DAS, MVDR (loaded, and its reference form on
+  the recording plus sensor noise), Functional, CLEAN-SC (128 iterations),
+  Orthogonal (32 eigenvalues), and `BeamformerDASTime` on the 0.5 s one:
+  counted (B5 once for DAS, MVDR's reference form, Functional and
+  CLEAN-SC's initial map), B5 against its plain version at those maps'
+  matrices, each map against the plain paths and a float64 numpy oracle on
+  the same CSM with its argmax (CLEAN-SC's device loop against the float64
+  host loop on every bin, Orthogonal's picks against the float64 maxima),
+  DAS-time against a float64 direct convolution on 16 points; each map
+  timed against the plain paths with its device idle share;
 - the transfer-function measurement (`dsptoolbox_tpu_torch.tools.measurement`:
   a 5 s SyncLog sweep recorded by 16 microphones at 48 kHz, deconvolved,
   windowed to 65,536 samples and 1/3-octave smoothed over 32,769 bins): the
@@ -109,6 +120,15 @@ DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
 DAS_ANY_CSM = ((10, 64, 900), (30, 64, 900), (2, 1, 5), (3, 160, 70), (30, 160, 900))
 # B5 timed against its plain version at M = 160
 DAS_M160 = ((3, 160, 70), (30, 160, 900))
+# config 5's maps (`tools/camera.map_calls`): B5 launches a map, and the
+# bound of each against its float64 oracle and the plain paths (scale-
+# relative; Orthogonal against the float64 maps of its own picks)
+CONFIG5_B5 = {"das": 1, "mvdr": 0, "mvdr_reference": 1, "functional": 1, "clean_sc": 1,
+              "orthogonal": 0}
+CONFIG5_BOUNDS = {"das": 1e-4, "mvdr": 1e-4, "mvdr_reference": 5e-3, "functional": 5e-3,
+                  "clean_sc": 5e-3, "orthogonal": 1e-5}
+# timed calls a map where it takes tens of ms or more (CLEAN-SC ~0.5 s)
+CONFIG5_TIMED = {"clean_sc": 2, "functional": 5, "orthogonal": 5, "mvdr_reference": 5}
 # the DAS path's 10 s x 48 kHz recording: (mics, samples) of its Welch CSM
 CSM_SHAPE = (64, 480000)
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
@@ -1327,6 +1347,313 @@ def standard_phase(dev, sig, card: str) -> dict:
     return {"iir_lead": b2, "iir_lead_err": b2_err}
 
 
+def np_quadratic(h, C):
+    """``Re(h^H C_f h)`` in float64 numpy, ``(G, F)``."""
+    import numpy as np
+
+    return np.einsum("fmg,fmg->gf", np.conj(h), C @ h).real
+
+
+def np_das_time(x, ds, r0: float, fs: int, c: float, total: int):
+    """Time-domain DAS in float64 numpy by direct convolution of ``x (M,
+    T)``, on the grid points of ``ds (M, G')`` (mic-to-point distances),
+    delays referred to the distance ``r0``: each pair's Kaiser-sinc FIR
+    through `np.convolve`, shifted by its integer delay, times the distance
+    over the mic count, summed over the mics. Returns ``(total, G')``."""
+    import numpy as np
+
+    from dsptoolbox_tpu_torch.standard.backend import fractional_delay_filter_batch
+
+    M, G = ds.shape
+    s, h = fractional_delay_filter_batch(((r0 - ds) / c * fs).ravel(), 30, 60)
+    s, h = s.reshape(M, G), h.reshape(M, G, -1)
+    out = np.zeros((total, G))
+    for g in range(G):
+        for m in range(M):
+            y = np.convolve(x[m], h[m, g])
+            lo, hi = max(0, s[m, g]), min(total, s[m, g] + len(y))
+            out[lo:hi, g] += ds[m, g] / M * y[lo - s[m, g]:hi - s[m, g]]
+    return out
+
+
+def config5_phase(dev, card: str) -> dict:
+    """Config 5 through the public API (`tools/camera.map_calls`: 64 mics,
+    900 points, the 2 kHz third octave) on the 0.5 s × 16 kHz and the 10 s ×
+    48 kHz recording: DAS, MVDR (loaded), MVDR's reference form (on the
+    recording plus sensor noise of σ = 1e-3), Functional, CLEAN-SC (128
+    iterations) and Orthogonal (32 eigenvalues); `BeamformerDASTime` on the
+    0.5 s recording. Each map counted (B5 once for DAS, the reference form,
+    Functional and CLEAN-SC); B5 held against its plain version at each of
+    those maps' matrices; each map against the plain paths and a float64
+    numpy oracle on the same CSM (`CONFIG5_BOUNDS`; CLEAN-SC against the
+    host oracle loop in float64 on every bin; Orthogonal's picks against
+    the float64 maps of the same eigenpairs; DAS-time against a float64
+    direct convolution on 16 points), with the oracle's argmax; timed with
+    CUDA events against the plain paths, with the device's idle share
+    (`tools.profile_chain.profile_call`). Returns the launches, B5's error
+    at these matrices and the times."""
+    import numpy as np
+    import torch
+    from scipy.integrate import simpson
+
+    from dsptoolbox_tpu_torch import _config
+    from dsptoolbox_tpu_torch.beamforming import beamforming as bfm
+    from dsptoolbox_tpu_torch.ops import cuda_das
+    from dsptoolbox_tpu_torch.tools import camera
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    g = camera.grid()
+    G = g.number_of_points
+    src = g.find_nearest_point(camera.SOURCE_NEAR)[0]
+    band = (camera.CENTER_HZ, camera.OCTAVE_FRACTION)
+    totals = {"framing": 0, "das_map": 0}
+    b5_err, times = 0.0, []
+
+    def check(ok, what):
+        if not ok:
+            fail(f"config 5 {what}")
+
+    for seconds, fs in CAMERA_RUNS:
+        label = f"config 5 {seconds} s x {fs} Hz"
+        steps = {"start": time.perf_counter()}
+        sig = camera.array_signal(seconds, fs, dev, g)
+        noisy = camera.with_sensor_noise(sig)
+        calls = camera.map_calls(sig, g, noisy)
+        steps["setup"] = time.perf_counter()
+        # counted: the first call of each map (DAS computes the recording's
+        # CSM, the reference form the noisy one's)
+        maps = {}
+        for name, fn in calls.items():
+            maps[name], launched = counted_run(fn)
+            for kernel in totals:
+                totals[kernel] += launched[kernel]
+            print(f"{label} {name}: launches {launched}")
+            check(launched["das_map"] == CONFIG5_B5[name],
+                  f"{label} {name}: B5 launched {launched['das_map']} times, not "
+                  f"{CONFIG5_B5[name]}")
+            if name in ("das", "mvdr_reference"):  # the first map of each signal
+                check(launched["framing"] >= 1, f"{label} {name}: the CSM did not run B1")
+            m = maps[name]
+            check(tuple(m.shape) == (30, 30) and bool(torch.isfinite(m).all()),
+                  f"{label} {name}: shape {tuple(m.shape)} or non-finite")
+
+        steps["counted"] = time.perf_counter()
+        # the band's CSMs, wave numbers and float64 steering
+        beams = {kind: camera.beamformer(sig, g, kind) for kind in camera.KINDS}
+        f, k, C = beams["das"]._band_csm(*band)
+        _, _, Cn = camera.beamformer(noisy, g, "mvdr")._band_csm(*band)
+        F, M = len(f), C.shape[-1]
+        amp, diff = beams["das"]._amp_diff_device()
+        h64 = beams["das"].st_vec.get_vector(f * 2 * np.pi / beams["das"].c, g,
+                                              camera.planar_array())
+        C64 = C.cpu().numpy().astype(np.complex128)
+        Cn64 = Cn.cpu().numpy().astype(np.complex128)
+        off = 1 - np.eye(M)
+
+        def integrate(m_gf):
+            return simpson(m_gf, dx=f[1] - f[0], axis=1)
+
+        # B5 against its plain version at the matrices of the four maps that
+        # launch it; C⁻¹ of the reference form by the float32 forward-error
+        # bound of both evaluations, 2·γ(4M)·|p|ᵀ|B||p| per point-bin, as
+        # its denominators cancel (the bound of the others: 5e-5 of the scale)
+        u = 2.0 ** -24
+        gamma_4m = 4 * M * u / (1 - 4 * M * u)
+        inv64 = np.linalg.inv(Cn64)
+        u_, s_, vh_ = np.linalg.svd(C64)
+        mats = {"das": C64 * (M / (M - 1) * off), "clean_sc": C64,
+                "functional": (u_ * s_[:, None, :] ** 0.1) @ vh_, "mvdr_reference": inv64}
+        for name, mat in mats.items():
+            t = torch.as_tensor(mat, dtype=torch.complex64, device=dev)
+            cre, cim = t.real.contiguous(), t.imag.contiguous()
+            yk = cuda_das.das_map_cuda(amp, diff, k, cre, cim)
+            yp = cuda_das.das_map_plain(amp, diff, k, cre, cim)
+            torch.cuda.synchronize()
+            d = (yk - yp).abs().double().cpu().numpy()
+            b5_err = max(b5_err, float(d.max()))
+            err = rel_err(yk, yp)
+            if name == "mvdr_reference":
+                absq = np.einsum("fmg,fmg->gf", np.abs(h64), np.abs(mat) @ np.abs(h64)) * 2
+                ratio = float((d / (2 * gamma_4m * absq)).max())
+                print(f"{label}: B5 on C⁻¹ (F, M, G) = {(F, M, G)} vs plain: scale-rel {err:.3e}, "
+                      f"max |diff| / (2·γ(4M)·|p|ᵀ|B||p|) {ratio:.3e} (tol 1)")
+                check(ratio <= 1, f"{label}: B5 on C⁻¹ beyond the float32 forward-error bound")
+            else:
+                print(f"{label}: B5 on the {name} matrix (F, M, G) = {(F, M, G)} vs plain: "
+                      f"scale-rel {err:.3e} (tol 5e-5), max abs {float(d.max()):.3e}")
+                check(err <= 5e-5, f"{label}: B5 disagrees with its plain version at {name}")
+
+        steps["B5"] = time.perf_counter()
+        # float64 oracles on the same CSMs
+        d64 = np.einsum("fii->fi", C64).real
+        loaded = C64 + 10.0 ** -1 * (d64[:, :, None] * np.eye(M)[None])
+        den_ref = np_quadratic(h64, inv64)
+        oracle = {
+            "das": np.maximum(np_quadratic(h64, mats["das"]), 0.0),
+            "mvdr": 1 / np.einsum("fmg,fmg->gf", np.conj(h64), np.linalg.solve(loaded, h64)).real,
+            "mvdr_reference": 1 / den_ref,
+            "functional": (np_quadratic(h64, mats["functional"])
+                           / np.sum(np.abs(h64) ** 2, axis=1).T) ** 10
+            * np.sum(np.abs(h64) ** 2, axis=1).T,
+        }
+        # CLEAN-SC: the host oracle loop in float64 on every bin (it stops
+        # after a few iterations) against the device loop's bins
+        t0 = time.perf_counter()
+        hH = np.swapaxes(h64, 1, 2).conj()
+        map0 = np_quadratic(h64, C64)
+        oracle["clean_sc"] = np.stack([
+            bfm.clean_sc_deconvolve(map0[:, i].copy(), C64[i], h64[i], hH[i], 2 * M, False, 0.5)
+            for i in range(F)], axis=1)
+        t_csc = time.perf_counter() - t0
+        bins = beams["clean_sc"]._bin_maps(*band)[1].double().cpu().numpy()
+        for i in (0, F // 2, F - 1):
+            o = oracle["clean_sc"][:, i]
+            ok = np.allclose(bins[:, i], o, rtol=1e-3, atol=1e-5 * np.abs(o).max())
+            print(f"{label}: CLEAN-SC bin {i} ({f[i]:.1f} Hz) vs the float64 host loop: max "
+                  f"|diff| / max {np.abs(bins[:, i] - o).max() / np.abs(o).max():.3e} (rtol "
+                  f"1e-3, atol 1e-5 max), argmax {int(bins[:, i].argmax())} / {int(o.argmax())}")
+            check(ok and int(bins[:, i].argmax()) == int(o.argmax()),
+                  f"{label}: CLEAN-SC's device loop disagrees with its host oracle")
+        check(np.allclose(bins, oracle["clean_sc"], rtol=1e-3,
+                          atol=1e-5 * np.abs(oracle["clean_sc"]).max()),
+              f"{label}: CLEAN-SC's device loop disagrees with its host oracle on a bin")
+        print(f"{label}: CLEAN-SC float64 host loop on all {F} bins {t_csc:.2f} s")
+        # Orthogonal: the port's picks on the same eigenpairs; each pick a
+        # maximum of the float64 map within 1e-5 (mirror points of the
+        # symmetric grid tie to rounding), the map of those picks in float64
+        w64, v64 = np.linalg.eigh(C64)
+        E = M // 2
+        v64 = np.ascontiguousarray(v64[:, :, ::-1][:, :, :E])
+        w64 = np.ascontiguousarray(w64[:, ::-1][:, :E])
+        idx, vals = bfm._orthogonal_picks(
+            beams["orthogonal"]._steering(k),
+            torch.as_tensor(v64, dtype=torch.complex64, device=dev),
+            torch.as_tensor(w64, dtype=torch.float32, device=dev))
+        idx = idx.cpu().numpy()
+        prod = np.abs(np.conj(h64).transpose(0, 2, 1) @ v64) ** 2  # (F, G, E)
+        picked = np.take_along_axis(prod, idx[:, None, :], axis=1)[:, 0, :]
+        tie = float((1 - picked / prod.max(axis=1)).max())
+        o_map = np.zeros((G, F))
+        for i in range(F):
+            for e in range(E):
+                o_map[idx[i, e], i] = picked[i, e] * w64[i, e]
+        oracle["orthogonal"] = o_map
+        own = np.zeros((G, F))  # the reference's loop: its own argmax
+        for i in range(F):
+            for e in range(E):
+                j = int(prod[i, :, e].argmax())
+                own[j, i] = prod[i, j, e] * w64[i, e]
+        print(f"{label}: Orthogonal's {F * E} picks within {tie:.2e} of the float64 maxima "
+              f"(tol 1e-5); {int((idx != prod.argmax(axis=1)).sum())} ties broken otherwise")
+        check(tie <= 1e-5, f"{label}: an Orthogonal pick is not a maximum")
+
+        steps["oracles"] = time.perf_counter()
+        # each map against its float64 oracle and the plain paths; the
+        # reference form's plain path keeps the kernels' CSM (C⁻¹ turns the
+        # 1e-7 between B1's CSM and its plain version's into maps 1e-2 apart)
+        ref_same_csm = plain(calls["mvdr_reference"])
+        with _config.kernels_off():
+            sig.get_csm(force_computation=True)
+            noisy.get_csm(force_computation=True)
+            ref = {name: fn() for name, fn in calls.items()}
+            ortho1_p = beams["orthogonal"].get_beamformer_map(*band, number_eigenvalues=1)
+        sig.get_csm(force_computation=True)
+        noisy.get_csm(force_computation=True)
+        ortho1 = beams["orthogonal"].get_beamformer_map(*band, number_eigenvalues=1)
+        for name, m in maps.items():
+            want = integrate(oracle[name])
+            got = m.reshape(-1)
+            e64, am, am64 = rel_err(got, want), int(torch.argmax(got)), int(np.argmax(want))
+            tol = CONFIG5_BOUNDS[name]
+            if name == "orthogonal":
+                # the noise subspace's picks follow the CSM's float32 noise:
+                # the map against the float64 maps of its own picks, the
+                # argmax against the reference's loop in float64
+                am64 = int(np.argmax(integrate(own)))
+                print(f"{label} {name}: vs float64 of the same picks scale-rel {e64:.3e} (tol "
+                      f"{tol:g}); argmax {am} (float64 {am64}, source {src})")
+                check(e64 <= tol and am == am64, f"{label} {name}: disagrees with float64")
+                continue
+            if name == "mvdr_reference":
+                print(f"{label} {name}: vs plain paths with their own CSM scale-rel "
+                      f"{rel_err(got, ref[name].reshape(-1)):.3e} (not held)")
+                ref[name] = ref_same_csm
+            ep, amp_ = rel_err(got, ref[name].reshape(-1)), int(torch.argmax(ref[name]))
+            print(f"{label} {name}: vs float64 scale-rel {e64:.3e}, vs plain paths {ep:.3e} "
+                  f"(tol {tol:g}); argmax {am} (float64 {am64}, plain {amp_}, source {src})")
+            check(am == am64, f"{label} {name}: the argmax is not the float64 oracle's")
+            if name == "mvdr_reference" and seconds == CAMERA_RUNS[0][0]:
+                # 14 Welch frames for 64 mics: C is ill-conditioned and the
+                # form's denominators cancel to near float32's resolution;
+                # held by B5's forward-error bound above and the argmax
+                rel_den = float((np.abs(den_ref) / np.einsum(
+                    "fmg,fmg->gf", np.abs(h64), np.abs(inv64) @ np.abs(h64))).min())
+                print(f"{label} {name}: the smallest denominator is {rel_den:.2e} of its "
+                      "absolute-value form; the map's scale bound is not held at this size")
+                check(am == amp_, f"{label} {name}: the argmax is not the plain path's")
+                continue
+            check(e64 <= tol and ep <= tol and am == amp_,
+                  f"{label} {name}: disagrees with its float64 oracle or the plain paths")
+        e1 = abs(float(ortho1.max()) / float(ortho1_p.max()) - 1)
+        print(f"{label} orthogonal, first eigenvalue: max vs plain paths rtol {e1:.3e} (tol "
+              f"1e-3), argmax {int(torch.argmax(ortho1))} / {int(torch.argmax(ortho1_p))}")
+        check(e1 <= 1e-3 and int(torch.argmax(ortho1)) == int(torch.argmax(ortho1_p)),
+              f"{label}: Orthogonal's first eigenvalue disagrees with the plain paths")
+        del ref
+
+        steps["plain"] = time.perf_counter()
+        # times: CUDA events against the plain paths (the CSM cached), and
+        # the device's idle share
+        # (every map ran above: no warm-up; one profiled call a map)
+        for name, fn in calls.items():
+            n = CONFIG5_TIMED.get(name, N_TIMED)
+            k_ms, p_ms = time_pair(fn, lambda fn=fn: plain(fn), n=n, warm=0)
+            r = profile_call(f"{label}: {name}", fn, runs=1, host_calls=min(n, 3),
+                             event_calls=1, warm=0)
+            print(f"time {label} {name} [{card}]: kernels {k_ms:.4f} ms ({G * F / (k_ms * 1e-3):.4g}"
+                  f" point-bins/s), plain paths {p_ms:.4f} ms ({G * F / (p_ms * 1e-3):.4g} "
+                  f"point-bins/s); device busy {r['busy_us']:.0f} us, idle share {r['idle']:.4f}")
+            times.append({"recording": [seconds, fs], "map": name, "bins": F, "ms": k_ms,
+                          "plain_ms": p_ms, "idle": r["idle"]})
+        steps["times"] = time.perf_counter()
+        names = list(steps)
+        print(f"{label}: seconds by step " + ", ".join(
+            f"{b} {steps[b] - steps[a]:.1f}" for a, b in zip(names, names[1:])))
+        if seconds != CAMERA_RUNS[0][0]:
+            continue
+        # DAS-time on the 0.5 s recording: counted (no kernel), against a
+        # float64 direct convolution on 16 points (the source's among them)
+        beam_t = camera.time_beamformer(sig, g)
+        out, launched = counted_run(beam_t.get_beamformer_output)
+        y = out.time_data
+        check(y.shape[1] == G and y.shape[0] > sig.length_samples
+              and bool(torch.isfinite(y).all()), f"{label} das_time: shape or non-finite")
+        pts = np.unique(np.r_[np.linspace(0, G - 1, 15).astype(int), src])
+        ds = camera.planar_array().get_distances_to_point(g.coordinates)
+        want = np_das_time(sig._x.double().cpu().numpy(), ds[:, pts], ds.max(), fs,
+                           beam_t.c, y.shape[0])
+        got = y[:, pts]
+        err = rel_err(got, want)
+        loud = int(pts[int((got.double() ** 2).sum(0).argmax())])
+        loud64 = int(pts[int((want ** 2).sum(0).argmax())])
+        print(f"{label} das_time: output {tuple(y.shape)}, launches {launched}; {len(pts)} points "
+              f"vs float64 direct convolution scale-rel {err:.3e} (tol 1e-3); loudest point "
+              f"{loud} (float64 {loud64})")
+        check(err <= 1e-3 and loud == loud64,
+              f"{label} das_time disagrees with the float64 direct convolution")
+        t_ms = time_pair(beam_t.get_beamformer_output, n=5, warm=0)[0]
+        r = profile_call(f"{label}: das_time", beam_t.get_beamformer_output, runs=1,
+                         host_calls=3, event_calls=1, warm=0)
+        chunks = len(beam_t._das_time_cache[2])
+        print(f"time {label} das_time [{card}]: {t_ms:.4f} ms (no kernel: the path is its own "
+              f"plain path), {chunks} grid chunks of {bfm._DAS_TIME_CHUNK_BYTES:.3g} B; device "
+              f"busy {r['busy_us']:.0f} us, idle share {r['idle']:.4f}")
+        times.append({"recording": [seconds, fs], "map": "das_time", "ms": t_ms,
+                      "plain_ms": None, "idle": r["idle"], "chunks": chunks})
+    return {"framing": totals["framing"], "das_map": totals["das_map"], "das_map_err": b5_err,
+            "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -1744,6 +2071,9 @@ def main() -> int:
                   f"({G * n_bins / (k_ms * 1e-3):.4g} point-bins/s), plain paths "
                   f"{p_ms:.4f} ms ({G * n_bins / (p_ms * 1e-3):.4g} point-bins/s)")
 
+    # 9b. config 5: every map of the acoustic camera (B1, B5), DAS-time
+    c5 = config5_phase(dev, card)
+
     # 10-14. the transfer-function measurement path and B4
     b4, windowed_irs = measurement_phase(dev, rng)
 
@@ -1790,9 +2120,10 @@ def main() -> int:
         {"name": "windowed_frames", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
-         "launches": launches["framing"] + das_launches["framing"] + c2["framing"],
-         "launches_by_path": {"chain": launches["framing"],
-                              "das": das_launches["framing"], "config2": c2["framing"]},
+         "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
+                      + c2["framing"]),
+         "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
+                              "config5": c5["framing"], "config2": c2["framing"]},
          "max_abs_err": max(b1_err, c2["framing_err"]),
          "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
@@ -1813,11 +2144,14 @@ def main() -> int:
         {"name": "das_map", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/das_map.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
-         "launches": das_launches["das_map"], "max_abs_err": b5_err,
+         "launches": das_launches["das_map"] + c5["das_map"],
+         "launches_by_path": {"das": das_launches["das_map"], "config5": c5["das_map"]},
+         "max_abs_err": max(b5_err, c5["das_map_err"]),
+         "max_abs_err_by_path": {"das": b5_err, "config5": c5["das_map_err"]},
          "ms": b5_ms, "plain_ms": b5_plain,
          "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": b5_lib,
          "library": "packed_quadratic_from_hp: GEMM part only, steering pre-built",
-         "by_path_shape": b5_paths, "at_m160": b5_m160},
+         "by_path_shape": b5_paths, "at_m160": b5_m160, "config5_times": c5["times"]},
         b4,
     ]}
     print(json.dumps(report))

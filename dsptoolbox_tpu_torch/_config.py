@@ -133,6 +133,21 @@ def bank_kernel() -> str:
     return _BANK_KERNEL
 
 
+_CLEAN_SC_DEVICE = True
+
+
+def set_clean_sc_on_device(enabled: bool) -> None:
+    """Dispatch for CLEAN-SC: ``True`` (default) runs the deconvolution of
+    every frequency bin as one batched device loop; ``False`` runs the host
+    per-bin loop in numpy (the parity oracle)."""
+    global _CLEAN_SC_DEVICE
+    _CLEAN_SC_DEVICE = bool(enabled)
+
+
+def clean_sc_on_device() -> bool:
+    return _CLEAN_SC_DEVICE
+
+
 @contextmanager
 def kernels_off():
     """Every kernel switch "off" inside the block (the plain PyTorch

@@ -1,18 +1,26 @@
-"""Frequency-domain delay-and-sum beamforming (`dsptoolbox_tpu/beamforming/beamforming.py`).
+"""Frequency- and time-domain beamforming (`dsptoolbox_tpu/beamforming/beamforming.py`).
 
 Geometry (points, grids, microphone arrays) and the four Sarradj steering
-formulations are host float64 numpy, copied from the JAX package. The map
-``map[g, f] = Re(h^H C_f h)`` runs on the signal's device: the CSM comes from
-`Signal` (`ops.spectral.csm_welch`, the framing kernel on a CUDA tensor),
-the steering factors ``amp, diff (M, G)`` are moved there once and cached,
-and `ops.cuda_das.das_map` builds the steering and evaluates the quadratic
-form (the fused CUDA kernel on a float32 CUDA tensor). `MonopoleSource`
-projects a source onto an array with one batched fractional-delay FFT
-program.
+formulations are host float64 numpy, copied from the JAX package. Every
+formulation factors as ``h[f, m, g] = amp[m, g] e^{-i k_f diff[m, g]}``; the
+factors ``amp, diff (M, G)`` are moved to the signal's device once and
+cached. The CSM comes from `Signal` (`ops.spectral.csm_welch`, the framing
+kernel on a CUDA tensor).
 
-Ported so far: `BeamformerDASFrequency`. MVDR, CLEAN-SC, orthogonal,
-functional and time-domain DAS beamformers, the plots and the mesh-parallel
-map are not.
+The quadratic form ``Re(h^H C_f h)`` behind four of the maps goes through
+`_quadratic_map`, which builds the steering and evaluates the form in one
+call of `ops.cuda_das.das_map` (the fused DAS map kernel on a float32 CUDA
+tensor): DAS on the CSM, MVDR's reference form on C⁻¹, CLEAN-SC's initial
+map on the CSM and Functional's numerator on C^{1/γ}. MVDR's default path
+is a loaded, equilibrated batched LU solve on the device; CLEAN-SC
+deconvolves every bin in lockstep on the device (or per bin on the host,
+`_config.set_clean_sc_on_device(False)`); Orthogonal and Functional take
+their host float64 eigen- and singular-value decompositions from the JAX
+package. `BeamformerDASTime` delays and sums in the frequency domain, in
+grid chunks. `MonopoleSource` projects a source onto an array with one
+batched fractional-delay FFT program.
+
+Not ported: the plots and the mesh-parallel map.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from warnings import warn
 import numpy as np
 import torch
 
-from .._config import default_complex, default_float
+from .._config import clean_sc_on_device, default_complex, default_float
 from ..classes import Signal
 from ..helpers.other import (
     find_nearest_points_index_in_vector,
@@ -437,6 +445,17 @@ def _packed_quadratic_gf(h_re, h_im, c_re, c_im):
     return _packed_quadratic_from_hp(hp, c_re, c_im)
 
 
+def _quadratic_map(amp, diff, k, C):
+    """``Re(h^H C_f h) -> (G, F)`` for a complex matrix ``C (F, M, M)`` on the
+    device, the steering ``h[f, m, g] = amp[m, g] e^{-i k_f diff[m, g]}``
+    built from ``amp, diff (M, G)`` and ``k (F,)``: `ops.cuda_das.das_map` on
+    C's real and imaginary parts, so the DAS map kernel on a float32 CUDA
+    tensor and its plain version on the CPU, under the kernel's switch
+    (`_config.set_das_kernel`). C need not be Hermitian: ``Re(h^H C h) =
+    Re(h^H (C + C^H) h) / 2`` for any C, and that is what the kernel sums."""
+    return cuda_das.das_map(amp, diff, k, C.real, C.imag)
+
+
 class BaseBeamformer:
     """Base beamformer (`beamforming.py:650-754`)."""
 
@@ -543,6 +562,29 @@ class BeamformerGridded(BaseBeamformer):
             self._amp_diff_dev = c
         return c[5], c[6]
 
+    def _wave_numbers(self, f) -> torch.Tensor:
+        """Wave numbers ``2π f / c`` of the band's frequencies ``f`` on the
+        signal's device, in the default float; cached on the device (a copy
+        from pageable host memory would wait for all queued device work)."""
+        return _device_window(
+            np.asarray(f * np.pi * 2 / self.c, np.float64).tobytes(), default_float(),
+            self.signal.device,
+        )
+
+    def _steering(self, k: torch.Tensor) -> torch.Tensor:
+        """Steering tensor ``h (F, M, G)`` of the default complex dtype, built
+        on the device from the cached factors as the DAS map kernel builds
+        it: ``amp · e^{-i k diff}`` with the phase in the default float."""
+        amp, diff = self._amp_diff_device()
+        return torch.polar(amp.expand(len(k), -1, -1), -(k[:, None, None] * diff))
+
+    def _band_csm(self, center_frequency_hz, octave_fraction):
+        """Frequencies (host), wave numbers and complex CSM ``(F, M, M)``
+        (both on the signal's device) of the analysis band; the CSM is a view
+        of the signal's cached one."""
+        f, csm = self._csm_slice(center_frequency_hz, octave_fraction)
+        return f, self._wave_numbers(f), csm
+
     def _band_ids(self, center_frequency_hz, octave_fraction, f):
         """Analysis-band bin range ``(id1, id2)`` on the CSM frequency
         vector ``f``; also records center/fraction/f_range on self."""
@@ -600,7 +642,6 @@ class BeamformerDASFrequency(BeamformerGridded):
         f_all, cre_full, cim_full = self.signal._get_csm_device()
         id1, id2 = self._band_ids(center_frequency_hz, octave_fraction, f_all)
         f = f_all[id1:id2]
-        wave_numbers = f * np.pi * 2 / self.c
         amp, diff = self._amp_diff_device()
         cre = cre_full[id1:id2]
         cim = cim_full[id1:id2]
@@ -610,13 +651,316 @@ class BeamformerDASFrequency(BeamformerGridded):
             off = (1.0 - eye) * (n_ch / (n_ch - 1))
             cre = cre * off
             cim = cim * off
-        # cached on the device: a copy from pageable host memory would wait
-        # for all queued device work
-        k = _device_window(
-            np.asarray(wave_numbers, np.float64).tobytes(), amp.dtype, amp.device
-        )
-        map_gf = cuda_das.das_map(amp, diff, k, cre, cim)
+        map_gf = cuda_das.das_map(amp, diff, self._wave_numbers(f), cre, cim)
         return self._finish_map(map_gf, f, bool(remove_csm_diagonal))
+
+
+class BeamformerCleanSC(BeamformerGridded):
+    """CLEAN-SC deconvolution (Sijtsma 2007;
+    `beamforming.py:883-1008`)."""
+
+    beamformer_type = "CleanSC"
+
+    def get_beamformer_map(
+        self,
+        center_frequency_hz: float,
+        octave_fraction: int = 3,
+        maximum_iterations: int | None = None,
+        safety_factor: float = 0.5,
+        remove_csm_diagonal: bool = False,
+    ) -> torch.Tensor:
+        """CLEAN-SC map over the band, integrated (Simpson), in the grid's
+        shape, on the signal's device. ``maximum_iterations`` defaults to
+        twice the channels; ``remove_csm_diagonal`` zeroes the CSM's diagonal
+        (without DAS's ``n/(n-1)`` scale)."""
+        f, map_gf = self._bin_maps(center_frequency_hz, octave_fraction,
+                                   maximum_iterations, safety_factor, remove_csm_diagonal)
+        return self._finish_map(map_gf, f, False)
+
+    def _bin_maps(self, center_frequency_hz, octave_fraction, maximum_iterations=None,
+                  safety_factor=0.5, remove_csm_diagonal=False):
+        """``(f, map (G, F))``: the deconvolved map of each bin. The initial
+        map is `_quadratic_map` on the CSM; the deconvolution runs as one
+        batched device loop over all bins (`_clean_sc_device_core`) or, with
+        `_config.clean_sc_on_device` False, per bin on the host
+        (`clean_sc_deconvolve`, the JAX package's oracle path)."""
+        if maximum_iterations is None:
+            maximum_iterations = self.signal.number_of_channels * 2
+        else:
+            assert maximum_iterations > 0, (
+                "Number of iterations must be positive"
+            )
+        assert 0 < safety_factor <= 1, (
+            f"{safety_factor} is not valid. The safety factor (loop gain) "
+            "should be in ]0, 1]"
+        )
+        f, k, csm = self._band_csm(center_frequency_hz, octave_fraction)
+        if remove_csm_diagonal:
+            eye = torch.eye(csm.shape[-1], dtype=csm.real.dtype, device=csm.device)
+            csm = csm * (1 - eye)
+        amp, diff = self._amp_diff_device()
+        map0 = _quadratic_map(amp, diff, k, csm)
+        if clean_sc_on_device():
+            return f, _clean_sc_device_core(
+                map0, csm, self._steering(k), int(maximum_iterations),
+                bool(remove_csm_diagonal), float(safety_factor),
+            )
+        h = self.st_vec.get_vector(f * np.pi * 2 / self.c, grid=self.grid, mic=self.mics)
+        h_H = np.swapaxes(h, 1, 2).conjugate()
+        map_np = map0.cpu().numpy()
+        csm_np = csm.cpu().numpy()
+        for find in range(len(f)):
+            map_np[:, find] = clean_sc_deconvolve(
+                map_np[:, find], csm_np[find], h[find], h_H[find],
+                maximum_iterations, remove_csm_diagonal, safety_factor,
+            ).real
+        return f, torch.as_tensor(map_np, device=map0.device)
+
+
+def _clean_sc_device_core(
+    map0: torch.Tensor,  # (G, F) real initial map
+    C: torch.Tensor,  # (F, M, M) complex CSM (diagonal already removed if requested)
+    h: torch.Tensor,  # (F, M, G) complex steering
+    maximum_iterations: int,
+    remove_diagonal_csm: bool,
+    safety_factor: float,
+) -> torch.Tensor:
+    """CLEAN-SC deconvolution of all frequency bins in lockstep
+    (`dsptoolbox_tpu/beamforming/beamforming.py:1545`, the reference's
+    `_beamforming.py:194-297`); returns the clean map ``(G, F)``.
+
+    Every bin runs all ``maximum_iterations`` iterations; a bin that met the
+    stopping rule (``||D_1||_1 >= ||D_0||_1``, the largest column sum) is
+    inactive from then on and changes nothing. As in the reference, an
+    iteration deposits its peak before the stopping check. Every decision
+    stays on the device (the peak's index is a tensor that `gather` and
+    `scatter_add_` use): the loop never waits for the device. ``D_0`` enters
+    only through its norm, which is carried instead of the matrix. The
+    correction ``Re(h^H G h)`` is ``G @ h`` and a conjugate product summed
+    over the mics."""
+    F, M, G = h.shape
+    sf = float(safety_factor)
+    map_ = map0.T.contiguous()  # (F, G)
+    second = torch.zeros_like(map_)
+    D1 = C
+    n0 = torch.linalg.matrix_norm(C * 2.0, ord=1)  # the largest column sum
+    active = torch.ones(F, dtype=torch.bool, device=map_.device)
+    one = torch.ones((F, 1, 1), dtype=h.dtype, device=h.device)
+    off = None
+    if remove_diagonal_csm:
+        off = 1 - torch.eye(M, dtype=map_.dtype, device=map_.device)
+    for _ in range(maximum_iterations):
+        i = map_.argmax(dim=1, keepdim=True)  # (F, 1)
+        p = map_.gather(1, i)  # (F, 1)
+        second.scatter_add_(1, i, torch.where(active[:, None], p * sf, 0.0))
+        n1 = torch.linalg.matrix_norm(D1, ord=1)
+        cont = active & (n1 < n0)
+        w = h.gather(2, i[:, None, :].expand(F, M, 1))  # (F, M, 1)
+        wsq = (w.conj() * w).mT
+        D_ = (D1 @ w) / p[:, :, None]
+        h_ = w
+        for _ in range(20):  # h_ = (D_ + H w) / sqrt(1 + H·|w|²), H = |h_|²
+            H = h_.conj() * h_
+            h_ = torch.addcmul(D_, H, w) / torch.sqrt(torch.baddbmm(one, wsq, H))
+        G_ = (h_ @ h_.mH) * p[:, :, None]  # (F, M, M)
+        if off is not None:
+            G_ = G_ * off
+        corr = torch.linalg.vecdot(h, G_ @ h, dim=1).real  # (F, G)
+        map_ = torch.where(cont[:, None], map_ - corr * sf, map_)
+        n0 = torch.where(cont, n1, n0)
+        D1 = torch.where(cont[:, None, None], D1 - sf * G_, D1)
+        active = cont
+    return second.T
+
+
+def clean_sc_deconvolve(
+    map: np.ndarray,
+    csm: np.ndarray,
+    h: np.ndarray,
+    h_H: np.ndarray,
+    maximum_iterations: int,
+    remove_diagonal_csm: bool,
+    safety_factor: float,
+) -> np.ndarray:
+    """CLEAN-SC of one bin on the host, in numpy (`_beamforming.py:194-297`;
+    the JAX package's oracle, `beamforming.py:1621`). ``map`` is modified in
+    place; returns the clean map."""
+    D = np.append(csm[None, ...] * 2, csm[None, ...], axis=0)
+    second_map = np.zeros_like(map)
+    for _ in range(maximum_iterations):
+        maximum_power_ind = int(np.argmax(map))
+        maximum_power = map[maximum_power_ind]
+        second_map[maximum_power_ind] += maximum_power * safety_factor
+        if np.linalg.norm(D[1], ord=1) >= np.linalg.norm(D[0], ord=1):
+            break
+        w_max = h[:, maximum_power_ind]
+        h_ = w_max.copy()
+        w_max_squared = w_max.conjugate() * w_max
+        D_ = D[1] @ w_max / maximum_power
+        for _ in range(20):
+            H = h_.conjugate() * h_
+            h_ = (D_ + H * w_max) / np.sqrt(1 + H @ w_max_squared)
+        G = np.outer(h_, h_.conjugate()) * maximum_power
+        if remove_diagonal_csm:
+            np.fill_diagonal(G, 0)
+        correction = np.einsum("gm,mg->g", h_H @ G, h).real
+        map -= correction * safety_factor
+        temp = D[1].copy()
+        D[1] = D[1] - safety_factor * G
+        D[0] = temp
+    return second_map
+
+
+class BeamformerOrthogonal(BeamformerGridded):
+    """Orthogonal beamforming (Sarradj 2010;
+    `beamforming.py:1010-1125`)."""
+
+    beamformer_type = "Orthogonal (Grid)"
+
+    def get_beamformer_map(
+        self,
+        center_frequency_hz: float,
+        octave_fraction: int = 3,
+        number_eigenvalues: int | None = None,
+    ) -> torch.Tensor:
+        """Each of the CSM's ``number_eigenvalues`` largest eigenvalues
+        (default: half the channels) is put at the grid point where its
+        eigenvector's map ``|h^H v|^2`` peaks. The eigendecomposition is host
+        float64 (the source subspace's argmax is sensitive to perturbations
+        of the eigenvectors); the maps and the scatter run on the device."""
+        if number_eigenvalues is None:
+            number_eigenvalues = self.signal.number_of_channels // 2
+        else:
+            assert (
+                number_eigenvalues <= self.signal.number_of_channels
+            ), "Number of eigenvalues cannot be more than number of microphones"
+            assert number_eigenvalues > 0, (
+                "At least one eigenvalue of the CSM must be regarded"
+            )
+        f, k, csm = self._band_csm(center_frequency_hz, octave_fraction)
+        w, v = np.linalg.eigh(csm.cpu().numpy().astype(np.complex128))
+        E = int(number_eigenvalues)
+        # the E largest eigenpairs, largest first (the reference iterates
+        # from the last, ascending order)
+        v = torch.as_tensor(np.ascontiguousarray(v[:, :, ::-1][:, :, :E]),
+                            dtype=default_complex(), device=csm.device)
+        w = torch.as_tensor(np.ascontiguousarray(w[:, ::-1][:, :E]),
+                            dtype=default_float(), device=csm.device)
+        idx, vals = _orthogonal_picks(self._steering(k), v, w)
+        return self._finish_map(_orthogonal_scatter(idx, vals, self.grid.number_of_points),
+                                f, False)
+
+
+def _orthogonal_picks(h: torch.Tensor, v: torch.Tensor, w: torch.Tensor) -> tuple:
+    """Each eigenvalue's grid point and value, ``(idx, vals)`` of shape
+    ``(F, E)``, for steering ``h (F, M, G)``, eigenvectors ``v (F, M, E)``
+    and eigenvalues ``w (F, E)``, largest first: the argmax over the grid of
+    ``|h^H v|^2`` and the eigenvalue times that maximum. The map runs as
+    one packed-real product: ``(hre - i him)^T (vre + i vim)`` has real part
+    ``[hre|him]·[vre; vim]`` and imaginary part ``[hre|him]·[vim; -vre]``."""
+    E = v.shape[-1]
+    hp = torch.cat([h.real, h.imag], dim=1).transpose(1, 2)  # (F, G, 2M)
+    vre, vim = v.real, v.imag
+    v2 = torch.cat([torch.cat([vre, vim], dim=-1), torch.cat([vim, -vre], dim=-1)],
+                   dim=-2)  # (F, 2M, 2E)
+    t = hp @ v2
+    prod = t[..., :E] ** 2 + t[..., E:] ** 2  # (F, G, E)
+    idx = prod.argmax(dim=1)
+    return idx, prod.gather(1, idx[:, None, :])[:, 0, :] * w
+
+
+def _orthogonal_scatter(idx: torch.Tensor, vals: torch.Tensor, G: int) -> torch.Tensor:
+    """The map ``(G, F)`` with ``vals[f, e]`` at ``idx[f, e]``: the reference
+    overwrites ``map[g, f]`` eigenvalue by eigenvalue, so where several pick
+    one grid point the last (smallest considered) wins; the scatter keeps,
+    per cell, the largest writer."""
+    F, E = idx.shape
+    writer = torch.arange(E, device=idx.device).expand(F, E)
+    last = torch.full((F, G), -1, dtype=writer.dtype, device=idx.device).scatter_reduce(
+        1, idx, writer, reduce="amax")
+    return torch.where(last >= 0, vals.gather(1, last.clamp_min(0)), 0.0).T
+
+
+class BeamformerFunctional(BeamformerGridded):
+    """Functional beamforming (Dougherty 2014;
+    `beamforming.py:1127-1221`)."""
+
+    beamformer_type = "Functional"
+
+    def get_beamformer_map(
+        self,
+        center_frequency_hz: float,
+        octave_fraction: int = 3,
+        gamma: float = 10,
+    ) -> torch.Tensor:
+        """``(h^H C^{1/γ} h / |h|^2)^γ · |h|^2`` over the band, integrated.
+        The matrix power comes from a host float64 SVD (the eigenstructure of
+        a near-rank-deficient CSM is sensitive to precision); the numerator is
+        `_quadratic_map` on it."""
+        f, k, csm = self._band_csm(center_frequency_hz, octave_fraction)
+        u, s, vh = np.linalg.svd(csm.cpu().numpy().astype(np.complex128))
+        csm_pow = torch.as_tensor((u * s[:, None, :] ** (1 / gamma)) @ vh,
+                                  dtype=default_complex(), device=csm.device)
+        amp, diff = self._amp_diff_device()
+        num = _quadratic_map(amp, diff, k, csm_pow)
+        norm = (amp * amp).sum(dim=0)[:, None]  # |h|^2, the same in every bin
+        return self._finish_map((num / norm) ** float(gamma) * norm, f, False)
+
+
+class BeamformerMVDR(BeamformerGridded):
+    """Minimum-variance distortionless response (Capon;
+    `beamforming.py:1223-1315`)."""
+
+    beamformer_type = "MVDR"
+
+    def get_beamformer_map(
+        self,
+        center_frequency_hz: float,
+        octave_fraction: int = 3,
+        gamma: float = 10,
+        solve_on_device: bool = True,
+    ) -> torch.Tensor:
+        """MVDR map ``1 / h^H C^-1 h`` over the band, integrated.
+
+        The default path runs on the device: per-bin diagonal equilibration,
+        diagonal loading and a batched LU solve (`_map_device_loaded`).
+        ``gamma`` is the loading level in dB below each mic's auto-power: the
+        solved matrix is ``C + 10^(-gamma/10)·diag(C)``. The reference
+        accepts ``gamma`` but never uses it and inverts the raw CSM in
+        float64; ``solve_on_device=False`` does that (host float64
+        `np.linalg.inv`, which raises on a singular CSM) and evaluates the
+        quadratic form on C⁻¹ with `_quadratic_map`."""
+        if solve_on_device:
+            f, map_gf = self._map_device_loaded(center_frequency_hz, octave_fraction, gamma)
+            return self._finish_map(map_gf, f, False)
+        f, k, csm = self._band_csm(center_frequency_hz, octave_fraction)
+        csm_1 = torch.as_tensor(np.linalg.inv(csm.cpu().numpy().astype(np.complex128)),
+                                dtype=default_complex(), device=csm.device)
+        amp, diff = self._amp_diff_device()
+        return self._finish_map(1 / _quadratic_map(amp, diff, k, csm_1), f, False)
+
+    def _map_device_loaded(self, center_frequency_hz, octave_fraction, gamma):
+        """``(f, map (G, F))`` of the loaded solve on the device: with ``D =
+        diag(C)`` and ``γ = 10^(-gamma/10)`` the system ``C + γ·D`` is solved
+        as ``D^½ (C̃ + γI) D^½``, ``C̃`` of unit diagonal. A batched LU with
+        partial pivoting, not Cholesky: the CSM stores the element-wise
+        square root of the cross-powers for amplitude scalings, which is
+        Hermitian but indefinite, so no positive-definite factorization
+        exists."""
+        f, k, C = self._band_csm(center_frequency_hz, octave_fraction)
+        d = torch.diagonal(C, dim1=-2, dim2=-1).real  # (F, M)
+        s = torch.rsqrt(d.clamp_min(float(np.finfo(np.float32).tiny)))
+        # two-step scaling: s⊗s overflows float32 when a bin has no energy
+        # (s ~ 1.8e19, s² = inf, 0·inf = NaN); scaling by each factor in
+        # turn stays finite (|C_ij| <= √(d_i d_j))
+        Cn = (C * s[:, :, None]) * s[:, None, :]
+        Cn.diagonal(dim1=-2, dim2=-1).add_(10.0 ** (-gamma / 10.0))
+        hs = self._steering(k) * s[:, :, None]  # (F, M, G)
+        x = torch.linalg.solve(Cn, hs)
+        # h^H (C+γD)^-1 h = (D^-½h)^H (C̃+γI)^-1 (D^-½h); its real part, as
+        # the reference takes .real of the product
+        denom = torch.linalg.vecdot(hs, x, dim=1).real  # (F, G)
+        return f, (1.0 / denom).T
 
 
 def _real_dtype(cdtype: torch.dtype) -> torch.dtype:
@@ -646,6 +990,114 @@ def _monopole_projection_kernel(x, s, h, amp, L, t_out):
     Hs = _delay_filter_response(h, s, L, X.dtype)  # (D, F)
     y = torch.fft.irfft(X[None, :] * Hs, n=L, dim=-1)[:, :t_out]
     return (y * amp[:, None]).T
+
+
+# bytes of the (M, Gc, F) complex response of one grid chunk of the
+# time-domain DAS (a module constant, so that tests can force many chunks)
+_DAS_TIME_CHUNK_BYTES = 64e6
+
+
+def _rfft_rows(x: torch.Tensor, L: int) -> torch.Tensor:
+    """rfft of the mic rows ``(M, T) → (M, F)``, zero-padded to ``L``: one
+    call shared by all grid chunks."""
+    return torch.fft.rfft(x, n=L, dim=-1)
+
+
+def _das_time_chunk(X, s, h, w, L: int, t_out: int) -> torch.Tensor:
+    """Delay-and-sum over one grid chunk, in the frequency domain:
+    ``y[g, t] = Σ_m w[m, g] (h[m, g] ∗ x_m)[t - s[m, g]]`` as one response
+    build per (mic, point), one product summed over the mics and one batched
+    inverse FFT. ``X (M, F) = rfft(x, L)``; ``s, w (M, Gc)``; ``h (M, Gc,
+    K)``. Returns ``(Gc, t_out)``."""
+    Hs = _delay_filter_response(h, s, L, X.dtype)  # (M, Gc, F)
+    Y = torch.einsum("mgf,mf->gf", w.to(X.dtype)[..., None] * Hs, X)
+    return torch.fft.irfft(Y, n=L, dim=-1)[:, :t_out]
+
+
+def _das_time_finish(parts, n_keep: int) -> torch.Tensor:
+    """The grid chunks concatenated, the last chunk's padding dropped,
+    transposed to ``(T, G)``."""
+    return torch.cat(parts, dim=0)[:n_keep].T
+
+
+class BeamformerDASTime(BaseBeamformer):
+    """Time-domain delay-and-sum (`beamforming.py:1317-1395`)."""
+
+    def __init__(
+        self,
+        multi_channel_signal: Signal,
+        mic_array: MicArray,
+        grid: Grid,
+        c: float = 343,
+    ):
+        super().__init__(multi_channel_signal, mic_array, c)
+        assert issubclass(type(grid), Grid), "grid should be a Grid object"
+        self.grid = grid
+        self.beamformer_type = "Delay-and-sum (Time)"
+
+    def get_beamformer_output(self) -> Signal:
+        """The signal steered at each grid point, ``(T + longest delay, G)``,
+        on the signal's device: every (point, mic) pair gets the same
+        Kaiser-sinc fractional-delay FIR as the reference's per-channel
+        `fractional_delay`, weighted by the mic's distance over the mic
+        count, and the mics are summed. One batched frequency-domain program
+        per grid chunk of `_DAS_TIME_CHUNK_BYTES` of response.
+
+        The delay's phase ramp is formed as ``s·f`` in the default float
+        (`_delay_filter_response`), exact while the product of the integer
+        delay and the bin index stays below 2^24 in float32."""
+        from ..ops.fft_conv import next_fast_len
+        from ..standard.backend import fractional_delay_filter_batch
+
+        ds = self.mics.get_distances_to_point(self.grid.coordinates)
+        if ds.ndim == 1:
+            ds = ds[:, None]
+        fs = self.signal.sampling_rate_hz
+        min_distance = np.min(ds)
+        r0 = np.max(ds)
+        longest_delay = int((r0 - min_distance) / self.c * fs + 2)
+        td = self.signal.time_data  # (T, M)
+        T = td.shape[0]
+        total_length = T + longest_delay
+        M, G = ds.shape
+        dt = default_float()
+        # geometry-keyed cache of the designed chunk tensors: repeated
+        # outputs over the same (mics, grid) skip the Kaiser-sinc design and
+        # the uploads
+        key = (
+            hash(np.ascontiguousarray(ds).tobytes()),
+            float(self.c), int(fs), int(T), dt, td.device,
+        )
+        cached = getattr(self, "_das_time_cache", None)
+        if cached is None or cached[0] != key:
+            s, h = fractional_delay_filter_batch(((r0 - ds) / self.c * fs).ravel(), 30, 60)
+            N = h.shape[1]
+            s = s.reshape(M, G)
+            h = h.reshape(M, G, N)
+            # the reference's weighting: each delayed channel is scaled by
+            # its distance, the sum divided by the mic count
+            w = ds / M  # (M, G)
+            L = next_fast_len(total_length + int(max(0, s.max())) + N + 16, real=True)
+            bytes_per_point = M * (L // 2 + 1) * 8
+            g_chunk = int(max(1, min(G, _DAS_TIME_CHUNK_BYTES // max(1, bytes_per_point))))
+            chunks = []
+            for lo in range(0, G, g_chunk):
+                hi = min(G, lo + g_chunk)
+                pad = g_chunk - (hi - lo)
+
+                def part(a, dtype):
+                    widths = ((0, 0), (0, pad)) + ((0, 0),) * (a.ndim - 2)
+                    return torch.as_tensor(np.pad(a[:, lo:hi], widths, mode="edge"),
+                                           dtype=dtype, device=td.device)
+
+                chunks.append((part(s, torch.int64), part(h, dt), part(w, dt)))
+            cached = (key, L, chunks)
+            self._das_time_cache = cached
+        _, L, chunks = cached
+        X = _rfft_rows(td.T, L)  # (M, F)
+        outs = [_das_time_chunk(X, s_c, h_c, w_c, L, total_length)
+                for s_c, h_c, w_c in chunks]
+        return self.signal.copy_with_new_time_data(_das_time_finish(outs, G))
 
 
 class MonopoleSource:

@@ -8,7 +8,11 @@ the public API (the JAX package's config 5, `tools/bench_suite.py:328-356`).
 - one white-noise monopole at the grid point nearest ``[0.1, -0.1, 0.5]``,
   projected onto the array with `MonopoleSource.get_signals_on_array`;
 - `BeamformerDASFrequency(...).get_beamformer_map(2000, 3)` with
-  ``TrueLocation`` steering.
+  ``TrueLocation`` steering, and the same map from `BeamformerMVDR` (its
+  loaded default and, on the recording plus independent sensor noise of
+  σ = 1e-3, its reference form), `BeamformerFunctional`,
+  `BeamformerCleanSC` and `BeamformerOrthogonal` (`map_calls`);
+  `BeamformerDASTime` steers the recording at every grid point.
 
 Used by ``chip_smoke.py`` and `tools.profile_chain`.
 """
@@ -19,7 +23,12 @@ import numpy as np
 import torch
 
 from ..beamforming import (
+    BeamformerCleanSC,
     BeamformerDASFrequency,
+    BeamformerDASTime,
+    BeamformerFunctional,
+    BeamformerMVDR,
+    BeamformerOrthogonal,
     MicArray,
     MonopoleSource,
     Regular2DGrid,
@@ -33,6 +42,15 @@ SIDE = 8
 CENTER_HZ = 2000
 OCTAVE_FRACTION = 3
 SOURCE_NEAR = (0.1, -0.1, 0.5)
+SENSOR_NOISE = 1e-3
+# the frequency-domain beamformers of config 5 by name
+KINDS = {
+    "das": BeamformerDASFrequency,
+    "mvdr": BeamformerMVDR,
+    "functional": BeamformerFunctional,
+    "clean_sc": BeamformerCleanSC,
+    "orthogonal": BeamformerOrthogonal,
+}
 
 
 def planar_array() -> MicArray:
@@ -60,10 +78,45 @@ def array_signal(seconds: float, fs: int, device, g: Regular2DGrid, seed: int = 
     return src.get_signals_on_array(planar_array())
 
 
-def beamformer(signal: Signal, g: Regular2DGrid) -> BeamformerDASFrequency:
-    return BeamformerDASFrequency(
+def with_sensor_noise(signal: Signal, sigma: float = SENSOR_NOISE, seed: int = 1) -> Signal:
+    """``signal`` plus independent white noise of standard deviation
+    ``sigma`` in every channel (seeded numpy), on the signal's device: a CSM
+    that MVDR's unloaded reference form can invert."""
+    td = signal.time_data
+    noise = np.random.default_rng(seed).normal(0.0, sigma, tuple(td.shape))
+    return signal.copy_with_new_time_data(
+        td + torch.as_tensor(noise, dtype=td.dtype, device=td.device))
+
+
+def beamformer(signal: Signal, g: Regular2DGrid, kind: str = "das"):
+    """A beamformer of `KINDS` on `planar_array` with ``TrueLocation``
+    steering."""
+    return KINDS[kind](
         signal, planar_array(), g, SteeringVector(SteeringVectorType.TrueLocation)
     )
+
+
+def time_beamformer(signal: Signal, g: Regular2DGrid) -> BeamformerDASTime:
+    return BeamformerDASTime(signal, planar_array(), g)
+
+
+def map_calls(signal: Signal, g: Regular2DGrid, noisy: Signal) -> dict:
+    """The config-5 maps at `CENTER_HZ`, `OCTAVE_FRACTION` as calls without
+    arguments, by name: DAS, MVDR (loaded), MVDR's reference form on
+    ``noisy`` (`with_sensor_noise`), Functional, CLEAN-SC and Orthogonal,
+    each with its defaults. Each call reuses its beamformer, so the
+    steering factors and the CSM stay cached between calls."""
+    b = {kind: beamformer(signal, g, kind) for kind in KINDS}
+    mvdr_noisy = beamformer(noisy, g, "mvdr")
+    band = (CENTER_HZ, OCTAVE_FRACTION)
+    return {
+        "das": lambda: b["das"].get_beamformer_map(*band),
+        "mvdr": lambda: b["mvdr"].get_beamformer_map(*band),
+        "mvdr_reference": lambda: mvdr_noisy.get_beamformer_map(*band, solve_on_device=False),
+        "functional": lambda: b["functional"].get_beamformer_map(*band),
+        "clean_sc": lambda: b["clean_sc"].get_beamformer_map(*band),
+        "orthogonal": lambda: b["orthogonal"].get_beamformer_map(*band),
+    }
 
 
 def peak_position(beam_map: torch.Tensor, g: Regular2DGrid) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das tf fb ra c2 | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf fb ra c2 | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -17,6 +17,13 @@ the full sweep (513 bins), and the acoustic-camera map
 (`tools.camera`, 64 mics, 900 points, 2 kHz third octave) on a 0.5 s ×
 16 kHz and a 10 s × 48 kHz recording: the map with the CSM cached, and CSM +
 map, each through the kernels and on the plain paths.
+
+``bf``: every config-5 map of the acoustic camera (`tools.camera.map_calls`:
+DAS, MVDR loaded and in its reference form on the recording plus sensor
+noise, Functional, CLEAN-SC, Orthogonal) on the 0.5 s × 16 kHz and the 10 s
+× 48 kHz recording, the CSM cached, through the kernels and on the plain
+paths; `BeamformerDASTime` on the 0.5 s recording at grid chunks of 64, 256
+and 1024 MB.
 
 ``tf``: the transfer-function measurement path (`tools.measurement`: 16
 mics × 288,000 samples at 48 kHz → IRs → 65,536-sample windows → 1/3-octave
@@ -243,6 +250,38 @@ def profile_das(dev, runs: int) -> None:
         profile_call(f"{label}, CSM + map, plain paths", plain_paths(csm_and_map), runs)
 
 
+def profile_bf(dev, runs: int) -> None:
+    from ..beamforming import beamforming as bfm
+    from . import camera
+
+    g = camera.grid()
+    for seconds, fs in ((0.5, 16000), (10, FS)):
+        sig = camera.array_signal(seconds, fs, dev, g)
+        calls = camera.map_calls(sig, g, camera.with_sensor_noise(sig))
+        label = f"config 5 {seconds} s x {fs} Hz x 64 mics x {g.number_of_points} points"
+        for name, fn in calls.items():
+            # CLEAN-SC's loop takes tens of ms a map: fewer calls
+            n = min(runs, 5) if name == "clean_sc" else runs
+            for mode, call in (("kernels", fn), ("plain paths", plain_paths(fn))):
+                profile_call(f"{label}, {name} (CSM cached), {mode}", call, n,
+                             host_calls=max(n, 5), event_calls=max(n, 5))
+        if seconds != 0.5:
+            continue
+        # DAS-time at grid chunks of 64 MB (the JAX package's budget) and
+        # larger: fewer chunks, fewer launches
+        default = bfm._DAS_TIME_CHUNK_BYTES
+        try:
+            for budget in (64e6, 256e6, 1024e6):
+                bfm._DAS_TIME_CHUNK_BYTES = budget
+                beam = camera.time_beamformer(sig, g)
+                beam.get_beamformer_output()
+                profile_call(f"{label}, das_time, {len(beam._das_time_cache[2])} chunks of "
+                             f"{budget:.3g} B", beam.get_beamformer_output, min(runs, 5),
+                             host_calls=5, event_calls=5)
+        finally:
+            bfm._DAS_TIME_CHUNK_BYTES = default
+
+
 def profile_tf(dev, runs: int) -> None:
     from ..ops import banded, cuda_banded
     from ..standard.enums import Window
@@ -382,8 +421,8 @@ def profile_c2(dev, runs: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "tf", "fb", "ra", "c2", "all"), nargs="+",
-                    default=["all"])
+    ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "fb", "ra", "c2", "all"),
+                    nargs="+", default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_chain: needs a CUDA device", file=sys.stderr)
@@ -402,9 +441,12 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = {"chain", "das", "tf", "fb", "ra", "c2"} if "all" in args.case else set(args.case)
+    cases = ({"chain", "das", "bf", "tf", "fb", "ra", "c2"} if "all" in args.case
+             else set(args.case))
     if "das" in cases:
         profile_das(dev, args.runs)
+    if "bf" in cases:
+        profile_bf(dev, args.runs)
     if "tf" in cases:
         profile_tf(dev, args.runs)
     if "fb" in cases:

@@ -317,6 +317,94 @@ def test_das_public_map_on_card_matches_cpu(dev):
     assert _rel(got, maps["cpu"]) <= 1e-4
 
 
+def _camera_scene(where):
+    """A 5 × 5 array at 0.25 m, 64 grid points, 1.5 s of a seeded noise
+    monopole plus independent sensor noise (σ = 1e-3), on ``where``."""
+    x = np.arange(5) * 0.25
+    xx, yy = np.meshgrid(x, x, indexing="ij")
+    ma = bf.MicArray(dict(x=xx.flatten(), y=yy.flatten(), z=np.zeros(25)))
+    line = np.arange(-0.2, 0.2, 0.05)
+    g = bf.Regular2DGrid(line, line, ["x", "y"], value3=0.5)
+    noise = (0.3 * np.random.default_rng(11).standard_normal(24000)).astype(np.float32)
+    sig = bf.MonopoleSource(Signal(None, torch.from_numpy(noise).to(where), 16000),
+                            [0.1, -0.1, 0.5]).get_signals_on_array(ma)
+    sensor = np.random.default_rng(3).normal(0.0, 1e-3, tuple(sig.time_data.shape))
+    sig = sig.copy_with_new_time_data(
+        sig.time_data + torch.as_tensor(sensor, dtype=torch.float32, device=sig.device))
+    return sig, ma, g
+
+
+# each new map: (class, keyword arguments, B5 launches, bound against the CPU)
+NEW_MAPS = {
+    "mvdr": ("BeamformerMVDR", {}, 0, 1e-4),
+    "mvdr_reference": ("BeamformerMVDR", {"solve_on_device": False}, 1, 5e-3),
+    "functional": ("BeamformerFunctional", {}, 1, 5e-3),
+    "clean_sc": ("BeamformerCleanSC", {}, 1, 5e-3),
+    "clean_sc_diagonal_removed": ("BeamformerCleanSC", {"remove_csm_diagonal": True}, 1, 5e-3),
+    "orthogonal": ("BeamformerOrthogonal", {"number_eigenvalues": 1}, 0, 1e-3),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_MAPS))
+def test_new_maps_on_card_match_cpu(dev, name):
+    """Each new map on the card against the same map on the CPU (the plain
+    versions), within the map's bound (scale-relative; Orthogonal at its
+    first eigenvalue: the same argmax, the maximum within rtol 1e-3). MVDR's
+    reference form inverts C, which turns the card's and the CPU's CSMs (a
+    few 1e-8 apart) into maps 1e-1 apart: it is held against the float64
+    form of the card's own CSM. MVDR's reference form, Functional and
+    CLEAN-SC launch B5 once, the loaded MVDR and Orthogonal never."""
+    from scipy.integrate import simpson
+
+    cls, kw, b5, tol = NEW_MAPS[name]
+    maps = {}
+    for where in ("cpu", dev):
+        sig, ma, g = _camera_scene(where)
+        sig.get_csm()
+        beam = getattr(bf, cls)(sig, ma, g, bf.SteeringVector())
+        cuda_das.launches = 0
+        maps[str(where)] = beam.get_beamformer_map(2000, 3, **kw)
+        torch.cuda.synchronize()
+        assert cuda_das.launches == (b5 if where == dev else 0)
+    got, want = maps[str(dev)], maps["cpu"]
+    assert got.is_cuda and got.shape == (8, 8) and bool(torch.isfinite(got).all())
+    if name == "mvdr_reference":
+        f, _, C = beam._band_csm(2000, 3)
+        h = beam.st_vec.get_vector(f * 2 * np.pi / beam.c, g, ma)
+        inv = np.linalg.inv(C.cpu().numpy().astype(np.complex128))
+        den = np.einsum("fmg,fmg->gf", np.conj(h), inv @ h).real
+        want = torch.from_numpy(simpson(1 / den, dx=f[1] - f[0], axis=1).reshape(8, 8))
+    assert int(torch.argmax(got)) == int(torch.argmax(want))
+    if name == "orthogonal":
+        np.testing.assert_allclose(float(got.max()), float(want.max()), rtol=tol)
+    else:
+        assert _rel(got, want) <= tol
+
+
+def test_clean_sc_device_loop_on_card_matches_host_oracle(dev):
+    """CLEAN-SC's batched loop on the card against the host per-bin loop,
+    rtol 1e-3, atol 1e-5 of the maximum."""
+    sig, ma, g = _camera_scene(dev)
+    beam = bf.BeamformerCleanSC(sig, ma, g, bf.SteeringVector())
+    got = beam.get_beamformer_map(2000, 3).cpu().numpy()
+    _config.set_clean_sc_on_device(False)
+    try:
+        want = beam.get_beamformer_map(2000, 3).cpu().numpy()
+    finally:
+        _config.set_clean_sc_on_device(True)
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-5 * np.abs(want).max())
+
+
+def test_das_time_on_card_matches_cpu(dev):
+    outs = {}
+    for where in ("cpu", dev):
+        sig, ma, _ = _camera_scene(where)
+        line = bf.LineGrid(np.arange(-0.3, 0.3, 0.05), "x", -0.1, 0.5)
+        outs[str(where)] = bf.BeamformerDASTime(sig, ma, line).get_beamformer_output().time_data
+    assert outs[str(dev)].is_cuda
+    assert _rel(outs[str(dev)], outs["cpu"]) <= 1e-4
+
+
 def _segment(nb, tr, span, F, dev, rows=None):
     return {"rows": nb * tr if rows is None else rows, "span": span,
             "offsets": torch.from_numpy(

@@ -32,6 +32,8 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch, dsptoolbox_tpu_torch.headline\n"
         "import dsptoolbox_tpu_torch.ops.spectral, dsptoolbox_tpu_torch.ops.iir\n"
         "import dsptoolbox_tpu_torch.beamforming, dsptoolbox_tpu_torch.classes\n"
+        "from dsptoolbox_tpu_torch.beamforming import (BeamformerCleanSC, BeamformerDASTime,\n"
+        "    BeamformerFunctional, BeamformerMVDR, BeamformerOrthogonal)\n"
         "import dsptoolbox_tpu_torch.tools.camera, dsptoolbox_tpu_torch.tools.measurement\n"
         "import dsptoolbox_tpu_torch.transfer_functions, dsptoolbox_tpu_torch.generators\n"
         "import dsptoolbox_tpu_torch.room_acoustics, dsptoolbox_tpu_torch.tools.room_measurement\n"
@@ -275,9 +277,11 @@ def test_default_device_is_cuda_and_numpy_follows_it():
 # the names of the JAX package's `standard` that wait: `spectral_difference`
 # for the Spectrum class's octave smoothing, `load_pkl_object` for `io`
 WAITING = {"spectral_difference", "load_pkl_object"}
+# the port's own exports: the steering factors as tensors on a device
+PORT_ONLY = {"beamforming": {"amp_diff_to_torch"}}
 
 
-@pytest.mark.parametrize("namespace", ["standard", "generators"])
+@pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming"])
 def test_exports_match_the_jax_package(namespace):
     import importlib
 
@@ -285,7 +289,7 @@ def test_exports_match_the_jax_package(namespace):
 
     jax_names = set(importlib.import_module(f"dsptoolbox_tpu.{namespace}").__all__)
     port = importlib.import_module(f"dsptoolbox_tpu_torch.{namespace}")
-    assert set(port.__all__) == jax_names - WAITING
+    assert set(port.__all__) == (jax_names - WAITING) | PORT_ONLY.get(namespace, set())
     for name in port.__all__:
         assert hasattr(port, name), name
     assert dsptoolbox_tpu  # imported only to read the export list
@@ -315,3 +319,30 @@ def test_config2_and_standard_paths_launch_no_kernel_on_cpu_tensors():
     assert C.device.type == "cpu" and y.device.type == "cpu"
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
+
+
+def test_new_beamformers_launch_no_kernel_on_cpu_tensors():
+    """The config-5 maps (`camera.map_calls`: MVDR in both forms, Functional,
+    CLEAN-SC, Orthogonal, DAS) and the time-domain DAS on CPU tensors: the
+    plain versions, no launch; under the DAS kernel's "on" the maps that
+    reach it raise."""
+    cuda_framing.launches = 0
+    cuda_das.launches = 0
+    line = np.arange(-0.3, 0.3, 0.1)
+    g = camera.Regular2DGrid(line, line, ["x", "y"], value3=0.5)
+    sig = camera.array_signal(0.1, 16000, "cpu", g)
+    calls = camera.map_calls(sig, g, camera.with_sensor_noise(sig))
+    for name, fn in calls.items():
+        m = fn()
+        assert m.shape == (6, 6) and m.device.type == "cpu", name
+    out = camera.time_beamformer(sig, g).get_beamformer_output()
+    assert out.number_of_channels == 36 and out.device.type == "cpu"
+    assert cuda_framing.launches == 0
+    assert cuda_das.launches == 0
+    _config.set_das_kernel("on")
+    try:
+        for name in ("das", "mvdr_reference", "functional", "clean_sc"):
+            with pytest.raises(ValueError, match="CUDA"):
+                calls[name]()
+    finally:
+        _config.set_das_kernel("auto")
