@@ -78,7 +78,15 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   activity detector with a zero-phase pre-filter (B2) and the envelope,
   counted, B2's outputs against the plain paths and scipy float64, each
   call against the plain paths (the activity mask's flips against a
-  float64 recursion printed), each timed with its device idle share.
+  float64 recursion printed), each timed with its device idle share;
+- the chains of `dsptoolbox_tpu_torch.tools.pipeline_chains` through
+  `pipeline`, each captured into one CUDA graph: config 2 at both sizes
+  (B1), the transfer-function measurement (B4), config 3 with its amplitude
+  constraint (B3) and the four crossover bands as `Filter`s (B2): the
+  kernels launched while capturing, the replay against the eager run (2e-5
+  scale-relative, TF 1e-4), a second call on other inputs, ``fn`` run at
+  most twice, a chain reading a value back raising, eager and replay timed
+  in turns with their idle shares and the graph pool's size.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -1654,6 +1662,113 @@ def config5_phase(dev, card: str) -> dict:
             "times": times}
 
 
+def pipeline_phase(dev, card: str) -> dict:
+    """`pipeline` on the chains of `tools/pipeline_chains.py`: config 2 at 1
+    × 4 s and 16 × 60 s (B1), the transfer-function measurement (B4), config
+    3 with its amplitude constraint (B3) and the four crossover bands as
+    `Filter`s (B2), each captured into one CUDA graph on its first call. For
+    each chain: the kernels launched while capturing (every count set to 0
+    just before the capture and read just after it; a replay runs no
+    Python), the first replay against the eager run (2e-5 scale-relative;
+    TF 1e-4: the in-program regularization window's ±1-bin flank), a call
+    on other inputs against its own eager run and leaving the first call's
+    results unchanged, ``fn`` run at most twice over all the calls, and a
+    chain that reads a value back (``float(sig.time_data.max())``) raising
+    at that line while it is captured; eager and replay timed in turns
+    (CUDA events, median of `N_TIMED`), each one's device idle share
+    (`tools.profile_chain.profile_call`) and the graph pool's size. Returns
+    the launches by kernel and the times."""
+    import torch
+
+    from dsptoolbox_tpu_torch import pipeline
+    from dsptoolbox_tpu_torch.tools import pipeline_chains as pc
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    modules = counted_modules()
+    launches = {name: 0 for name in modules}
+    times = []
+    for ch in pc.chains(dev):
+        label = f"pipeline {ch.name}"
+        ins = ch.inputs(0)
+        calls = {"fn": 0, "capture": None}
+
+        def counted(*sigs, fn=ch.fn, calls=calls):
+            calls["fn"] += 1
+            capturing = torch.cuda.is_current_stream_capturing()
+            if capturing:
+                for m in modules.values():
+                    m.launches = 0
+            out = fn(*sigs)
+            if capturing:
+                calls["capture"] = {name: m.launches for name, m in modules.items()}
+            return out
+
+        run = pipeline(counted)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = pc.leaves(run(*ins))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        captured = calls["capture"]
+        print(f"{label}: warm-up, capture and first replay {setup_s:.2f} s; launches while "
+              f"capturing {captured}")
+        if captured is None or not all(captured[k] > 0 for k in ch.kernels):
+            fail(f"{label}: the capture did not launch {ch.kernels}")
+        for k, v in captured.items():
+            launches[k] += v
+        want = pc.leaves(ch.fn(*ins))
+        if [tuple(t.shape) for t in first] != [tuple(t.shape) for t in want]:
+            fail(f"{label}: the replay's outputs have other shapes than the eager run's")
+        if not all(bool(torch.isfinite(t).all()) for t in first):
+            fail(f"{label}: non-finite replay output")
+        err = max(rel_err(a, b) for a, b in zip(first, want))
+        del want
+        snap = [t.clone() for t in first]
+        other = ch.inputs(1)
+        second = pc.leaves(run(*other))
+        err2 = max(rel_err(a, b) for a, b in zip(second, pc.leaves(ch.fn(*other))))
+        kept = all(torch.equal(a, b) for a, b in zip(first, snap))
+        print(f"{label}: {len(first)} outputs; replay vs eager scale-rel {err:.3e}, other "
+              f"inputs {err2:.3e} (tol {ch.tol:g}); first results unchanged by the second "
+              f"call: {kept}")
+        if not (err <= ch.tol and err2 <= ch.tol):
+            fail(f"{label}: the replay disagrees with the eager run")
+        if not kept:
+            fail(f"{label}: a later call changed an earlier call's results")
+        del first, snap, second, other
+        e_ms, r_ms = time_pair(lambda: ch.fn(*ins), lambda: run(*ins))
+        few = dict(runs=5, host_calls=5, event_calls=5, warm=1)
+        e_idle = profile_call(f"{label}: eager", lambda: ch.fn(*ins), **few)["idle"]
+        r_idle = profile_call(f"{label}: replay", lambda: run(*ins), **few)["idle"]
+        pool_mb = run.graph_pool_bytes() / 2**20
+        if calls["fn"] > 2:
+            fail(f"{label}: fn ran {calls['fn']} times")
+        print(f"time {label} [{card}]: eager {e_ms:.4f} ms "
+              f"({ch.audio_s / (e_ms * 1e-3):.1f} audio-s/s, idle {e_idle:.3f}), replay "
+              f"{r_ms:.4f} ms ({ch.audio_s / (r_ms * 1e-3):.1f} audio-s/s, idle "
+              f"{r_idle:.3f}); graph pool {pool_mb:.1f} MB; fn ran {calls['fn']} times")
+        times.append({"chain": ch.name, "eager_ms": e_ms, "replay_ms": r_ms,
+                      "eager_idle": e_idle, "replay_idle": r_idle, "pool_mb": pool_mb,
+                      "captured": captured})
+
+        def unsafe(*sigs, fn=ch.fn):
+            float(sigs[0].time_data.max())
+            return fn(*sigs)
+
+        try:
+            pipeline(unsafe)(*ins)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail(f"{label}: a chain that reads a value back was captured")
+        print(f"{label}: a chain that reads a value back raises: {msg[:300]}")
+        if "float(sigs[0].time_data.max())" not in msg:
+            fail(f"{label}: the capture's error does not name the host read")
+        del run, ins
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -2094,6 +2209,15 @@ def main() -> int:
     c2 = config2_phase(dev, card)
     std = standard_phase(dev, c2.pop("minute"), card)
 
+    # 26. the chains through `pipeline`, each captured into one CUDA graph:
+    # config 2 (B1), the TF path (B4), config 3 (B3), the crossover bands (B2)
+    pl = pipeline_phase(dev, card)
+    pl_launches = pl["launches"]
+    b4["launches_by_path"] = {"tf": b4["launches"], "pipeline": pl_launches["banded"]}
+    b4["launches"] += pl_launches["banded"]
+    b3["launches_by_path"]["pipeline"] = pl_launches["iir_bank"]
+    b3["launches"] += pl_launches["iir_bank"]
+
     # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
     # band: x·H in fp32, H lower-triangular
     # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
@@ -2121,9 +2245,10 @@ def main() -> int:
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
          "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
-                      + c2["framing"]),
+                      + c2["framing"] + pl_launches["framing"]),
          "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
-                              "config5": c5["framing"], "config2": c2["framing"]},
+                              "config5": c5["framing"], "config2": c2["framing"],
+                              "pipeline": pl_launches["framing"]},
          "max_abs_err": max(b1_err, c2["framing_err"]),
          "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
@@ -2132,9 +2257,10 @@ def main() -> int:
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
-         "launches": launches["iir_lead"] + room["iir_lead"] + std["iir_lead"],
+         "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
+                      + pl_launches["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
-                              "standard": std["iir_lead"]},
+                              "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"]},
          "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
                                  "standard": std["iir_lead_err"]},
@@ -2154,6 +2280,13 @@ def main() -> int:
          "by_path_shape": b5_paths, "at_m160": b5_m160, "config5_times": c5["times"]},
         b4,
     ]}
+    # each kernel's captured chains: eager and replay ms, idle shares, pool
+    by_kernel = {"windowed_frames": "framing", "sosfilt_lead": "iir_lead",
+                 "sosfilt_bank": "iir_bank", "banded_matmul": "banded"}
+    for entry in report["kernels"]:
+        k = by_kernel.get(entry["name"])
+        if k is not None:
+            entry["pipeline_times"] = [t for t in pl["times"] if t["captured"][k] > 0]
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

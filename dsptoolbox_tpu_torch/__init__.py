@@ -13,6 +13,15 @@ Hand-written CUDA kernels replace the JAX package's Pallas kernels
 from ``csrc/`` at first use on a CUDA tensor; a CPU tensor always takes the
 plain PyTorch version, so importing this package needs neither ``nvcc`` nor
 a GPU.
+
+The root mirrors the JAX package's (`dsptoolbox_tpu/__init__.py:16-83`):
+the standard functions and enums, the classes, the ported namespaces,
+`pipeline` (a chain of calls as one CUDA graph) and `compute_all`. Not
+ported yet, so not exported: ``CalibrationData`` (A5), ``load_pkl_object``
+(A5's ``io``), ``spectral_difference`` (A5's ``Spectrum`` smoothing), the
+namespaces ``distances`` and ``effects`` (A11), ``audio_io``, ``plots`` and
+``tools`` (A14; the port's own `tools` package holds its run and
+measurement scripts).
 """
 
 from ._config import (
@@ -27,8 +36,120 @@ from ._config import (
     set_framing_kernel,
     set_iir_kernel,
 )
+from .standard import (
+    activity_detector,
+    append_filterbanks,
+    append_signals,
+    append_spectra,
+    apply_gain,
+    crest_factor,
+    delay,
+    detrend,
+    dither,
+    envelope,
+    fade,
+    fractional_delay,
+    latency,
+    lufs_integrated,
+    merge_filters,
+    modify_signal_length,
+    normalize,
+    pad_trim,
+    resample,
+    resample_filter,
+    rms,
+    trim_with_level_threshold,
+    trim_with_time_selection,
+    true_peak_level,
+    # Enums
+    BiquadEqType,
+    FadeType,
+    FilterBankMode,
+    FilterCoefficientsType,
+    FilterPassType,
+    FrequencySpacing,
+    IirDesignMethod,
+    InterpolationDomain,
+    InterpolationEdgeHandling,
+    InterpolationScheme,
+    MagnitudeNormalization,
+    SpectrumMethod,
+    SpectrumScaling,
+    SpectrumType,
+    Window,
+)
+from .classes import (
+    Filter,
+    FilterBank,
+    ImpulseResponse,
+    MultiBandSignal,
+    Signal,
+    Spectrum,
+)
+
+from . import beamforming
+from . import filterbanks
+from . import generators
+from . import room_acoustics
+from . import transfer_functions
+from . import transforms
+from .pipeline import pipeline
+from ._defer import compute_all
 
 __all__ = [
+    "Signal",
+    "ImpulseResponse",
+    "MultiBandSignal",
+    "Filter",
+    "FilterBank",
+    "Spectrum",
+    "latency",
+    "pad_trim",
+    "trim_with_level_threshold",
+    "trim_with_time_selection",
+    "fade",
+    "modify_signal_length",
+    "append_signals",
+    "pipeline",
+    "compute_all",
+    "append_filterbanks",
+    "append_spectra",
+    "fractional_delay",
+    "delay",
+    "activity_detector",
+    "normalize",
+    "true_peak_level",
+    "lufs_integrated",
+    "crest_factor",
+    "resample",
+    "resample_filter",
+    "detrend",
+    "rms",
+    "envelope",
+    "dither",
+    "apply_gain",
+    "merge_filters",
+    "SpectrumScaling",
+    "SpectrumMethod",
+    "FilterCoefficientsType",
+    "BiquadEqType",
+    "FilterBankMode",
+    "FilterPassType",
+    "IirDesignMethod",
+    "MagnitudeNormalization",
+    "SpectrumType",
+    "InterpolationDomain",
+    "InterpolationScheme",
+    "InterpolationEdgeHandling",
+    "FrequencySpacing",
+    "Window",
+    "FadeType",
+    "transfer_functions",
+    "room_acoustics",
+    "generators",
+    "filterbanks",
+    "transforms",
+    "beamforming",
     "default_complex",
     "default_device",
     "default_float",

@@ -18,11 +18,18 @@ Each hand-written kernel sits behind a switch with three values:
   the plain PyTorch version;
 - ``"on"``: the kernel is required; a CPU tensor raises;
 - ``"off"``: always the plain PyTorch version.
+
+`in_pipeline` tells the class layer that a `pipeline` runner is running its
+function (`pipeline_context`): the paths that would read a value back to
+the host keep it on the device instead. `device_cache` caches the builders
+of device constants and keeps what they hand out alive while a graph that
+reads it is captured (`retain`).
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
+from functools import lru_cache, wraps
 
 import torch
 
@@ -175,3 +182,61 @@ def use_kernel(mode: str, x: torch.Tensor) -> bool:
             f"{x.device}; move it to a CUDA device or use 'auto'"
         )
     return False
+
+
+_PIPELINE = 0
+_RETAINED: list | None = None
+
+
+def in_pipeline() -> bool:
+    """Whether a `pipeline` runner is running its function (its warm-up and
+    capture on a CUDA device, every call on the CPU). The class layer then
+    keeps its host reads on the device, as the JAX package does under a
+    trace: a signal's amplitude constraint runs in-program, a filter bank's
+    peaks and `spectral_deconvolve`'s automatic regularization range stay
+    device tensors."""
+    return _PIPELINE > 0
+
+
+@contextmanager
+def pipeline_context(retained: list | None = None):
+    """`in_pipeline` is true inside the block. ``retained``: the list that
+    `retain` appends to inside it (the device constants a captured graph
+    reads); the enclosing one is restored after the block."""
+    global _PIPELINE, _RETAINED
+    saved = _RETAINED
+    _PIPELINE += 1
+    if retained is not None:
+        _RETAINED = retained
+    try:
+        yield
+    finally:
+        _PIPELINE -= 1
+        _RETAINED = saved
+
+
+def retain(obj):
+    """``obj``, kept alive as long as the CUDA graph being captured (if
+    any): the graph reads device constants by address, so one that a cache
+    drops later must not be freed while the graph can replay."""
+    if _RETAINED is not None:
+        _RETAINED.append(obj)
+    return obj
+
+
+def device_cache(maxsize: int):
+    """`functools.lru_cache` for a builder of device constants whose every
+    result, cached or new, also goes through `retain`."""
+
+    def wrap(fn):
+        cached = lru_cache(maxsize=maxsize)(fn)
+
+        @wraps(fn)
+        def get(*args):
+            return retain(cached(*args))
+
+        get.cache_clear = cached.cache_clear
+        get.cache_info = cached.cache_info
+        return get
+
+    return wrap

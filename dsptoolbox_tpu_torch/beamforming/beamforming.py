@@ -25,13 +25,12 @@ Not ported: the plots and the mesh-parallel map.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
-from .._config import clean_sc_on_device, default_complex, default_float
+from .._config import clean_sc_on_device, default_complex, default_float, device_cache
 from ..classes import Signal
 from ..helpers.other import (
     find_nearest_points_index_in_vector,
@@ -423,7 +422,7 @@ def _simpson_uniform(y: np.ndarray, dx: float, axis: int = -1) -> np.ndarray:
     return simpson(y, dx=dx, axis=axis)
 
 
-@lru_cache(maxsize=64)
+@device_cache(64)
 def _simpson_weights(n: int, dx: float, dtype, device) -> torch.Tensor:
     """Exact weight vector of `scipy.integrate.simpson` over ``n`` uniform
     samples (its result on identity rows), on ``device``: the rule is

@@ -19,6 +19,7 @@ from copy import deepcopy
 import numpy as np
 import torch
 
+from .._config import in_pipeline
 from ..ops.iir_block import bank_device_operators, sosfilt_bank_apply_planes, stack_sos_bank
 from .._enums import FilterBankMode
 from .filter import Filter
@@ -42,7 +43,8 @@ def _banked_filter_apply(signal: Signal, bank: np.ndarray, summed: bool = False)
     Returns per band ``(real (T, C), imag (T, C) | None, peak)`` (one such
     triple when ``summed``); ``peak`` is ``max(|real|, |imag|)`` when the
     signal constrains its amplitude, from one reduction over all bands and
-    one host sync, else None.
+    one host sync (in a pipeline, `_config.in_pipeline`, no sync: 0-d
+    tensors on the device), else None.
     """
     x = signal._x  # (C, T)
     ops = bank_device_operators(bank, x.shape[-1], x.dtype, x.device)
@@ -54,7 +56,7 @@ def _banked_filter_apply(signal: Signal, bank: np.ndarray, summed: bool = False)
         p = re.abs().amax(dim=(1, 2))
         if im is not None:
             p = torch.maximum(p, im.abs().amax(dim=(1, 2)))
-        peaks = p.tolist()
+        peaks = list(p.unbind()) if in_pipeline() else p.tolist()
     triples = [
         (re[b].T, None if im is None else im[b].T, peaks[b]) for b in range(re.shape[0])
     ]

@@ -34,7 +34,7 @@ from warnings import warn
 import numpy as np
 import torch
 
-from .._config import default_complex, default_device, default_float
+from .._config import default_complex, default_device, default_float, in_pipeline
 from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import csm_from_spectrum, csm_welch, stft, welch
@@ -47,11 +47,12 @@ class DeviceTimeData(NamedTuple):
     output planes: the signal keeps views of them. ``peak``, when given, is
     ``max(|real|, |imag|)``, computed beforehand (a filter bank reduces the
     peaks of all its bands at once), so the amplitude constraint needs no
-    reduction of its own."""
+    reduction of its own: a float, or in a pipeline a 0-d tensor on the
+    data's device (`_config.in_pipeline`)."""
 
     real: torch.Tensor
     imag: torch.Tensor | None = None
-    peak: float | None = None
+    peak: float | torch.Tensor | None = None
 
 
 @lru_cache(maxsize=32)
@@ -147,7 +148,20 @@ class Signal:
             td = self._as_columns(new_time_data)
             td, td_imag = (td.real, td.imag) if td.is_complex() else (td, None)
         self._amplitude_scale_factor = 1.0
-        if self.constrain_amplitude:
+        if self.constrain_amplitude and in_pipeline():
+            # in a pipeline the peak stays on the device: the constraint
+            # runs in-program, ``s = min(1, 1/peak)``, with no warning and
+            # the scale factor left at 1 (`dsptoolbox_tpu/classes/
+            # signal.py:398-410`)
+            if peak is None:
+                peak = td.abs().amax()
+                if td_imag is not None:
+                    peak = torch.maximum(peak, td_imag.abs().amax())
+            s = peak.reciprocal().clamp(max=1.0) if torch.is_tensor(peak) else 1.0 / max(peak, 1.0)
+            td = td * s
+            if td_imag is not None:
+                td_imag = td_imag * s
+        elif self.constrain_amplitude:
             if peak is None:
                 peak_t = td.abs().max()
                 if td_imag is not None:

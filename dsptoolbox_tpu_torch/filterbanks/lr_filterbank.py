@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from scipy.signal import butter, sosfilt_zi
 
+from .._config import retain
 from ..classes.multibandsignal import MultiBandSignal
 from ..classes.signal import Signal
 from ..ops.fft_conv import next_fast_len
@@ -210,7 +211,7 @@ class LRFilterBank:
             spectra.append(cur)
             got = torch.as_tensor(np.stack(spectra).astype(np.complex64), device=device)
             self._responses[key] = got
-        return got
+        return retain(got)
 
     def _split(self, x: torch.Tensor, zero_phase: bool) -> torch.Tensor:
         """The zero-state band split of ``x (C, T)`` → ``(B, C, T)``."""

@@ -6,16 +6,16 @@ around each peak) runs on the host after one fetch of those samples.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
+from .._config import device_cache
 from ..ops.fft_conv import fft_correlate
 
 
-@lru_cache(maxsize=8)
+@device_cache(8)
 def _hilbert_weights(N: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The analytic signal's spectral weights (1, 2, …, 2, 1, 0, …) on
     ``device``, cached: a copy from host memory would wait for the queued

@@ -10,12 +10,13 @@ The anti-alias filter of `resample_poly` is designed on the host with
 
 from __future__ import annotations
 
-from functools import lru_cache
 from math import gcd
 
 import numpy as np
 import torch
 from scipy.fft import next_fast_len as _scipy_next_fast_len
+
+from .._config import device_cache
 
 
 def next_fast_len(n: int, real: bool = True) -> int:
@@ -78,7 +79,7 @@ def upfirdn(h, x: torch.Tensor, up: int = 1, down: int = 1) -> torch.Tensor:
     return y[..., ::down][..., :n_out]
 
 
-@lru_cache(maxsize=32)
+@device_cache(32)
 def _poly_filter(up: int, down: int, beta: float, T: int, dtype: torch.dtype, device):
     """``(h on device, n_pre_remove, n_out)`` of `resample_poly` for a
     signal of length T: designed on the host once and kept on the device,

@@ -15,12 +15,12 @@ and `dsptoolbox/helpers/other.py:181-213` (frame-count convention).
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._config import device_cache
 from .pad_trim import pad_trim_axis
 
 
@@ -123,7 +123,7 @@ def window_envelope(
     return env
 
 
-@lru_cache(maxsize=16)
+@device_cache(16)
 def _device_window_envelope(window: bytes, total_length: int, step: int, n_frames: int,
                             safety_threshold, dtype: torch.dtype, device: torch.device):
     """The window and its window² envelope's divisor on ``device``, cached

@@ -160,7 +160,7 @@ def operators_to_torch(ops: dict, device, dtype: torch.dtype) -> dict:
     return out
 
 
-@lru_cache(maxsize=64)
+@_config.device_cache(64)
 def _device_operators(key: tuple, L: int, dtype: torch.dtype, device: torch.device):
     """`_block_operators` as tensors on ``device`` for a signal of ``dtype``,
     cached so that repeated calls pay the host-to-device copies once."""
@@ -346,7 +346,7 @@ def sosfilt_bank_operators(
     return ops
 
 
-@lru_cache(maxsize=16)
+@_config.device_cache(16)
 def _bank_kernel_stages(key: bytes, shape: tuple, np_dtype: str, T: int, L: int,
                         device: torch.device) -> tuple:
     bank = np.frombuffer(key, dtype=np_dtype).reshape(shape)
@@ -482,7 +482,7 @@ def sosfilt_bank_apply(ops: dict, x: torch.Tensor) -> torch.Tensor:
     return re if im is None else torch.complex(re, im)
 
 
-@lru_cache(maxsize=16)
+@_config.device_cache(16)
 def _bank_device_operators(key: bytes, shape: tuple, np_dtype: str, T: int,
                            dtype: torch.dtype, device: torch.device) -> dict:
     bank = np.frombuffer(key, dtype=np_dtype).reshape(shape)

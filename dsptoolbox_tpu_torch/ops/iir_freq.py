@@ -25,6 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .._config import device_cache
 from .fft_conv import next_fast_len
 
 _DECAY_EPS = 1e-9  # relative tail level the margin must reach
@@ -110,9 +111,15 @@ def sos_freq_response(
 ) -> torch.Tensor:
     """Transfer function of the cascade on the length-``nfft`` DFT grid
     (``(nfft//2+1,)`` for real half-spectrum, ``(nfft,)`` for full),
-    complex64 on ``device``, from host-side pole/zero data."""
+    complex64 on ``device``, from host-side pole/zero data; built once per
+    (cascade, grid, device) and cached (its roots are copied from the host)."""
     sos = np.asarray(sos)
-    gain, zeros, poles = _sos_factors(_key(sos), sos.shape)
+    return _sos_freq_response(_key(sos), sos.shape, int(nfft), bool(full_spectrum), device)
+
+
+@device_cache(64)
+def _sos_freq_response(key: tuple, shape: tuple, nfft: int, full_spectrum: bool, device):
+    gain, zeros, poles = _sos_factors(key, shape)
     F = nfft if full_spectrum else nfft // 2 + 1
     omega = (2.0 * np.pi / nfft) * torch.arange(
         F, dtype=torch.float32, device=device

@@ -12,13 +12,12 @@ the reference are reproduced intentionally and marked with "parity:" comments.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
-from .._config import default_float
+from .._config import default_float, device_cache
 from .._enums import SpectrumScaling, Window
 from .cuda_framing import windowed_frames
 from .windows import check_cola, get_window
@@ -27,7 +26,7 @@ _VALID_WELCH_SIZES = {2**k for k in range(3, 19)}
 _VALID_STFT_SIZES = {2**k for k in range(4, 17)}
 
 
-@lru_cache(maxsize=32)
+@device_cache(32)
 def _device_window(data: bytes, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A float64 host window (as bytes) on ``device``, cached: a copy from
     pageable host memory would wait for all queued device work on every

@@ -11,12 +11,12 @@ packed into bits. Not ported yet: ``spectral_difference`` (it needs the
 
 from __future__ import annotations
 
-from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
+from .._config import device_cache
 from ..classes import Filter, FilterBank, MultiBandSignal, Signal
 from ..helpers.latency import analytic_signal
 from ..helpers.smoothing import get_smoothing_factor_ema
@@ -99,7 +99,7 @@ def activity_detector(
     return detected_sig, others
 
 
-@lru_cache(maxsize=4)
+@device_cache(4)
 def _trend_projector(T: int, polynomial_order: int, dtype: torch.dtype, device):
     """``(V (T, order+1), pinv(V) (order+1, T))`` of the polynomial basis,
     designed in float64 on the host, on ``device`` in ``dtype``."""

@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf fb ra c2 | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf fb ra c2 pipeline | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -50,6 +50,11 @@ RIRs; (c) the image-source fleet's generator (64 pairs, 272 M images).
 functions on the 60 s recording (`speech_chain.standard_calls`: loudness,
 true peak, RMS, crest factor, latencies, the activity detector,
 the envelope), a few calls each.
+
+``pipeline``: each chain of `tools.pipeline_chains` (config 2 at both
+sizes, the TF path, config 3, the four crossover bands as `Filter`s)
+eager and through `pipeline` (one CUDA graph, captured on the first call,
+then replayed), and the graph pool's size.
 
 For each case it prints the device time per kernel and per call, the host
 time per call (calls issued without waiting), the wall time per call, the
@@ -418,10 +423,33 @@ def profile_c2(dev, runs: int) -> None:
                      event_calls=5, warm=1)
 
 
+def profile_pipeline(dev, runs: int) -> None:
+    from .. import pipeline
+    from . import pipeline_chains as pc
+
+    for ch in pc.chains(dev):
+        ins = ch.inputs(0)
+        run = pipeline(ch.fn)
+        t0 = time.perf_counter()
+        run(*ins)
+        torch.cuda.synchronize()
+        print(f"===== pipeline {ch.name}: warm-up, capture and first replay "
+              f"{time.perf_counter() - t0:.3f} s; graph pool "
+              f"{run.graph_pool_bytes() / 2**20:.1f} MB")
+        n = min(runs, 10)
+        profile_call(f"pipeline {ch.name}, eager", lambda: ch.fn(*ins), n, host_calls=n,
+                     event_calls=n)
+        profile_call(f"pipeline {ch.name}, replay", lambda: run(*ins), n, host_calls=n,
+                     event_calls=n)
+        del run, ins
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "fb", "ra", "c2", "all"),
+    ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "fb", "ra", "c2", "pipeline",
+                                       "all"),
                     nargs="+", default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -441,7 +469,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = ({"chain", "das", "bf", "tf", "fb", "ra", "c2"} if "all" in args.case
+    cases = ({"chain", "das", "bf", "tf", "fb", "ra", "c2", "pipeline"} if "all" in args.case
              else set(args.case))
     if "das" in cases:
         profile_das(dev, args.runs)
@@ -455,6 +483,8 @@ def main(argv=None) -> int:
         profile_ra(dev, args.runs)
     if "c2" in cases:
         profile_c2(dev, args.runs)
+    if "pipeline" in cases:
+        profile_pipeline(dev, args.runs)
     if "chain" not in cases:
         return 0
     rng = np.random.default_rng(0)

@@ -14,12 +14,12 @@ package's dense (F×F) operator at ≤ 4096 bins is not ported.
 
 from __future__ import annotations
 
-from functools import lru_cache
 from warnings import warn
 
 import numpy as np
 import torch
 
+from .._config import default_float, device_cache
 from ..helpers.gain_and_level import to_db
 from ..helpers.other import find_nearest_points_index_in_vector, pearson_correlation
 from ..helpers.smoothing import time_smoothing_host
@@ -65,7 +65,43 @@ def regularization_window(
     ) * 10 ** (30 / 20)
 
 
-@lru_cache(maxsize=32)
+def regularization_window_traced(
+    first: torch.Tensor, last: torch.Tensor, n_freqs: int, f0: float, df: float,
+    nyquist_hz: float,
+) -> torch.Tensor:
+    """In-program twin of :func:`regularization_window` for the automatic
+    range (Hann flanks), from the first and last bins above the threshold
+    (0-d tensors on the device) to the scaled inverse window ``(F, 1)``, with
+    no host read (`dsptoolbox_tpu/transfer_functions/_backend.py:69-121`).
+    The Hann half-flanks are written analytically (``sin²``/``cos²`` of the
+    periodic window the host builds with scipy); the frequency grid's
+    arithmetic in the package's float can place a flank ±1 bin off the
+    float64 host build."""
+    dt = default_float()
+    dev = first.device
+    n = torch.arange(n_freqs, device=dev)
+    freqs = f0 + n.to(dt) * df
+    fl = f0 + first.to(dt) * df
+    fh = f0 + last.to(dt) * df
+    targets = torch.stack(
+        [fl / np.sqrt(2.0), fl, fh, torch.clamp(fh * np.sqrt(2.0), max=nyquist_hz)]
+    )
+    i0, i1, i2, i3 = torch.argmin((freqs[None, :] - targets[:, None]).abs(), dim=1)
+    len_low = torch.clamp(i1 - i0, min=1).to(dt)
+    len_high = torch.clamp(i3 - i2, min=1).to(dt)
+    one = torch.ones((), dtype=dt, device=dev)
+    low = torch.sin(torch.pi * (n - i0).to(dt) / (2.0 * len_low)) ** 2
+    low = torch.where(i1 - i0 > 0, low, one)
+    high = torch.cos(torch.pi * (n - i2).to(dt) / (2.0 * len_high)) ** 2
+    high = torch.where(i3 - i2 > 1, high, one)
+    w = torch.where(
+        n < i0, 0.0,
+        torch.where(n < i1, low, torch.where(n < i2, one, torch.where(n < i3, high, 0.0))),
+    )
+    return ((1.0 - w) * 10.0 ** (30.0 / 20.0))[:, None]
+
+
+@device_cache(32)
 def regularization_window_device(
     ssz_t: tuple, n_freqs: int, f0: float, df: float, dtype, device
 ) -> torch.Tensor:
@@ -433,7 +469,7 @@ def _plan_key(frequency_vector, octave_fraction, window_y) -> tuple:
     )
 
 
-@lru_cache(maxsize=4)
+@device_cache(4)
 def device_banded_plan(key: tuple, dtype, device) -> list[dict]:
     """`_banded_smoothing_plan(*key)` on ``device``, cached on the plan's
     key: a second smoothing on the same grid uploads nothing."""

@@ -11,9 +11,9 @@ sweep measurement, from the recording to a smoothed transfer function.
 
 Behavioral reference: `dsptoolbox/transfer_functions/transfer_functions.py`.
 The data stays on its device; the host sees the regularization range (two
-ints fetched from the device) and, by default, `window_ir`'s start
-positions. Not ported yet: the traced deconvolution of ``dsp.pipeline``
-and the rest of the module.
+ints fetched from the device; in a `pipeline` it is computed in-program,
+`_backend.regularization_window_traced`) and, by default, `window_ir`'s
+start positions. Not ported yet: the rest of the module.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .._config import in_pipeline
 from ..classes import ImpulseResponse, Signal, Spectrum
 from ..helpers.other import unwrap
 from ..ops.pad_trim import pad_trim_axis
@@ -77,7 +78,17 @@ def spectral_deconvolve(
     fs_hz = output.sampling_rate_hz
 
     eps = None
-    if apply_regularization:
+    if apply_regularization and start_stop_hz is None and in_pipeline():
+        # in a pipeline the range stays on the device: the first and last
+        # bins above the threshold and their Hann window are computed
+        # in-program (`dsptoolbox_tpu/transfer_functions/
+        # transfer_functions.py:147-175`), channel 0 setting the range
+        first, last = _bins_above_threshold(den[0], threshold_db)
+        eps = bk.regularization_window_traced(
+            first, last, len(freqs_hz), float(freqs_hz[0]),
+            float(freqs_hz[1] - freqs_hz[0]), fs_hz / 2,
+        )
+    elif apply_regularization:
         ssz = start_stop_hz
         if ssz is None:
             # parity: the reference reassigns start_stop_hz inside its
@@ -113,6 +124,16 @@ def spectral_deconvolve(
     return new_sig
 
 
+def _bins_above_threshold(spectrum: torch.Tensor, threshold_db: float) -> tuple:
+    """``(first, last)``: the first and last bin of ``spectrum (F,)`` whose
+    magnitude lies above ``threshold_db`` relative to its peak, as 0-d
+    tensors on the spectrum's device."""
+    mag = spectrum.abs()
+    db = 20.0 * torch.log10(mag.clamp(min=torch.finfo(mag.dtype).tiny))
+    mask = ((db - db.max()) > threshold_db).to(torch.uint8)
+    return torch.argmax(mask), mask.shape[0] - 1 - torch.argmax(mask.flip(0))
+
+
 def regularization_range(
     spectrum: torch.Tensor, freqs_hz: np.ndarray, threshold_db: float
 ) -> list:
@@ -120,12 +141,7 @@ def regularization_range(
     above ``threshold_db`` relative to its peak: the automatic range of
     `spectral_deconvolve`, a reduction on the spectrum's device that brings
     two ints to the host."""
-    mag = spectrum.abs()
-    db = 20.0 * torch.log10(mag.clamp(min=torch.finfo(mag.dtype).tiny))
-    mask = ((db - db.max()) > threshold_db).to(torch.uint8)
-    first = torch.argmax(mask)
-    last = mask.shape[0] - 1 - torch.argmax(mask.flip(0))
-    i0, i1 = torch.stack([first, last]).tolist()
+    i0, i1 = torch.stack(_bins_above_threshold(spectrum, threshold_db)).tolist()
     return [freqs_hz[i0], freqs_hz[i1]]
 
 

@@ -913,3 +913,84 @@ def test_config2_chain_and_standard_on_card_match_cpu(dev):
     assert cuda_iir.launches == b2 + 2
     _, on_cpu = standard.activity_detector(cpu, pre_filter=hp)
     assert np.mean(on_card["signal_indices"] != on_cpu["signal_indices"]) <= 1e-3
+
+
+def _pipeline_case(chain: str, dev, seed: int):
+    """``(fn, inputs, counted kernel module, tolerance)`` of a small chain
+    through `pipeline`: config 2 (B1), the TF path (B4), config 3 with its
+    amplitude constraint (B3), a crossover band as a `Filter` (B2)."""
+    from scipy.signal import fftconvolve
+
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.generators import ChirpType, chirp
+    from dsptoolbox_tpu_torch.tools import filterbank_chain, speech_chain
+    from dsptoolbox_tpu_torch.transfer_functions import spectral_deconvolve, window_ir
+
+    rng = np.random.default_rng(seed)
+    if chain == "config2":
+        return speech_chain.run, (speech_chain.signal(2, 1.0, seed=seed),), cuda_framing, 2e-5
+    if chain == "tf":
+        sweep, _ = chirp(48000, ChirpType.SyncLog, [20, 20000], 1.0, padding_end_seconds=0.25)
+        irs = 1e-3 * rng.standard_normal((4000, 3))
+        irs[rng.integers(50, 400, 3), range(3)] += 1.0
+        x = sweep.time_data[:, 0].double().cpu().numpy()
+        rec = Signal(None, np.stack([fftconvolve(x, irs[:, c])[: len(x)] for c in range(3)],
+                                    axis=1).astype(np.float32), 48000)
+
+        def tf(r, s):
+            ir = spectral_deconvolve(r, s)
+            w, _ = window_ir(ir, 8192, return_device=True)
+            return w, complex_smoothing(w, 3, SmoothingDomain.RealImaginary).spectral_data
+
+        return tf, (rec, sweep), cuda_banded, 1e-4
+    if chain == "fb":
+        lr, gt, third = filterbank_chain.banks()
+        sig = filterbank_chain.signal(0.5, 4, seed=seed, device=dev)
+        sig = Signal(None, sig.time_data, sig.sampling_rate_hz, constrain_amplitude=True)
+        return (lambda s: filterbank_chain.run(s, lr, gt, third)), (sig,), cuda_iir_bank, 2e-5
+    filters = [Filter.from_sos(sos, 48000) for sos in headline.crossover_bank(48000)]
+    x = torch.from_numpy(rng.standard_normal((2, 140000)).astype(np.float32)).to(dev)
+    return (lambda s: tuple(f.filter_signal(s) for f in filters)), (Signal(None, x.T, 48000),), \
+        cuda_iir, 2e-5
+
+
+@pytest.mark.parametrize("chain", ["config2", "tf", "fb", "iir"])
+def test_pipeline_captures_chain_into_one_graph(dev, chain):
+    """`pipeline` on the card: the chain's kernel is launched while the
+    graph is captured, ``fn`` runs twice (warm-up and capture) over three
+    calls, each replay equals the eager run, a call on other inputs leaves
+    the first call's results unchanged, and a chain that reads a value back
+    to the host raises at that line."""
+    import dsptoolbox_tpu_torch as dsp
+    from dsptoolbox_tpu_torch.tools.pipeline_chains import leaves
+
+    fn, ins, kernel, tol = _pipeline_case(chain, dev, 0)
+    _, other, _, _ = _pipeline_case(chain, dev, 1)
+    calls = {"fn": 0, "launched": 0}
+
+    def counted(*sigs):
+        calls["fn"] += 1
+        before = kernel.launches
+        out = fn(*sigs)
+        if torch.cuda.is_current_stream_capturing():
+            calls["launched"] = kernel.launches - before
+        return out
+
+    run = dsp.pipeline(counted)
+    first = leaves(run(*ins))
+    snap = [t.clone() for t in first]
+    second = leaves(run(*other))
+    third = leaves(dsp.compute_all(run(*ins)))
+    assert calls["fn"] == 2 and calls["launched"] > 0
+    for got, want in ((first, leaves(fn(*ins))), (second, leaves(fn(*other))),
+                      (third, leaves(fn(*ins)))):
+        assert len(got) == len(want)
+        assert max(_rel(g, w) for g, w in zip(got, want)) <= tol
+    assert all(torch.equal(a, b) for a, b in zip(first, snap))
+
+    def unsafe(*sigs):
+        float(sigs[0].time_data.max())
+        return fn(*sigs)
+
+    with pytest.raises(RuntimeError, match=r"float\(sigs\[0\]\.time_data\.max\(\)\)"):
+        dsp.pipeline(unsafe)(*ins)
