@@ -44,6 +44,18 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   float64 numpy deconvolution, the float64 host smoothing and the known
   propagation delays; 1/6 octave and the MagnitudePhase and
   EquivalentComplex domains against the float64 host smoothing too;
+- the transfer-function analysis path (`dsptoolbox_tpu_torch.tools.tf_analysis`,
+  on the measurement's IRs): H1, H2 and H3 with their coherence from 10 s of
+  pink noise through the 16 room IRs (B1 counted, two launches a call, and
+  held against its plain version at the path's frames), against the plain
+  paths and float64 scipy; every IR step (trimming, latency, averaging,
+  minimum phase, group delays, windows, frequency-dependent windowing,
+  minimum and linear phase from the smoothed magnitude, IR ↔ FIR, the
+  crossover merge with a dirac through B2, a spectral difference, a smoothed
+  spectrum) against the plain paths, with float64 oracles for the trimming
+  indices, the minimum phase, the group delay and the windowing; Farina's
+  harmonic analysis of a sweep through a polynomial, its harmonic IRs at
+  their times; each step timed;
 - the filter-bank path (`dsptoolbox_tpu_torch.tools.filterbank_chain`,
   config 3: 64 channels × 10 s at 44.1 kHz through an LR crossover, the
   16-band gammatone bank, resampling to fs/3 and the 28-band 1/3-octave
@@ -225,7 +237,8 @@ def time_pair(*fns, n=N_TIMED, warm=3):
 
 def measurement_phase(dev, rng) -> tuple:
     """B4 and the transfer-function measurement path at full width; returns
-    B4's entry of the kernels report and the path's windowed IRs."""
+    B4's entry of the kernels report and the path's ``(IRs, windowed IRs,
+    smoothed Spectrum)``."""
     import numpy as np
     import torch
     from scipy.fft import next_fast_len
@@ -461,7 +474,306 @@ def measurement_phase(dev, rng) -> tuple:
             "replaces": "dsptoolbox_tpu/ops/pallas_banded.py:43",
             "launches": launched["banded"], "max_abs_err": b4_err,
             "ms": b4_ms, "plain_ms": b4_plain, "bound_ms": b4_bound,
-            "bound_by": b4_by, "library_ms": lib_ms}, win
+            "bound_by": b4_by, "library_ms": lib_ms}, (ir, win, sm)
+
+
+def output_leaves(obj) -> list:
+    """The arrays in a call's output, in order: a Signal's time data, a
+    Spectrum's data (and coherence), tensors and numpy arrays, through
+    tuples, lists and dicts."""
+    import numpy as np
+    import torch
+
+    from dsptoolbox_tpu_torch.classes import Signal, Spectrum
+
+    if isinstance(obj, Signal):
+        return [obj.time_data]
+    if isinstance(obj, Spectrum):
+        return [obj.spectral_data] + ([obj.coherence] if obj.has_coherence else [])
+    if isinstance(obj, (tuple, list)):
+        return [leaf for item in obj for leaf in output_leaves(item)]
+    if isinstance(obj, dict):
+        return [leaf for item in obj.values() for leaf in output_leaves(item)]
+    if torch.is_tensor(obj) or isinstance(obj, np.ndarray):
+        return [obj]
+    return [np.asarray(obj)]
+
+
+def np_min_phase_ir(x, padding_factor: int, mag=None):
+    """The real-cepstrum minimum-phase IR of ``x (T, C)`` in float64 numpy
+    (the method of `helpers/minimum_phase.py`), from ``x``'s float64
+    spectrum or from the given magnitude ``(n, C)`` (exact zeros floored
+    at float32's resolution of the channel, as the port floors them)."""
+    import numpy as np
+    from scipy.fft import next_fast_len
+
+    T = x.shape[0]
+    n = next_fast_len(max(T * padding_factor, T), False)
+    if mag is None:
+        mag = np.abs(np.fft.fft(x, n=n, axis=0))
+    else:
+        mag = np.where(mag == 0, mag.max(axis=0) * np.finfo(np.float32).eps, mag)
+    y = np.real(np.fft.ifft(np.log(mag), axis=0))
+    half = n // 2 if n % 2 == 0 else (n + 1) // 2
+    y[1:half] *= 2.0
+    y[half + (n % 2 == 0):] = 0.0
+    return np.real(np.fft.ifft(np.exp(np.fft.fft(y, axis=0)), axis=0))[:T]
+
+
+def tf_analysis_phase(dev, measured: tuple, card: str) -> dict:
+    """The transfer-function analysis path (`tools/tf_analysis.py`) at full
+    width on the measurement phase's IRs ``measured = (ir, windowed,
+    smoothed)``: (a) H1, H2 and H3 with their coherence from 10 s of pink
+    noise through the 16 room IRs (B1 counted: two launches a call), held
+    against the plain paths (2e-5 scale-relative, DC left out: a
+    noise/noise ratio under detrend) and float64 scipy (5e-4 from bin 2);
+    B1 against its plain version at the path's frames; (b) every IR step of
+    `tf_analysis.ir_calls` against the plain paths (2e-5), with trim_ir's
+    indices against the host float64 run, find_ir_latency at the known
+    delays, min_phase_ir against a float64 numpy cepstrum (1e-4), the
+    analytic group delay against scipy's float64 one and the FDW against a
+    float64 direct sum on 64 bins (2e-4); (c) the harmonic analysis of a
+    distorted sweep, its harmonic IRs peaking at `get_harmonic_times`'
+    samples. Each step timed with CUDA events. Returns B1's launches and
+    error on the path and the times."""
+    import numpy as np
+    import torch
+    from scipy.fft import next_fast_len
+    from scipy.signal import csd, welch
+    from scipy.signal import group_delay as scipy_group_delay
+
+    from dsptoolbox_tpu_torch.ops import cuda_framing, cuda_iir
+    from dsptoolbox_tpu_torch.ops.framing import compute_number_frames
+    from dsptoolbox_tpu_torch.ops.windows import get_window
+    from dsptoolbox_tpu_torch.standard.enums import Window
+    from dsptoolbox_tpu_torch.tools import measurement
+    from dsptoolbox_tpu_torch.tools import tf_analysis as tfa
+    from dsptoolbox_tpu_torch.transfer_functions import _backend as bk
+    from dsptoolbox_tpu_torch.transfer_functions import (
+        compute_transfer_function,
+        group_delay,
+        trim_ir,
+    )
+
+    t_phase = time.perf_counter()
+    ir, windowed, smoothed = measured
+    fs = tfa.FS
+    out = {"times": []}
+
+    def timed(label: str, fn, n: int = N_TIMED, plain_too: bool = False,
+              bound_ms: tuple | None = None) -> None:
+        fns = (fn, lambda: plain(fn)) if plain_too else (fn,)
+        ms = time_pair(*fns, n=n, warm=1)
+        line = f"time TF analysis {label}: {ms[0]:.4f} ms"
+        if plain_too:
+            line += f", plain paths {ms[1]:.4f} ms"
+        if bound_ms is not None:
+            line += f", bound {bound_ms[0]:.4f} ms ({bound_ms[1]}, {ms[0] / bound_ms[0]:.0f}×)"
+        print(f"{line} (median of {n}; {card})")
+        out["times"].append({"step": label, "ms": ms[0],
+                             "plain_ms": ms[1] if plain_too else None})
+
+    def held(label: str, got, want, tol: float, skip_bins: int = 0) -> None:
+        gl, wl = output_leaves(got), output_leaves(want)
+        if len(gl) != len(wl):
+            fail(f"{label}: {len(gl)} outputs against {len(wl)}")
+        err = 0.0
+        for g, w in zip(gl, wl):
+            g, w = torch.as_tensor(g).cpu(), torch.as_tensor(w).cpu()
+            if g.shape != w.shape:
+                fail(f"{label}: shape {tuple(g.shape)} against {tuple(w.shape)}")
+            if g.ndim and skip_bins:
+                g, w = g[skip_bins:], w[skip_bins:]
+            if not bool(torch.isfinite(g).all()):
+                fail(f"{label}: non-finite output")
+            err = max(err, rel_err(g, w))
+        print(f"{label} vs plain paths: scale-rel {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            fail(f"{label} disagrees with the plain paths")
+
+    # 27. (a) the dual-channel noise measurement, counted
+    rec, noise = tfa.noise_measurement()
+    torch.cuda.synchronize()
+    step = tfa.WELCH_LENGTH // 2
+    K = compute_number_frames(tfa.WELCH_LENGTH, step, rec.length_samples)[0]
+    label = (f"TF analysis (a) {rec.number_of_channels} ch x {rec.length_samples} samples, "
+             f"Welch {tfa.WELCH_LENGTH} ({K} frames)")
+    est, per_call = {}, {}
+    for mode in tfa.MODES:
+        cuda_framing.launches = 0
+        est[mode.name] = compute_transfer_function(rec, noise, tfa.WELCH_LENGTH, mode)
+        torch.cuda.synchronize()
+        per_call[mode.name] = cuda_framing.launches
+    print(f"{label}: B1 launches a call {per_call} (expected 2)")
+    if not all(per_call.values()):
+        fail("compute_transfer_function did not go through the framing kernel")
+    if any(n != 2 for n in per_call.values()):
+        fail("compute_transfer_function did not frame each signal once")
+    out["framing"] = sum(per_call.values())
+    win = torch.as_tensor(get_window(Window.Hann, tfa.WELCH_LENGTH), dtype=torch.float32,
+                          device=dev)
+    yk = cuda_framing.windowed_frames_cuda(rec._x, win, step, True)
+    yp = cuda_framing.windowed_frames_plain(rec._x, win, step, True)
+    torch.cuda.synchronize()
+    out["framing_err"] = float((yk - yp).abs().max())
+    print(f"B1 framing at (a)'s frames x {tuple(rec._x.shape)} L={tfa.WELCH_LENGTH} "
+          f"step={step} detrend=True: max abs err {out['framing_err']:.3e} (tol 1e-6)")
+    if yk.shape != yp.shape or not out["framing_err"] <= 1e-6:
+        fail("framing kernel disagrees with its plain version at (a)'s frames")
+    del yk, yp
+    ref = plain(lambda: tfa.estimators(rec, noise))
+    for m in est:
+        held(f"{label} {m} and coherence", est[m], ref[m], 2e-5, skip_bins=1)
+    # float64 scipy on the same frames: both signals zero-padded as the
+    # framing pads them; from bin 2, since the reference removes each
+    # frame's mean after the window and scipy before it, which with the
+    # Hann window changes bins 0 and 1 only
+    n_pad = (K - 1) * step + tfa.WELCH_LENGTH
+    x64 = np.pad(noise.time_data[:, 0].double().cpu().numpy(), (0, n_pad - rec.length_samples))
+    y64 = np.pad(rec.time_data.double().cpu().numpy(), ((0, n_pad - rec.length_samples), (0, 0)))
+    kw = dict(fs=fs, window="hann", nperseg=tfa.WELCH_LENGTH, noverlap=step,
+              detrend="constant", axis=0)
+    pxx = welch(x64, **kw)[1][:, None]
+    pyy = welch(y64, **kw)[1]
+    pxy = csd(x64[:, None], y64, **kw)[1]
+    want = {"H1": pxy / pxx, "H2": pyy / np.conj(pxy),
+            "H3": pxy / np.abs(pxy) * np.sqrt(pyy / pxx)}
+    coh64 = np.abs(pxy) ** 2 / pxx / pyy
+    for m, h64 in want.items():
+        e_h = rel_err(est[m].spectral_data[2:], h64[2:])
+        e_c = rel_err(est[m].coherence[2:], coh64[2:])
+        print(f"{label} {m} vs scipy float64: scale-rel {e_h:.3e}, coherence {e_c:.3e} "
+              "(tol 5e-4)")
+        if not (e_h <= 5e-4 and e_c <= 5e-4):
+            fail(f"{m} disagrees with scipy's float64 estimate")
+    print(f"{label}: mean coherence {float(est['H1'].coherence[2:].mean()):.4f}")
+    for mode in tfa.MODES:
+        timed(f"(a) compute_transfer_function {mode.name}",
+              lambda m=mode: compute_transfer_function(rec, noise, tfa.WELCH_LENGTH, m),
+              plain_too=True)
+    del rec, noise, est, ref, x64, y64, pxy, pyy
+
+    # 28. (b) IR analysis on the measurement phase's IRs
+    label = f"TF analysis (b) on {windowed.number_of_channels} x {windowed.length_samples}"
+    trimmed, start, stop = trim_ir(ir)
+    host = ir.time_data.double().cpu().numpy()
+    idx = np.array([bk.trim_ir_indices(host[:, c], fs, 20e-3)[:2]
+                    for c in range(host.shape[1])])
+    print(f"{label}: trim_ir [{start}, {stop}) of {ir.length_samples}; host float64 run "
+          f"[{int(idx[:, 0].min())}, {int(idx[:, 1].max())})")
+    if (start, stop) != (int(idx[:, 0].min()), int(idx[:, 1].max())):
+        fail("trim_ir's indices differ from the host float64 run's")
+    calls = tfa.ir_calls(ir, windowed, smoothed, trimmed)
+    lead_launches = {}
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        cuda_iir.launches = 0
+        got = fn()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        lead_launches[name] = cuda_iir.launches
+        held(f"{label} {name} (first call {first_s:.3f} s)", got, plain(fn), 2e-5)
+    # the crossover merge's zero-phase Linkwitz-Riley bands run the IIR lead
+    # (B2): forward and backward for each band of the IR and of the diracs
+    merges = {k: v for k, v in lead_launches.items() if k.startswith("combine_ir_with_dirac")}
+    print(f"{label}: B2 launches {merges}; elsewhere "
+          f"{sum(lead_launches.values()) - sum(merges.values())}")
+    if not all(merges.values()):
+        fail("combine_ir_with_dirac did not go through the IIR lead kernel")
+    out["iir_lead"] = sum(lead_launches.values())
+    _, delays = measurement.room_irs()
+    lat = calls["find_ir_latency"]()
+    # against the min-phase version the latency falls a sample or so before
+    # the direct sound: the diffuse tail is not minimum phase
+    print(f"{label}: find_ir_latency {np.round(lat, 3).tolist()}, delays {delays.tolist()} "
+          "(tol 2 samples)")
+    if not np.abs(lat - delays).max() <= 2.0:
+        fail("find_ir_latency is not at the propagation delays")
+    # min_phase_ir against the float64 cepstrum of the float32 spectrum's
+    # magnitude (1e-5: the method). Above the sweep the IRs' spectra sit
+    # ~1e-7 below their peaks, under float32's resolution: the float32 FFT
+    # rounds some of those bins to 0 (floored by the port, NaN in the JAX
+    # package: ROADMAP C7) and the rest to noise, whose log moves the
+    # minimum phase; so against the float64 spectrum's cepstrum it is only
+    # printed (CPU: 2.4e-5 on the channels without an exact zero, 3.3e-4 on
+    # the others; the card's FFT rounds otherwise)
+    x64 = windowed.time_data.double().cpu().numpy()
+    n_fft = next_fast_len(windowed.length_samples * tfa.PADDING_FACTOR, False)
+    mag32 = torch.fft.fft(windowed._x, n=n_fft, dim=-1).abs().T.double().cpu().numpy()
+    zeros = (mag32 == 0).sum(axis=0)
+    got = calls["min_phase_ir"]().time_data.double().cpu().numpy()
+    err = rel_err(got, np_min_phase_ir(x64, tfa.PADDING_FACTOR, mag32))
+    want = np_min_phase_ir(x64, tfa.PADDING_FACTOR)
+    by_channel = np.abs(got - want).max(axis=0) / np.abs(want).max()
+    print(f"{label} min_phase_ir vs float64 numpy cepstrum of the float32 magnitude: "
+          f"scale-rel {err:.3e} (tol 1e-5); exact float32 zeros a channel {zeros.tolist()}; "
+          f"vs the float64 spectrum's cepstrum {by_channel[zeros == 0].max():.3e} on the "
+          f"channels without one, {by_channel.max():.3e} on all")
+    if not err <= 1e-5:
+        fail("min_phase_ir disagrees with the float64 cepstrum")
+    f, gd = group_delay(windowed, True, 0, False)
+    sub = slice(1, None, 64)
+    b64 = windowed.time_data.double().cpu().numpy()
+    err = max(rel_err(gd[sub, c], scipy_group_delay([b64[:, c], [1.0]], w=f[sub], fs=fs)[1]
+                      / fs) for c in range(min(4, b64.shape[1])))
+    print(f"{label} analytic group_delay vs scipy float64 (4 channels, every 64th bin): "
+          f"scale-rel {err:.3e} (tol 1e-6)")
+    if not err <= 1e-6:
+        fail("group_delay disagrees with scipy's float64 group delay")
+    fdw = calls["window_frequency_dependent"]()
+    T = trimmed.length_samples
+    bins = np.linspace(1, T // 2, 64).astype(int)
+    td64 = trimmed.time_data.double().cpu().numpy()
+    f_fdw = np.fft.rfftfreq(T, 1 / fs)[1:]
+    alpha = (np.log(1 / float(10 ** (-50.0 / 20)) ** 2) ** 0.5 * (T - 1) / 2
+             / np.round(fs / f_fdw * tfa.FDW_CYCLES).astype(int)) ** 2.0
+    n_rel = np.arange(T)[:, None] - np.abs(td64).argmax(axis=0)[None, :]
+    n = np.arange(T)
+    oracle = np.stack([(np.exp(-0.5 * (n_rel / ((T - 1) / 2)) ** 2 * alpha[k - 1])
+                        * np.exp(-2j * np.pi * k * n / T)[:, None] * td64).sum(0)
+                       for k in bins])
+    err = rel_err(fdw.spectral_data[bins], oracle)
+    print(f"{label} window_frequency_dependent ({T} samples, {len(f_fdw)} bins) vs float64 "
+          f"direct sum on 64 bins: scale-rel {err:.3e} (tol 2e-4)")
+    if not err <= 2e-4:
+        fail("the frequency-dependent window disagrees with the float64 direct sum")
+    # FDW's bound: the IRs read and the spectrum written once; 7 fp32
+    # operations a window product (bins × T × C: the exponent's scale, exp,
+    # the sample, two rotation products) and 10 a (bin, sample) phase
+    C = trimmed.number_of_channels
+    fdw_bound = bound(4 * T * C + 8 * (len(f_fdw) + 1) * C,
+                      7.0 * len(f_fdw) * T * C + 10.0 * len(f_fdw) * T)
+    for name, fn in calls.items():
+        fdw = name == "window_frequency_dependent"
+        timed(f"(b) {name}", fn, n=5 if fdw else N_TIMED, bound_ms=fdw_bound if fdw else None)
+
+    # 29. (c) harmonic distortion
+    rec0, sweep, length_s = tfa.distorted_recording()
+    ir_h, harms, analysis = tfa.harmonic_analysis(rec0, sweep, length_s)
+    torch.cuda.synchronize()
+    label = f"TF analysis (c) sweep {length_s:.4f} s through {tfa.POLYNOMIAL}"
+    held(label, (ir_h, harms, analysis),
+         plain(lambda: tfa.harmonic_analysis(rec0, sweep, length_s)), 2e-5)
+    ts = bk.get_harmonic_times(list(measurement.SWEEP_RANGE_HZ), length_s, tfa.N_HARMONICS + 1)
+    L = ir_h.length_samples
+    time_harm = np.insert(L + (ts * fs + 0.5).astype(int), 0, L)
+    for nh in range(2):  # the polynomial's harmonics: the 2nd and the 3rd
+        min_ind = int(time_harm[nh + 1] - (time_harm[nh + 1] - time_harm[nh + 2]) * 0.05)
+        peak = int(harms[nh].time_data[:, 0].abs().argmax()) + min_ind
+        print(f"{label}: harmonic {nh + 2} peaks at {peak}, get_harmonic_times puts it at "
+              f"{time_harm[nh + 1] + 1} (tol 2 samples)")
+        if abs(peak - (time_harm[nh + 1] + 1)) > 2:
+            fail(f"harmonic {nh + 2} is not at its time")
+    sel = (analysis["thd_percent"].frequency_vector_hz > 100) & (
+        analysis["thd_percent"].frequency_vector_hz < 5000)
+    thd = float(analysis["thd_percent"].spectral_data[torch.as_tensor(sel, device=dev)]
+                .median())
+    print(f"{label}: median THD 100 Hz - 5 kHz {thd:.3f} % (the polynomial's second "
+          "harmonic at -10 dBFS: 0.79 %)")
+    timed("(c) spectral_deconvolve + harmonics + harmonic_distortion_analysis",
+          lambda: tfa.harmonic_analysis(rec0, sweep, length_s), n=5)
+    print(f"TF analysis phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def bank_ragged() -> list:
@@ -2190,7 +2502,11 @@ def main() -> int:
     c5 = config5_phase(dev, card)
 
     # 10-14. the transfer-function measurement path and B4
-    b4, windowed_irs = measurement_phase(dev, rng)
+    b4, measured = measurement_phase(dev, rng)
+    windowed_irs = measured[1]
+    # 27-29. the transfer-function analysis path on the measured IRs (B1)
+    tfa = tf_analysis_phase(dev, measured, card)
+    del measured
 
     # 15-19. the filter-bank path (config 3) and B3
     b3 = filterbank_phase(dev, rng)
@@ -2245,22 +2561,26 @@ def main() -> int:
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
          "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
-                      + c2["framing"] + pl_launches["framing"]),
+                      + c2["framing"] + pl_launches["framing"] + tfa["framing"]),
          "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
                               "config5": c5["framing"], "config2": c2["framing"],
-                              "pipeline": pl_launches["framing"]},
-         "max_abs_err": max(b1_err, c2["framing_err"]),
-         "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"]},
+                              "pipeline": pl_launches["framing"],
+                              "tf_analysis": tfa["framing"]},
+         "max_abs_err": max(b1_err, c2["framing_err"], tfa["framing_err"]),
+         "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"],
+                                 "tf_analysis": tfa["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
-         "by_path_shape": b1_shapes, "config2_times": c2["times"]},
+         "by_path_shape": b1_shapes, "config2_times": c2["times"],
+         "tf_analysis_times": tfa["times"]},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
-                      + pl_launches["iir_lead"]),
+                      + pl_launches["iir_lead"] + tfa["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
-                              "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"]},
+                              "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"],
+                              "tf_analysis": tfa["iir_lead"]},
          "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
                                  "standard": std["iir_lead_err"]},

@@ -18,8 +18,7 @@ The root mirrors the JAX package's (`dsptoolbox_tpu/__init__.py:16-83`):
 the standard functions and enums, the classes, the ported namespaces,
 `pipeline` (a chain of calls as one CUDA graph) and `compute_all`. Not
 ported yet, so not exported: ``CalibrationData`` (A5), ``load_pkl_object``
-(A5's ``io``), ``spectral_difference`` (A5's ``Spectrum`` smoothing), the
-namespaces ``distances`` and ``effects`` (A11), ``audio_io``, ``plots`` and
+(A5's ``io``), the namespaces ``distances`` and ``effects`` (A11), ``audio_io``, ``plots`` and
 ``tools`` (A14; the port's own `tools` package holds its run and
 measurement scripts).
 """
@@ -58,6 +57,7 @@ from .standard import (
     resample,
     resample_filter,
     rms,
+    spectral_difference,
     trim_with_level_threshold,
     trim_with_time_selection,
     true_peak_level,
@@ -125,6 +125,7 @@ __all__ = [
     "resample_filter",
     "detrend",
     "rms",
+    "spectral_difference",
     "envelope",
     "dither",
     "apply_gain",

@@ -3,8 +3,7 @@
 
 Designs and conversions are host numpy/scipy; `filter_signal` runs on the
 signal's device through `filter_helpers`. Not ported yet: the FIR
-designer, ``filter_and_resample_signal``, group delay, metadata, plots and
-saving.
+designer, ``filter_and_resample_signal``, metadata, plots and saving.
 """
 
 from __future__ import annotations
@@ -203,6 +202,9 @@ class Filter:
             return self.sos.shape[0] * 2 - n_first_order
         return max(len(self.ba[0]), len(self.ba[1])) - 1
 
+    def __len__(self):
+        return self.order + 1
+
     # ======== Filtering =====================================================
     def filter_signal(
         self,
@@ -293,6 +295,15 @@ class Filter:
         ir_filt = ImpulseResponse(None, impulse(length_samples), self.sampling_rate_hz,
                                   constrain_amplitude=False, device=device)
         return self.filter_signal(ir_filt, zero_phase=zero_phase)
+
+    def get_group_delay(
+        self, frequency_vector_hz: np.ndarray, in_seconds: bool = True
+    ) -> np.ndarray:
+        """Group delay at the given frequencies, host scipy
+        (`classes/filter.py:512`)."""
+        ba = self.get_coefficients(FilterCoefficientsType.Ba)
+        gd = sig.group_delay(ba, w=frequency_vector_hz, fs=self.sampling_rate_hz)[1]
+        return gd / self.sampling_rate_hz if in_seconds else gd
 
     def get_transfer_function(self, frequency_vector_hz: np.ndarray) -> np.ndarray:
         """Complex transfer function at the given frequencies, host scipy

@@ -116,6 +116,41 @@ def impulse(length_samples: int = 512, delay_samples: int = 0) -> np.ndarray:
     return imp
 
 
+def _eval_descending_poly_ratio_on_arc(cr, c, n_points: int):
+    """``polyval(cr, z) / polyval(c, z)`` for ``z = exp(1j·linspace(0, π,
+    n_points))`` by FFT (`classes/filter_helpers.py:121`): factoring
+    ``z^(L-1)`` out of both descending polynomials leaves ``Σ x[j]·z^(-j)``,
+    which on the grid ``ω_k = 2πk/N`` (``N = 2(n_points-1)``) is the
+    length-N real FFT of ``x`` folded mod N. Two O(N log N) float64 FFTs in
+    place of the reference's O(L·F) ``np.polyval``
+    (`classes/filter_helpers.py:181-189`); host float64."""
+    N = 2 * (n_points - 1)
+
+    def _fold_rfft(x):
+        if len(x) > N:
+            folded = np.zeros(N, dtype=x.dtype)
+            np.add.at(folded, np.arange(len(x)) % N, x)
+        else:
+            folded = x
+        return np.fft.rfft(folded, n=N)[:n_points]
+
+    return _fold_rfft(np.asarray(cr)), _fold_rfft(np.asarray(c))
+
+
+def group_delay_filter(ba, length_samples: int = 512, fs_hz: int = 48000):
+    """``(f, group delay in s)`` of a filter given as ``[b, a]`` on
+    ``length_samples`` points from 0 to Nyquist, by the ramped-coefficient
+    polynomial ratio (`classes/filter_helpers.py:145-158`); host float64."""
+    omega = np.linspace(0, np.pi, length_samples)
+    c = np.convolve(ba[0], np.conjugate(ba[1][::-1]))
+    cr = c * np.arange(len(c))
+    num, denum = _eval_descending_poly_ratio_on_arc(cr, c, length_samples)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        gd = np.real(num / denum) - len(ba[1]) + 1
+    gd[~np.isfinite(gd)] = 0
+    return omega / np.pi * (fs_hz / 2), gd / fs_hz
+
+
 def _channels(signal, channels) -> np.ndarray:
     return np.arange(signal.number_of_channels) if channels is None else np.asarray(channels)
 

@@ -18,10 +18,14 @@ Channels are selected, removed, reordered, summed and appended on the
 device (`get_channels`, `remove_channel`, `swap_channels`,
 `sum_channels`, `add_channel`).
 
+FFT spectra with ``smoothing != 0`` are smoothed in magnitude and
+unwrapped phase by `helpers.smoothing.fractional_octave_smoothing`, and the
+physical-unit scalings go through `helpers.spectrum_utilities.scale_spectrum`
+(with the IR's window where it carries one), on the device.
+
 Not ported yet: reading audio files (``path``), the lazy/deferred host
-returns and the device-spectrum caches of a tunnelled backend, plots, the
-mesh-parallel CSM, and FFT spectra with ``smoothing != 0`` or a
-physical-unit scaling (they raise `NotImplementedError`).
+returns and the device-spectrum caches of a tunnelled backend, plots and
+the mesh-parallel CSM.
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ import numpy as np
 import torch
 
 from .._config import default_complex, default_device, default_float, in_pipeline
+from ..helpers.other import unwrap
+from ..helpers.smoothing import fractional_octave_smoothing
+from ..helpers.spectrum_utilities import scale_spectrum
 from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import csm_from_spectrum, csm_welch, stft, welch
@@ -461,22 +468,31 @@ class Signal:
         real part only, `classes/signal.py:906-911`), at
         ``next_fast_len(T, True)`` when ``pad_to_fast_length`` is set."""
         p = self._spectrum_parameters
-        if p["smoothing"] != 0:
-            raise NotImplementedError(
-                "spectrum smoothing (helpers/smoothing.py) is not ported yet"
-            )
-        if self.spectrum_scaling.has_physical_units():
-            raise NotImplementedError(
-                "physical-unit FFT scalings (spectrum_utilities.scale_spectrum) "
-                "are not ported yet"
-            )
+        scaling = self.spectrum_scaling
         n = (
             next_fast_len(self.length_samples, True)
             if p["pad_to_fast_length"]
             else self.length_samples
         )
-        sp = torch.fft.rfft(self._x, n=n, dim=-1,
-                            norm=self.spectrum_scaling.fft_norm())
+        sp = torch.fft.rfft(self._x, n=n, dim=-1, norm=scaling.fft_norm())
+        if p["smoothing"] != 0 or scaling.has_physical_units():
+            # (`classes/signal.py:810-866`): the magnitude and the unwrapped
+            # phase smoothed along frequency, then the physical scaling of
+            # the backward-normalised spectrum
+            sp = sp.T
+            if p["smoothing"] != 0:
+                mag = fractional_octave_smoothing(sp.abs(), None, p["smoothing"],
+                                                  clip_values=True)
+                ph = fractional_octave_smoothing(unwrap(sp.angle(), dim=0), None,
+                                                 p["smoothing"])
+                sp = torch.polar(mag, ph)
+            if scaling.has_physical_units():
+                window = getattr(self, "window", None)
+                if torch.is_tensor(window):
+                    window = window.cpu().numpy()
+                sp = scale_spectrum(sp, scaling, n, self.sampling_rate_hz,
+                                    None if window is None else np.asarray(window))
+            sp = sp.T
         return rfft_freqs(n, self.sampling_rate_hz), sp
 
     def get_spectrum(self, force_computation: bool = False):

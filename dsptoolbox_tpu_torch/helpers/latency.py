@@ -13,6 +13,7 @@ import torch
 
 from .._config import device_cache
 from ..ops.fft_conv import fft_correlate
+from .spectrum_utilities import wrap_phase
 
 
 @device_cache(8)
@@ -38,11 +39,6 @@ def analytic_signal(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     X = torch.fft.fft(x, dim=dim)
     return torch.fft.ifft(X * _hilbert_weights(N, X.real.dtype, x.device).reshape(shape),
                           dim=dim)
-
-
-def wrap_phase(phase: torch.Tensor) -> torch.Tensor:
-    """Phase wrapped into [-π, π) (`helpers/spectrum_utilities.py:25`)."""
-    return (phase + np.pi) % (2 * np.pi) - np.pi
 
 
 def get_fractional_impulse_peak_index(

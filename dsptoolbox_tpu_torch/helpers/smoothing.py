@@ -1,11 +1,99 @@
-"""Time smoothing on the host (`dsptoolbox_tpu/helpers/smoothing.py`): the
-single-coefficient EMA that the IR trimming and the energy decay curve run
-on 1-D host data. Not ported yet: the spectral smoothing and the device
-``time_smoothing``."""
+"""Fractional-octave and exponential time smoothing
+(`dsptoolbox_tpu/helpers/smoothing.py`).
+
+The fractional-octave smoothing of the reference (`dsptoolbox/helpers/
+smoothing.py:9`, pyfar's method) resamples the data onto a log grid by
+PCHIP, convolves it with a normalized window and resamples it back. The
+grids and the window depend only on the length, so they are built on the
+host; the data runs through gathers and one FFT convolution on its device.
+The single-coefficient EMA that the IR trimming and the energy decay curve
+run on 1-D host data stays host scipy. Not ported yet: the device
+``time_smoothing``.
+"""
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
+import torch
+from scipy.signal import windows as _sw
+
+from .._config import device_cache
+from ..ops.fft_conv import fft_convolve
+from .interpolation import linear_interpolate, pchip_interpolate
+
+
+@lru_cache(maxsize=64)
+def _log_grid(N: int) -> tuple:
+    """The reference's log-frequency grid (`helpers/smoothing.py:60-67`):
+    ``(l1, k_log, beta)`` with ``k_log = N**(l/(N-1))`` and ``beta =
+    log2(k_log[1])``."""
+    l1 = np.arange(N, dtype=np.float64)
+    k_log = N ** (l1 / (N - 1))
+    return l1 + 1.0, k_log, np.log2(k_log[1])
+
+
+def _smoothing_window(n_window: int, window_type="hann", window_vec=None) -> np.ndarray:
+    """The normalized smoothing window (`helpers/smoothing.py:33`); a
+    ``("gauss", alpha)`` type takes the reference's alpha
+    parametrization."""
+    if window_type is not None:
+        assert window_vec is None
+        if isinstance(window_type, tuple) and "gauss" in window_type[0]:
+            sigma = (n_window - 1) / (2 * window_type[1])
+            window_type = ("gaussian", sigma)
+        w = _sw.get_window(window_type, n_window, fftbins=False)
+    else:
+        w = np.asarray(window_vec, dtype=np.float64)
+    return w / w.sum()
+
+
+@device_cache(16)
+def _device_window(data: bytes, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A float64 host window (as bytes) on ``device``, cached."""
+    return torch.as_tensor(np.frombuffer(data, np.float64).copy(), dtype=dtype, device=device)
+
+
+def fractional_octave_smoothing(
+    vector: torch.Tensor,
+    bin_spacing_octaves: float | None = None,
+    num_fractions: int = 3,
+    window_type="hann",
+    window_vec: np.ndarray | None = None,
+    clip_values: bool = False,
+    axis: int = 0,
+) -> torch.Tensor:
+    """1/``num_fractions``-octave smoothing of a real ``vector`` along
+    ``axis`` on its device (`helpers/smoothing.py:46`): PCHIP onto the log
+    grid (for a linear grid, ``bin_spacing_octaves`` None), an edge-padded
+    windowed moving average through `fft_convolve` (``mode="valid"``),
+    linear interpolation back."""
+    vector = torch.movedim(vector, axis, 0)
+    N = vector.shape[0]
+    lin_spaced = bin_spacing_octaves is None
+    if lin_spaced:
+        l1, k_log, beta = _log_grid(N)
+        work = pchip_interpolate(l1, vector, k_log, axis=0)
+    else:
+        beta = bin_spacing_octaves
+        work = vector
+    n_window = int(1 / (num_fractions * beta) + 0.5)
+    n_window += 1 - n_window % 2  # odd
+    window = _smoothing_window(n_window, window_type, window_vec)
+    nh = n_window // 2
+    pad_lo, pad_hi = nh, nh - (1 - n_window % 2)
+    rest = work.shape[1:]
+    padded = torch.cat(
+        [work[:1].expand((pad_lo,) + rest), work, work[-1:].expand((pad_hi,) + rest)], dim=0
+    )
+    w = _device_window(np.asarray(window, np.float64).tobytes(), work.dtype, work.device)
+    smoothed = torch.movedim(fft_convolve(torch.movedim(padded, 0, -1), w, mode="valid"), -1, 0)
+    if lin_spaced:
+        smoothed = linear_interpolate(k_log, smoothed, l1, axis=0)
+    if clip_values:
+        smoothed = smoothed.clamp(min=0)
+    return torch.movedim(smoothed, 0, axis)
 
 
 def get_smoothing_factor_ema(

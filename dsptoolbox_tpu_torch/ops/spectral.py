@@ -99,6 +99,64 @@ def _edge(n: int, values, like: torch.Tensor) -> torch.Tensor:
     return edge
 
 
+def welch_plan(
+    window_length_samples: int, window_type: Window, overlap_percent: float
+) -> tuple[np.ndarray, int]:
+    """``(window, step)`` of a Welch estimate, its arguments checked (and
+    a warning where window and overlap miss the COLA constraint)."""
+    if window_length_samples not in _VALID_WELCH_SIZES:
+        raise ValueError(
+            "Window length should be a power of 2 in [2**3, 2**18], got "
+            f"{window_length_samples}"
+        )
+    if not (0 <= overlap_percent < 100):
+        raise ValueError("overlap_percent must be in [0, 100)")
+    window = get_window(window_type, window_length_samples, symmetric=False)
+    step = window_length_samples - int(overlap_percent / 100 * window_length_samples)
+    if not check_cola(window, step):
+        warn(
+            "Selected window type and overlap do not meet the constant "
+            "overlap and add constraint! Results might be distorted"
+        )
+    return window, step
+
+
+def welch_spectra(
+    x: torch.Tensor, window: np.ndarray, step: int, detrend: bool,
+    scaling: SpectrumScaling,
+) -> torch.Tensor:
+    """The rFFT of each windowed frame of ``x (..., T)``: ``(..., K, F)``,
+    one framing kernel launch on a float32 CUDA tensor."""
+    frames = _windowed_frames(x, window, step, detrend)
+    return torch.fft.rfft(frames, dim=-1, norm=scaling.fft_norm())
+
+
+def welch_average(
+    sp_frames: torch.Tensor,
+    window: np.ndarray,
+    *,
+    sampling_rate_hz: int,
+    average: str,
+    scaling: SpectrumScaling,
+) -> torch.Tensor:
+    """The Welch estimate from per-frame auto- or cross-spectra ``(..., K,
+    F)``: averaged over the frames, scaled and one-sided, square-rooted for
+    the amplitude scalings."""
+    csd = _average_frames(sp_frames, average)
+    if scaling.has_physical_units():
+        # parity: the reference multiplies the *squared* data by the factor
+        # returned for the scaling's own representation (linear for amplitude
+        # scalings) and only then takes the sqrt (`_spectral_methods.py:164-173`)
+        factor = scaling.get_scaling_factor(len(window), sampling_rate_hz, window)
+        csd = csd * factor
+        # one-sided correction: halve DC and Nyquist
+        csd = csd * _edge(csd.shape[-1], (0.5, 0.5), csd)
+    # parity: sqrt applies for every amplitude scaling, incl. bare FFT norms
+    if scaling.is_amplitude_scaling():
+        csd = torch.sqrt(csd)
+    return csd
+
+
 def welch(
     x: torch.Tensor,
     y: torch.Tensor | None = None,
@@ -119,51 +177,16 @@ def welch(
 
     Matches `dsptoolbox/standard/_spectral_methods.py:10-173` numerically.
     """
-    if window_length_samples not in _VALID_WELCH_SIZES:
-        raise ValueError(
-            "Window length should be a power of 2 in [2**3, 2**18], got "
-            f"{window_length_samples}"
-        )
-    if not (0 <= overlap_percent < 100):
-        raise ValueError("overlap_percent must be in [0, 100)")
-
-    window = get_window(window_type, window_length_samples, symmetric=False)
-    overlap = int(overlap_percent / 100 * window_length_samples)
-    step = window_length_samples - overlap
-    if not check_cola(window, step):
-        warn(
-            "Selected window type and overlap do not meet the constant "
-            "overlap and add constraint! Results might be distorted"
-        )
-
-    norm = scaling.fft_norm()
-    x_frames = _windowed_frames(x, window, step, detrend)
+    window, step = welch_plan(window_length_samples, window_type, overlap_percent)
+    X = welch_spectra(x, window, step, detrend, scaling)
     if y is None:
-        sp_frames = torch.fft.rfft(x_frames, dim=-1, norm=norm).abs() ** 2.0
+        sp_frames = X.abs() ** 2.0
     else:
         if x.shape != y.shape:
             raise ValueError("Shapes of x and y do not match")
-        y_frames = _windowed_frames(y, window, step, detrend)
-        sp_frames = torch.conj(
-            torch.fft.rfft(x_frames, dim=-1, norm=norm)
-        ) * torch.fft.rfft(y_frames, dim=-1, norm=norm)
-
-    csd = _average_frames(sp_frames, average)
-
-    if scaling.has_physical_units():
-        # parity: the reference multiplies the *squared* data by the factor
-        # returned for the scaling's own representation (linear for amplitude
-        # scalings) and only then takes the sqrt (`_spectral_methods.py:164-173`)
-        factor = scaling.get_scaling_factor(
-            window_length_samples, sampling_rate_hz, window
-        )
-        csd = csd * factor
-        # one-sided correction: halve DC and Nyquist
-        csd = csd * _edge(csd.shape[-1], (0.5, 0.5), csd)
-    # parity: sqrt applies for every amplitude scaling, incl. bare FFT norms
-    if scaling.is_amplitude_scaling():
-        csd = torch.sqrt(csd)
-    return csd
+        sp_frames = torch.conj(X) * welch_spectra(y, window, step, detrend, scaling)
+    return welch_average(sp_frames, window, sampling_rate_hz=sampling_rate_hz,
+                         average=average, scaling=scaling)
 
 
 def stft(

@@ -1,7 +1,6 @@
 """Standard functions acting on the container classes
-(`dsptoolbox_tpu/standard`). Not ported yet: ``spectral_difference``
-(with the `Spectrum` class's octave smoothing) and ``load_pkl_object``
-(with `io`)."""
+(`dsptoolbox_tpu/standard`). Not ported yet: ``load_pkl_object`` (with
+`io`)."""
 
 from .appending import append_filterbanks, append_signals, append_spectra
 from .enums import (
@@ -31,7 +30,14 @@ from .gain_and_level import (
     true_peak_level,
 )
 from .latency_delay import delay, fractional_delay, latency
-from .other import activity_detector, detrend, dither, envelope, merge_filters
+from .other import (
+    activity_detector,
+    detrend,
+    dither,
+    envelope,
+    merge_filters,
+    spectral_difference,
+)
 from .pad_trim_methods import (
     modify_signal_length,
     pad_trim,
@@ -65,6 +71,7 @@ __all__ = [
     "envelope",
     "dither",
     "merge_filters",
+    "spectral_difference",
     "SpectrumMethod",
     "SpectrumScaling",
     "FilterCoefficientsType",

@@ -4,7 +4,9 @@ Host float64 numpy, copied as they are: the Kaiser-windowed-sinc fractional
 delay filters (the beamforming module's projections and
 `standard.fractional_delay`), and the IEC fractional-octave center
 frequencies of the filter banks. On the data's device: the integer latency
-from the FFT cross-correlation's peak, and the activity detector's mask.
+from the FFT cross-correlation's peak, the activity detector's mask, the
+group delay of a phase response and the minimum phase of a magnitude
+response.
 """
 
 from __future__ import annotations
@@ -13,6 +15,10 @@ import numpy as np
 import torch
 from scipy.special import iv as bessel_first_mod
 
+from ..helpers.gain_and_level import from_db
+from ..helpers.latency import analytic_signal
+from ..helpers.other import unwrap
+from ..helpers.spectrum_utilities import wrap_phase
 from ..ops.fft_conv import fft_correlate
 
 
@@ -235,3 +241,40 @@ def pack_bits(mask: torch.Tensor) -> torch.Tensor:
     bits = torch.cat([mask.to(torch.uint8), mask.new_zeros((-T) % 8, dtype=torch.uint8)])
     weights = (2 ** torch.arange(7, -1, -1, device=mask.device)).to(torch.uint8)
     return (bits.reshape(-1, 8) * weights).sum(dim=1, dtype=torch.uint8)
+
+
+def group_delay_direct(phase: torch.Tensor, delta_f: float = 1, axis: int = 0) -> torch.Tensor:
+    """Group delay ``-dφ/dω`` of a phase response (or of a complex one's
+    angle) by ``np.gradient``'s differences on the unwrapped phase: central
+    inside, one-sided at the edges (`_standard_backend.py:37-64`)."""
+    if phase.is_complex():
+        phase = phase.angle()
+    ph = torch.movedim(unwrap(phase, dim=axis), axis, 0)
+    grad = torch.cat(
+        [(ph[1] - ph[0])[None], (ph[2:] - ph[:-2]) / 2.0, (ph[-1] - ph[-2])[None]], dim=0
+    )
+    grad = torch.movedim(grad, 0, axis)
+    if delta_f != 1:
+        return -grad / delta_f / np.pi / 2
+    return -grad
+
+
+def minimum_phase_from_magnitude(
+    magnitude: torch.Tensor,
+    whole_spectrum: bool = False,
+    unwrapped: bool = True,
+    odd_length: bool = False,
+) -> torch.Tensor:
+    """The minimum phase of a magnitude response (frequency first) from the
+    Hilbert transform of its log, floored at -500 dB of its peak
+    (`_standard_backend.py:66-121`)."""
+    if magnitude.is_complex():
+        magnitude = magnitude.abs()
+    lowest = from_db(-500.0, True) * magnitude.max()
+    log_mag = torch.log(torch.maximum(magnitude, lowest))
+    original_length = magnitude.shape[0]
+    if not whole_spectrum:
+        tail = log_mag[1:] if odd_length else log_mag[1:-1]
+        log_mag = torch.cat([log_mag, tail.flip(0)], dim=0)
+    min_phase = -analytic_signal(log_mag, dim=0).imag[:original_length]
+    return min_phase if unwrapped else wrap_phase(min_phase)

@@ -4,9 +4,9 @@
 The data stays on its device: the activity detector's pre-filter (zero
 phase: kernel B2 twice on a float32 CUDA signal), its mask and the
 selection of the active samples run there, and only the mask is fetched,
-packed into bits. Not ported yet: ``spectral_difference`` (it needs the
-`Spectrum` class's octave smoothing and energy) and ``load_pkl_object``
-(with `io`).
+packed into bits. ``spectral_difference`` divides two spectra on their
+device (energy normalization, octave smoothing and interpolation through
+the `Spectrum` class). Not ported yet: ``load_pkl_object`` (with `io`).
 """
 
 from __future__ import annotations
@@ -17,12 +17,18 @@ import numpy as np
 import torch
 
 from .._config import device_cache
-from ..classes import Filter, FilterBank, MultiBandSignal, Signal
+from ..classes import Filter, FilterBank, MultiBandSignal, Signal, Spectrum
+from ..helpers.gain_and_level import from_db
 from ..helpers.latency import analytic_signal
 from ..helpers.smoothing import get_smoothing_factor_ema
 from ..ops.fft_conv import fft_convolve
 from .backend import indices_above_threshold_dbfs, pack_bits
-from .enums import FilterBankMode, FilterCoefficientsType
+from .enums import (
+    FilterBankMode,
+    FilterCoefficientsType,
+    InterpolationDomain,
+    SpectrumType,
+)
 
 # IEEE half precision's smallest subnormal, 2^-24: the reference's default
 # dither amplitude
@@ -211,3 +217,56 @@ def merge_filters(filters) -> Filter:
         [f.get_coefficients(FilterCoefficientsType.Sos) for f in filts], axis=0
     )
     return Filter.from_sos(sos, filts[0].sampling_rate_hz)
+
+
+def spectral_difference(
+    input_1,
+    input_2,
+    octave_fraction_smoothing: float = 0.0,
+    energy_normalization: bool = True,
+    complex: bool = False,
+    dynamic_range_db: float | None = 100.0,
+) -> Spectrum:
+    """``input_1 / input_2`` as a Spectrum on their device
+    (`standard/other.py:229-281`): signals through `Spectrum.from_signal`,
+    each normalized by its energy and octave-smoothed if asked, the second
+    interpolated onto the first's grid (MagnitudePhase for complex data,
+    Power otherwise) and floored ``dynamic_range_db`` below its peak (a
+    complex one in magnitude, its phase kept)."""
+    assert input_1.number_of_channels == input_2.number_of_channels, (
+        "Number of channels does not match"
+    )
+    inputs = []
+    for inp in (input_1, input_2):
+        if isinstance(inp, Signal):
+            inputs.append(Spectrum.from_signal(inp, complex))
+        else:
+            if complex:
+                assert not inp.is_magnitude, "Input data should be complex"
+            inputs.append(inp.copy())
+    inp1, inp2 = inputs
+    if energy_normalization:
+        inp1.spectral_data = inp1.spectral_data / inp1.get_energy() ** 0.5
+        inp2.spectral_data = inp2.spectral_data / inp2.get_energy() ** 0.5
+    if octave_fraction_smoothing != 0:
+        inp1.apply_octave_smoothing(octave_fraction_smoothing)
+        inp2.apply_octave_smoothing(octave_fraction_smoothing)
+    inp2.set_interpolator_parameters(
+        InterpolationDomain.MagnitudePhase if complex else InterpolationDomain.Power
+    )
+    mag2 = inp2.get_interpolated_spectrum(
+        inp1.frequency_vector_hz,
+        SpectrumType.Complex if complex else SpectrumType.Magnitude,
+    )
+    if dynamic_range_db is not None:
+        factor = float(from_db(-abs(dynamic_range_db), True))
+        if mag2.is_complex():
+            # floor the magnitude, keep the phase
+            mag_abs = mag2.abs()
+            floor = mag_abs.amax(dim=0) * factor
+            mag2 = mag2 * (torch.maximum(mag_abs, floor)
+                           / torch.where(mag_abs == 0, 1.0, mag_abs))
+        else:
+            mag2 = torch.maximum(mag2, mag2.amax(dim=0) * factor)
+    inp1.spectral_data = inp1.spectral_data / mag2
+    return inp1

@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf fb ra c2 pipeline | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf tfa fb ra c2 pipeline | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -31,6 +31,13 @@ smoothing over 32,769 bins): the plan's one-time host build and upload,
 the banded kernel (B4) against its plain version on the path's plan, and
 the whole path and its three steps, through the kernels and on the plain
 paths.
+
+``tfa``: the transfer-function analysis path (`tools.tf_analysis`): (a)
+H1, H2 and H3 from 10 s of pink noise through 16 room IRs (B1 twice a
+call), through the kernels and on the plain paths; (b) each IR step on the
+measurement path's IRs (16 × 65,536 windows, the 288,000-sample IRs,
+their smoothed spectrum and trimmed IRs), a few calls each: several are
+host-bound; (c) the harmonic analysis of a distorted sweep.
 
 ``fb``: the filter-bank path (`tools.filterbank_chain`, config 3: 64
 channels × 10 s at 44.1 kHz): the filter-bank kernel (B3) against its
@@ -330,6 +337,37 @@ def profile_tf(dev, runs: int) -> None:
         profile_call(f"TF {label}, plain paths", plain_paths(fn), runs)
 
 
+def profile_tfa(dev, runs: int) -> None:
+    from ..transfer_functions import compute_transfer_function, trim_ir
+    from . import measurement
+    from . import tf_analysis as tfa
+
+    rec, noise = tfa.noise_measurement()
+    label = f"TF analysis (a) {rec.number_of_channels} ch x {rec.length_samples}"
+    for mode in tfa.MODES:
+        def fn(m=mode):
+            return compute_transfer_function(rec, noise, tfa.WELCH_LENGTH, m)
+
+        profile_call(f"{label}: compute_transfer_function {mode.name} (B1 x 2), kernels",
+                     fn, runs)
+        profile_call(f"{label}: compute_transfer_function {mode.name}, plain paths",
+                     plain_paths(fn), runs)
+    del rec, noise
+    sweep = measurement.excitation()
+    ir, windowed, _, smoothed = measurement.run(
+        measurement.recording(sweep, measurement.room_irs()[0]), sweep)
+    trimmed = trim_ir(ir)[0]
+    # the IR steps, several host-bound: a few calls each
+    few = dict(runs=3, host_calls=3, event_calls=5, warm=1)
+    label = f"TF analysis (b) {windowed.number_of_channels} x {windowed.length_samples}"
+    for name, fn in tfa.ir_calls(ir, windowed, smoothed, trimmed).items():
+        profile_call(f"{label}: {name}", fn, **few)
+    rec0, sweep0, length_s = tfa.distorted_recording()
+    profile_call("TF analysis (c) spectral_deconvolve + harmonics + "
+                 "harmonic_distortion_analysis",
+                 lambda: tfa.harmonic_analysis(rec0, sweep0, length_s), **few)
+
+
 def profile_fb(dev, runs: int) -> None:
     from ..classes.filterbank import _sos_bank_or_none
     from ..ops import cuda_iir_bank
@@ -448,8 +486,8 @@ def profile_pipeline(dev, runs: int) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
-    ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "fb", "ra", "c2", "pipeline",
-                                       "all"),
+    ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "tfa", "fb", "ra", "c2",
+                                       "pipeline", "all"),
                     nargs="+", default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -469,14 +507,16 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = ({"chain", "das", "bf", "tf", "fb", "ra", "c2", "pipeline"} if "all" in args.case
-             else set(args.case))
+    cases = ({"chain", "das", "bf", "tf", "tfa", "fb", "ra", "c2", "pipeline"}
+             if "all" in args.case else set(args.case))
     if "das" in cases:
         profile_das(dev, args.runs)
     if "bf" in cases:
         profile_bf(dev, args.runs)
     if "tf" in cases:
         profile_tf(dev, args.runs)
+    if "tfa" in cases:
+        profile_tfa(dev, args.runs)
     if "fb" in cases:
         profile_fb(dev, args.runs)
     if "ra" in cases:

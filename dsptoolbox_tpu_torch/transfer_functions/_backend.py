@@ -1,7 +1,9 @@
 """Transfer-function measurement backend
 (`dsptoolbox_tpu/transfer_functions/_backend.py`): regularized spectral
-deconvolution, peak-aligned IR windowing and fractional-octave complex
-smoothing, and the IR trimming indices that the room-acoustics fits use.
+deconvolution, peak-aligned and peak-centered IR windowing,
+fractional-octave complex smoothing, frequency-dependent windowing
+(`fdw_core`), the exponential chirp's harmonic times, and the IR trimming
+indices that the room-acoustics fits and `trim_ir` use.
 
 Behavioral reference: `dsptoolbox/transfer_functions/_transfer_functions.py`.
 Host float64 numpy constructions (the regularization window, the windowing's
@@ -310,6 +312,105 @@ def window_ir_fused(
     return gather_windowed(x, slice_start, w), w, start_sample
 
 
+def window_this_ir_tukey(
+    vec: np.ndarray,
+    total_length: int,
+    window_type,
+    constant_percentage: float,
+    at_start: bool,
+    offset_samples: int,
+    left_to_right_flank_ratio: float,
+    adaptive_window: bool,
+):
+    """Peak-aligned adaptive Tukey windowing of one host channel
+    (`_transfer_functions.py:45-148`): `window_this_ir_tukey_meta`'s index
+    arithmetic applied to ``vec`` in numpy. Returns ``(windowed, window,
+    start_sample)``."""
+    T = len(vec)
+    slice_start, window, start_sample = window_this_ir_tukey_meta(
+        T, int(np.argmax(np.abs(vec))), total_length, window_type,
+        constant_percentage, at_start, offset_samples,
+        left_to_right_flank_ratio, adaptive_window,
+    )
+    idx = np.arange(total_length) + slice_start
+    valid = (idx >= 0) & (idx < T)
+    seg = np.where(valid, vec[np.clip(idx, 0, T - 1)], 0.0)
+    return seg * window, window, start_sample
+
+
+def window_this_ir_centered_meta(T: int, peak_ind: int, total_length: int, window_type):
+    """Index arithmetic of the peak-centered windowing of one length-``T``
+    channel (`_transfer_functions.py:150-215`): ``(flip, start, win_col)``
+    such that the windowed channel is ``(vec[::-1] if flip else
+    vec)[start : start + total_length] · win_col`` (zeros out of range),
+    flipped back afterwards. ``win_col`` is zero wherever the reference's
+    pad/trim writes zeros, so no sample outside the slice leaks through."""
+    from scipy.signal import get_window
+
+    half_length = total_length // 2
+    centered_even = peak_ind + half_length == T and T % 2 == 0
+    flipping = peak_ind > half_length
+    if flipping:
+        peak_ind = T - peak_ind - 1
+    w = get_window(window_type.to_scipy_format(), half_length * 2 + 1, False)
+    if peak_ind - half_length < 0:
+        ind_low_td = 0
+        ind_low_w = half_length - peak_ind
+    else:
+        ind_low_td = peak_ind - half_length
+        ind_low_w = 0
+    # the reference zero-pads the channel to total_length + ind_low_td
+    # when the window would run past its end
+    T_eff = total_length + ind_low_td if total_length - ind_low_td > T else T
+    if peak_ind + half_length + 1 > T_eff and not centered_even:
+        ind_up_td = T_eff
+        ind_up_w = peak_ind + half_length + 1 - T_eff
+    else:
+        ind_up_td = peak_ind + half_length + 1
+        ind_up_w = len(w) - (1 if centered_even else 0)
+    w = w[ind_low_w:ind_up_w]
+    # the length of the reference's clamped slice before its final
+    # pad/trim to total_length
+    L0 = max(0, min(ind_up_td, T_eff) - ind_low_td)
+    win_col = np.zeros(total_length)
+    L = min(len(w), L0, total_length)
+    win_col[:L] = w[:L]
+    return flipping, ind_low_td, win_col
+
+
+def gather_centered(x: torch.Tensor, flips: torch.Tensor, starts: torch.Tensor,
+                    window: torch.Tensor) -> torch.Tensor:
+    """`window_centered_ir`'s batched gather on ``x (C, T)``: each row
+    flipped where ``flips (C,)`` says, sliced from ``starts (C,)`` over
+    ``window (C, L)``'s length (zeros past the end), windowed, and flipped
+    back."""
+    C, L = window.shape
+    xf = torch.where(flips[:, None], x.flip(1), x)
+    padded = torch.nn.functional.pad(xf, (0, 2 * L))
+    idx = starts[:, None].long() + torch.arange(L, device=x.device)
+    segs = torch.gather(padded, 1, idx) * window
+    return torch.where(flips[:, None], segs.flip(1), segs)
+
+
+def get_chirp_rate(range_hz, length_seconds: float) -> float:
+    """Chirp rate in octaves per second (`_transfer_functions.py:216-237`)."""
+    r = np.sort(np.atleast_1d(range_hz))
+    assert r.shape == (2,), "Range must contain exactly two elements."
+    return np.log2(r[1] / r[0]) / length_seconds
+
+
+def get_harmonic_times(
+    chirp_range_hz,
+    chirp_length_s: float,
+    n_harmonics: int,
+    time_offset_seconds: float = 0.0,
+) -> np.ndarray:
+    """Relative (negative) times of the harmonic IRs of an exponential-chirp
+    measurement (`_transfer_functions.py:239-275`)."""
+    rate = get_chirp_rate(chirp_range_hz, chirp_length_s)
+    return time_offset_seconds - np.log2(np.arange(n_harmonics) + 2) / rate
+
+
 def _smoothing_row_window(
     i: int,
     frequency_vector: np.ndarray,
@@ -534,6 +635,72 @@ def complex_smoothing_host(
         w, ind_low_c, ind_high_c = row
         out[i] = w @ x[ind_low_c:ind_high_c]
     return out[:, 0] if transposed else out
+
+
+# the memory of one (bins, T, C) tile of `fdw_core`'s window products
+_FDW_CHUNK_BYTES = 64 << 20
+# the coarse/fine split of the rotation phase: n = n1·B + n0
+_FDW_SPLIT = 1024
+
+
+def fdw_core(
+    time_data: torch.Tensor,
+    freqs_normalized: np.ndarray,
+    alpha: np.ndarray,
+    peak_indices: np.ndarray,
+) -> torch.Tensor:
+    """Frequency-dependent Gaussian windowing as direct DFT sums on
+    ``time_data (T, C)``'s device (`_backend.py:682-756` of the JAX
+    package): ``spec[f, c] = Σ_n exp(-0.5·((n - peak_c)/half)²·alpha_f) ·
+    exp(-2πi·f·n/T) · x[n, c]`` → ``(F, C)`` complex.
+
+    The rotation phase ``f·n/T`` reaches ~1e4 cycles at measurement
+    lengths, beyond float32's mantissa, so it is split as in the JAX
+    package: ``n = n1·B + n0``, ``phase = [(ω·B·n1) mod 1] + ω·n0``, the
+    coarse table reduced mod 1 in float64 on the host. The bins run in
+    chunks whose ``(bins, T, C)`` window tile takes `_FDW_CHUNK_BYTES`;
+    each tile is an elementwise product summed over T in the data's float
+    (no matrix product, so no TF32)."""
+    T, C = time_data.shape
+    dev, rdt = time_data.device, time_data.dtype
+    half = (T - 1) / 2
+    n_idx = np.arange(T)[:, None] - np.asarray(peak_indices)[None, :]
+    n2 = torch.as_tensor(-0.5 * (n_idx / half) ** 2, dtype=rdt, device=dev)  # (T, C)
+    B = _FDW_SPLIT
+    n1_max = -(-T // B)
+    omega = np.mod(np.asarray(freqs_normalized, np.float64) / T, 1.0)
+    coarse = np.mod(np.mod(omega * B, 1.0)[:, None] * np.arange(n1_max)[None, :], 1.0)
+    n = np.arange(T)
+    n1 = torch.as_tensor(n // B, device=dev)
+    n0 = torch.as_tensor(n % B, dtype=rdt, device=dev)
+    coarse_t = torch.as_tensor(coarse, dtype=rdt, device=dev)
+    omega_t = torch.as_tensor(omega, dtype=rdt, device=dev)
+    alpha_t = torch.as_tensor(np.asarray(alpha, np.float64), dtype=rdt, device=dev)
+    F = len(omega)
+    chunk = max(1, _FDW_CHUNK_BYTES // (T * C * time_data.element_size()))
+    out = []
+    for s in range(0, F, chunk):
+        e = min(F, s + chunk)
+        arg = (2 * np.pi) * (coarse_t[s:e][:, n1] + omega_t[s:e, None] * n0[None])
+        w = torch.exp(alpha_t[s:e, None, None] * n2[None]).mul_(time_data[None])
+        re = (w * torch.cos(arg)[..., None]).sum(1)
+        im = (w * torch.sin(arg)[..., None]).sum(1)
+        out.append(torch.complex(re, -im))
+    return torch.cat(out)
+
+
+def frequency_vector_with_frequency_resolution(delta_f_hz: float, sampling_rate_hz: int):
+    """``(f_vec, delta_f, time_length)`` for a requested frequency
+    resolution (`_transfer_functions.py:574-606`): an odd-length linspace
+    whose last point is exactly Nyquist (an rfftfreq vector can overshoot
+    Nyquist by one ulp, which an interpolation with zero-padded edges turns
+    into a zeroed Nyquist bin)."""
+    nyquist_hz = sampling_rate_hz / 2.0
+    length_f_vec = int(nyquist_hz / delta_f_hz + 0.5)
+    if length_f_vec % 2 == 0:
+        length_f_vec += 1
+    f_vec = np.linspace(0.0, nyquist_hz, length_f_vec, endpoint=True)
+    return f_vec, f_vec[1], (length_f_vec - 1) * 2
 
 
 def trim_ir_indices(

@@ -994,3 +994,31 @@ def test_pipeline_captures_chain_into_one_graph(dev, chain):
 
     with pytest.raises(RuntimeError, match=r"float\(sigs\[0\]\.time_data\.max\(\)\)"):
         dsp.pipeline(unsafe)(*ins)
+
+
+def test_compute_transfer_function_frames_each_signal_once_on_card(dev):
+    """H1/H2/H3 on the card: two B1 launches a call (the input framed once,
+    the output once), and the same spectra and coherence as the plain paths
+    and as the CPU."""
+    from dsptoolbox_tpu_torch.transfer_functions import (
+        TransferFunctionType,
+        compute_transfer_function,
+    )
+
+    x = RNG.standard_normal((48000, 1)).astype(np.float32)
+    y = np.stack([np.convolve(x[:, 0], h)[:48000] for h in ([0.3, 0.2], [1.0, -0.5, 0.1])], 1)
+    y = (y + 0.01 * RNG.standard_normal(y.shape)).astype(np.float32)
+    for mode in TransferFunctionType:
+        rec, exc = Signal(None, y, 48000, device=dev), Signal(None, x, 48000, device=dev)
+        cuda_framing.launches = 0
+        got = compute_transfer_function(rec, exc, 2048, mode)
+        torch.cuda.synchronize()
+        assert cuda_framing.launches == 2
+        assert got.device == rec.device
+        with _config.kernels_off():
+            plain = compute_transfer_function(rec, exc, 2048, mode)
+        cpu = compute_transfer_function(Signal(None, y, 48000, device="cpu"),
+                                        Signal(None, x, 48000, device="cpu"), 2048, mode)
+        for want in (plain, cpu):  # the DC bin, a noise/noise ratio, left out
+            assert _rel(got.spectral_data[1:], want.spectral_data[1:]) <= 2e-5
+            assert _rel(got.coherence[1:], want.coherence[1:]) <= 2e-5

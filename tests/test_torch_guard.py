@@ -17,7 +17,12 @@ from dsptoolbox_tpu_torch import _config, headline
 from dsptoolbox_tpu_torch.classes import ImpulseResponse, Signal, Spectrum
 from dsptoolbox_tpu_torch.ops import banded, cuda_banded, cuda_das, cuda_framing, cuda_iir
 from dsptoolbox_tpu_torch.tools import camera
-from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
+from dsptoolbox_tpu_torch.transfer_functions import (
+    SmoothingDomain,
+    complex_smoothing,
+    trim_ir,
+    window_ir,
+)
 
 torch.set_num_threads(1)
 
@@ -35,6 +40,7 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "from dsptoolbox_tpu_torch.beamforming import (BeamformerCleanSC, BeamformerDASTime,\n"
         "    BeamformerFunctional, BeamformerMVDR, BeamformerOrthogonal)\n"
         "import dsptoolbox_tpu_torch.tools.camera, dsptoolbox_tpu_torch.tools.measurement\n"
+        "import dsptoolbox_tpu_torch.tools.tf_analysis, dsptoolbox_tpu_torch.helpers.spectrum_utilities\n"
         "import dsptoolbox_tpu_torch.transfer_functions, dsptoolbox_tpu_torch.generators\n"
         "import dsptoolbox_tpu_torch.room_acoustics, dsptoolbox_tpu_torch.tools.room_measurement\n"
         "import dsptoolbox_tpu_torch.standard, dsptoolbox_tpu_torch.transforms\n"
@@ -277,11 +283,10 @@ def test_default_device_is_cuda_and_numpy_follows_it():
 
 
 # the JAX package's names that wait, each beside its ROADMAP queue item:
-# `spectral_difference` for the Spectrum class's octave smoothing (A5),
 # `load_pkl_object` for `io` (A5); at the root also the classes, namespaces
 # and modules not ported yet (`tools` is the JAX package's `tools.py`; the
 # port's own `tools` package holds its run and measurement scripts)
-WAITING = {"spectral_difference": "A5", "load_pkl_object": "A5"}
+WAITING = {"load_pkl_object": "A5"}
 WAITING_ROOT = {**WAITING, "CalibrationData": "A5", "distances": "A11", "effects": "A11",
                 "audio_io": "A14", "plots": "A14", "tools": "A14"}
 # the port's own exports: the steering factors as tensors on a device; at
@@ -294,7 +299,7 @@ PORT_ONLY = {
 
 
 @pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming",
-                                       pytest.param("", id="root")])
+                                       "transfer_functions", pytest.param("", id="root")])
 def test_exports_match_the_jax_package(namespace):
     """Each namespace (and, for "", the package's root) exports the JAX
     package's names but those still waiting, plus the port's own."""
@@ -365,3 +370,45 @@ def test_new_beamformers_launch_no_kernel_on_cpu_tensors():
                 calls[name]()
     finally:
         _config.set_das_kernel("auto")
+
+
+def test_transfer_function_analysis_launches_no_kernel_on_cpu_tensors():
+    """The transfer-function analysis path (`tools.tf_analysis`: the
+    estimators, the IR tools, FDW and the harmonic analysis) on CPU tensors
+    at a small size: the plain versions, no launch; under the framing
+    kernel's "on" the estimators raise."""
+    from dsptoolbox_tpu_torch.tools import tf_analysis
+
+    cuda_framing.launches = 0
+    cuda_iir.launches = 0
+    cuda_banded.launches = 0
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        rec, noise = tf_analysis.noise_measurement(seconds=0.5, channels=2)
+        out = tf_analysis.estimators(rec, noise, 1024)
+        assert all(s.spectral_data.device.type == "cpu" for s in out.values())
+        rng = np.random.default_rng(0)
+        td = (rng.standard_normal((8192, 2)) * np.exp(-np.arange(8192) / 600)[:, None]
+              ).astype(np.float32)
+        td[50] = 1.0
+        ir = ImpulseResponse(None, td, 48000)
+        windowed = window_ir(ir, 4096)[0]
+        smoothed = complex_smoothing(windowed, 3, SmoothingDomain.RealImaginary)
+        trimmed = trim_ir(ir)[0]
+        calls = tf_analysis.ir_calls(ir, windowed, smoothed, trimmed, cycles=2,
+                                     tukey_s=(0.002, 0.01), centered=1024)
+        for name, fn in calls.items():
+            fn()
+        distorted, sweep, length_s = tf_analysis.distorted_recording()
+        harmonic = tf_analysis.harmonic_analysis(distorted, sweep, length_s)[2]
+        assert harmonic["thd"].spectral_data.device.type == "cpu"
+        _config.set_framing_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            tf_analysis.estimators(rec, noise, 1024)
+    finally:
+        _config.set_framing_kernel("auto")
+        _config.set_default_device(old)
+    assert cuda_framing.launches == 0
+    assert cuda_iir.launches == 0
+    assert cuda_banded.launches == 0

@@ -14,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 from conftest import assert_close
+from torch_checks import assert_finite_close, assert_phase_close, phase_range
 from dsptoolbox_tpu import classes as jclasses
 from dsptoolbox_tpu import generators as jgen
 from dsptoolbox_tpu import transfer_functions as jtf
@@ -191,6 +192,25 @@ def test_window_ir_matches_jax(measurement, window, adaptive, total_length):
                                rtol=2e-6)
     np.testing.assert_allclose(np.asarray(sig.window), np.asarray(j_sig.window),
                                atol=2e-6, rtol=2e-6)
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("offset", [0, 40])
+def test_window_ir_matches_the_host_tukey_window_per_channel(measurement, adaptive, offset):
+    # the fused device path against the host index arithmetic applied to
+    # each channel in numpy (`_backend.window_this_ir_tukey`), as the JAX
+    # package's tests/test_transfer_functions.py:537 holds its fused path
+    td = measurement["j_ir_td"][:6000]
+    got, window_dev, starts = (lambda r: (r[0].time_data.numpy(), r[0].window, r[1]))(
+        tf.window_ir(ImpulseResponse(None, td, FS), 2048, adaptive, 0.75,
+                     offset_samples=offset))
+    for c in range(CHANNELS):
+        want, win, start = bk.window_this_ir_tukey(td[:, c].astype(np.float64), 2048,
+                                                   Window.Hann, 0.75, True, offset, 1.0,
+                                                   adaptive)
+        assert starts[c] == start
+        np.testing.assert_allclose(np.asarray(window_dev)[:, c], win, atol=2e-6)
+        assert_close(got[:, c], want, 2e-6, f"channel {c}")
 
 
 def test_window_ir_return_device_keeps_starts_on_device(measurement):
@@ -552,10 +572,474 @@ def test_class_edges_and_unported_options():
     assert hasattr(ir, "window")
     from_sig = ImpulseResponse.from_signal(Signal(None, td + 1j * td, FS))
     assert from_sig.is_complex_signal
+    # smoothed and physically scaled FFT spectra are ported: as the JAX
+    # package's (tests/test_torch_spectrum.py holds every scaling)
+    j_ir = jclasses.ImpulseResponse(None, td, FS)
+    ir.clear_time_window()
     ir.spectrum_smoothing = 3
-    with pytest.raises(NotImplementedError):
-        ir.get_spectrum()
+    j_ir.set_spectrum_parameters(method=jenums.SpectrumMethod.FFT, smoothing=3)
+    assert_close(ir.get_spectrum()[1].numpy(), np.asarray(j_ir.get_spectrum()[1]), 2e-5,
+                 "smoothed")
     ir.spectrum_smoothing = 0
     ir.spectrum_scaling = SpectrumScaling.AmplitudeSpectrum
+    j_ir.set_spectrum_parameters(method=jenums.SpectrumMethod.FFT,
+                                 scaling=jenums.SpectrumScaling.AmplitudeSpectrum)
+    assert_close(ir.get_spectrum()[1].numpy(), np.asarray(j_ir.get_spectrum()[1]), 2e-5,
+                 "amplitude spectrum")
+
+
+# ------------------------------------------------- the rest of the module
+# (window_ir_tukey … trim_ir): each against the JAX package on the same
+# seeded IRs, at 2e-5 scale-relative unless the JAX package's own test
+# (tests/test_transfer_functions.py) states another tolerance
+
+
+def _irs(n=8192, seed=4):
+    """Three room-like IRs ``(n, 3)`` float32 from `_rooms`, peak 1."""
+    return _rooms(n, seed).astype(np.float32)
+
+
+def _ir_pair(td):
+    return ImpulseResponse(None, td.copy(), FS), jclasses.ImpulseResponse(None, td.copy(), FS)
+
+
+@pytest.mark.parametrize("flanks", [(0.01, None), (None, 0.02), (0.005, 0.03)])
+@pytest.mark.parametrize("window", ["Hann", "Blackman"])
+def test_window_ir_tukey_matches_jax(flanks, window):
+    p, j = _ir_pair(_irs(4096))
+    got = tf.window_ir_tukey(p, *flanks, getattr(Window, window))
+    want = jtf.window_ir_tukey(j, *flanks, getattr(jenums.Window, window))
+    assert isinstance(got, ImpulseResponse) and got.device.type == "cpu"
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 2e-5, "windowed")
+    np.testing.assert_array_equal(np.asarray(got.window), np.asarray(want.window))
+    for bad in ((None, None, Window.Hann), (0.05, 0.05, Window.Hann),
+                (0.01, 0.01, Window.Tukey)):
+        with pytest.raises(AssertionError):
+            tf.window_ir_tukey(p, *bad)
+
+
+@pytest.mark.parametrize(
+    "peaks,length",
+    [((100, 2000, 4090), 1001),   # near the start, inside, near the end (flipped)
+     ((500, 500, 4095), 1000),    # even length, the last sample
+     ((2048, 1000, 0), 4096),     # the window as long as the IR: centred-even case
+     ((3000, 10, 1500), 6000)],   # longer than the IR
+    ids=["odd", "even", "whole", "longer"],
+)
+def test_window_centered_ir_matches_jax(peaks, length):
+    rng = np.random.default_rng(6)
+    td = (0.05 * rng.standard_normal((4096, 3))).astype(np.float32)
+    for c, k in enumerate(peaks):
+        td[k, c] = 1.0
+    p, j = _ir_pair(td)
+    got, starts = tf.window_centered_ir(p, length)
+    want, jstarts = jtf.window_centered_ir(j, length)
+    assert isinstance(starts, np.ndarray)
+    np.testing.assert_array_equal(starts, jstarts)
+    np.testing.assert_array_equal(np.asarray(got.window), np.asarray(want.window))
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 2e-5, "centered")
+    # a peak past the window's half length flips the channel: the window
+    # keeps the samples before the peak
+    half = length // 2
+    flipped = [k > half for k in peaks]
+    assert any(flipped) or length >= 4096
+
+
+def _tf_inputs(C=2, mono=True, n=16384, seed=8):
+    """A noise input and its responses through C short FIR filters with
+    noise, float64 (the JAX test's recipe, `tests/test_transfer_functions.py:79`)."""
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 1 if mono else C)) * 0.3
+    firs = ([0.3, 0.2, 0.1], [0.1, -0.4, 0.2, 0.05], [1.0, 0.5], [0.2, 0.2, 0.2, 0.2])
+    y = np.stack([lfilter(firs[c], [1.0], x[:, 0 if mono else c]) for c in range(C)], 1)
+    return x, y + rng.standard_normal(y.shape) * 0.01
+
+
+@pytest.mark.parametrize("mode", ["H1", "H2", "H3"])
+@pytest.mark.parametrize("mono", [True, False])
+@pytest.mark.parametrize("params", [dict(), dict(average="median", overlap_percent=75),
+                                    dict(scaling="PowerSpectralDensity")],
+                         ids=["default", "median", "psd"])
+def test_compute_transfer_function_matches_jax(mode, mono, params):
+    x, y = _tf_inputs(3, mono)
+    p_in, j_in = Signal(None, x, 16000), jclasses.Signal(None, x, 16000)
+    if "scaling" in params:
+        p_in.set_spectrum_parameters(scaling=SpectrumScaling.PowerSpectralDensity)
+        j_in.set_spectrum_parameters(scaling=jenums.SpectrumScaling.PowerSpectralDensity)
+    elif params:
+        p_in.set_spectrum_parameters(**params)
+        j_in.set_spectrum_parameters(**params)
+    for wl in (512, 1024):
+        got = tf.compute_transfer_function(Signal(None, y, 16000), p_in, wl,
+                                           getattr(tf.TransferFunctionType, mode))
+        want = jtf.compute_transfer_function(jclasses.Signal(None, y, 16000), j_in, wl,
+                                             getattr(jtf.TransferFunctionType, mode))
+        assert got.is_complex and got.spectral_data.shape == (wl // 2 + 1, 3)
+        np.testing.assert_array_equal(got.frequency_vector_hz, want.frequency_vector_hz)
+        # the JAX package's tolerance (tests/test_transfer_functions.py:103-117);
+        # the DC bin, a noise/noise ratio under detrend, is left out
+        assert_close(got.spectral_data.numpy()[1:], np.asarray(want.spectral_data)[1:], 5e-4,
+                     f"{mode} {wl}")
+        assert got.has_coherence and got.coherence.shape == got.spectral_data.shape
+        assert_close(got.coherence.numpy()[1:], np.asarray(want.coherence)[1:], 5e-4,
+                     "coherence")
+
+
+def test_compute_transfer_function_from_two_framings_equals_four_welch_calls():
+    # one framing of x (mono) and one of y, against four `welch` calls on
+    # the JAX package's inputs (x repeated to y's channels), and the
+    # framing kernel's wrapper called exactly twice a call
+    from dsptoolbox_tpu_torch.ops import cuda_framing, spectral
+
+    x, y = _tf_inputs(4, True)
+    xs, ys = Signal(None, x, 16000), Signal(None, y, 16000)
+    calls = []
+    real = cuda_framing.windowed_frames
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    kw = dict(sampling_rate_hz=16000, window_length_samples=1024, scaling=xs.spectrum_scaling)
+    xr = xs._x.repeat(4, 1)
+    G_xx = spectral.welch(xr, None, **kw)
+    G_yy = spectral.welch(ys._x, None, **kw)
+    G_xy = spectral.welch(xr, ys._x, **kw)
+    G_yx = spectral.welch(ys._x, xr, **kw)
+    spectral.windowed_frames = counted
+    try:
+        outs = {m: tf.compute_transfer_function(ys, xs, 1024, getattr(tf.TransferFunctionType, m))
+                for m in ("H1", "H2", "H3")}
+    finally:
+        spectral.windowed_frames = real
+    assert calls == [(1, len(x)), (4, len(x))] * 3
+    want = {"H1": G_xy / G_xx, "H2": G_yy / G_yx,
+            "H3": G_xy / G_xy.abs() * (G_yy / G_xx) ** 0.5}
+    for m, got in outs.items():
+        torch.testing.assert_close(got.spectral_data, want[m].T, rtol=1e-6, atol=0)
+        torch.testing.assert_close(got.coherence, (G_xy.abs() ** 2 / G_xx / G_yy).T,
+                                   rtol=1e-6, atol=0)
+
+
+def test_compute_transfer_function_rejects_mismatches():
+    x, y = _tf_inputs(3, False)
+    with pytest.raises(AssertionError):
+        tf.compute_transfer_function(Signal(None, y, 16000), Signal(None, x, 8000), 512)
+    with pytest.raises(AssertionError):
+        tf.compute_transfer_function(Signal(None, y[:, :2], 16000), Signal(None, x, 16000), 512)
+    with pytest.raises(ValueError):
+        tf.compute_transfer_function(Signal(None, y, 16000), Signal(None, x, 16000), 1000)
+
+
+@pytest.mark.parametrize("time_average", [True, False])
+@pytest.mark.parametrize("normalize_energy", [True, False])
+def test_average_irs_matches_jax(time_average, normalize_energy):
+    td = _irs() * np.array([1.0, 0.7, 0.4], np.float32)
+    p, j = _ir_pair(td)
+    got = tf.average_irs(p, time_average, normalize_energy)
+    want = jtf.average_irs(j, time_average, normalize_energy)
+    assert got.number_of_channels == 1
+    name = f"{time_average} {normalize_energy}"
+    if time_average:  # the JAX package's 1e-3 (tests/test_transfer_functions.py:418)
+        assert_close(got.time_data.numpy(), np.asarray(want.time_data), 1e-3, name)
+        return
+    # frequency: the mean of the unwrapped phases (~10³ rad here), which the
+    # JAX package sums in float32 numpy (its drift over 4097 bins is ~1e-3
+    # rad); held at its own test's 2e-1 (tests/test_transfer_functions.py:390),
+    # and against the same average in float64 at 5e-4
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 2e-1, name)
+    # the float64 twin starts from the port's float32 spectrum and angle:
+    # the unwrap's branch decisions on noise-like bins follow the float32
+    # angle, so a float64 spectrum would take other branches
+    sp = p.get_spectrum()[1].numpy()
+    phase = np.unwrap(np.angle(sp).astype(np.float64), axis=0).mean(1)
+    avg = np.abs(sp).astype(np.float64).mean(1) * np.exp(1j * phase)
+    assert_close(got.time_data.numpy()[:, 0], np.fft.irfft(avg, n=8192), 5e-4, name)
+    with pytest.raises(AssertionError):
+        tf.average_irs(p.get_channels(0))
+
+
+@pytest.mark.parametrize("ir_length", [None, 1024])
+def test_min_phase_from_mag_matches_jax(ir_length):
+    f = np.linspace(0, 4000, 257)
+    mag = np.abs(np.random.default_rng(1).standard_normal((257, 2))) + 0.3
+    got = tf.min_phase_from_mag(Spectrum(f, mag), 8000, ir_length)
+    want = jtf.min_phase_from_mag(jclasses.Spectrum(f, mag.copy()), 8000, ir_length)
+    assert isinstance(got, ImpulseResponse)
+    # the JAX package's 1e-6 (tests/test_transfer_functions.py:189)
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 1e-6, "min phase IR")
+
+
+@pytest.mark.parametrize("case", ["given", "minimum", "factor", "regrid"])
+def test_lin_phase_from_mag_matches_jax(case):
+    f = np.linspace(0, 4000, 257)
+    mag = np.abs(np.random.default_rng(2).standard_normal((257, 2))) + 0.3
+    kw = {"given": dict(group_delay_ms=20, check_causality=False),
+          "minimum": dict(),
+          "factor": dict(minimum_group_delay_factor=1.5),
+          # causal check passes, and 400 ms is past the first grid's period
+          "regrid": dict(group_delay_ms=400)}[case]
+    got = tf.lin_phase_from_mag(Spectrum(f, mag), 8000, **kw)
+    want = jtf.lin_phase_from_mag(jclasses.Spectrum(f, mag.copy()), 8000, **kw)
+    assert got.length_samples == want.time_data.shape[0]
+    # the JAX package's 5e-5 (tests/test_transfer_functions.py:206)
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 5e-5, case)
+
+
+def test_lin_phase_from_mag_causality_assert_as_jax():
+    f = np.linspace(0, 4000, 257)
+    mag = np.abs(np.random.default_rng(2).standard_normal((257, 1))) + 0.3
+    for pkg, spec in ((tf, Spectrum(f, mag)), (jtf, jclasses.Spectrum(f, mag.copy()))):
+        with pytest.raises(AssertionError, match="lower than minimal group delay"):
+            pkg.lin_phase_from_mag(spec, 8000, group_delay_ms=0.5)
+        with pytest.raises(AssertionError, match="factor"):
+            pkg.lin_phase_from_mag(spec, 8000, minimum_group_delay_factor=0.5)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(padding_factor=1), dict(alpha=0.999)],
+                         ids=["default", "pad1", "alpha"])
+def test_min_phase_ir_matches_jax(kw):
+    p, j = _ir_pair(_irs(4096))
+    got = tf.min_phase_ir(p, **kw)
+    want = jtf.min_phase_ir(j, **kw)
+    assert isinstance(got, ImpulseResponse) and got.time_data.shape == (4096, 3)
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 2e-5, str(kw))
+
+
+def test_min_phase_ir_scipy_branch_raises_as_jax():
+    # parity: scipy's Hilbert minimum phase is half the input's length, so
+    # writing it into the IR's column raises in the JAX package (ROADMAP C)
+    p, j = _ir_pair(_irs(1024))
+    with pytest.raises(ValueError):
+        jtf.min_phase_ir(j, use_real_cepstrum=False)
+    with pytest.raises(ValueError):
+        tf.min_phase_ir(p, use_real_cepstrum=False)
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+@pytest.mark.parametrize("remove_latency", [False, True])
+@pytest.mark.parametrize("smoothing", [0, 3])
+def test_group_delay_matches_jax(analytic, remove_latency, smoothing):
+    p, j = _ir_pair(_irs(2048))
+    f, got = tf.group_delay(p, analytic, smoothing, remove_latency)
+    jf, want = jtf.group_delay(j, analytic, smoothing, remove_latency)
+    np.testing.assert_allclose(f, jf)
+    assert got.device.type == "cpu" and got.shape == (len(f), 3)
+    # the JAX package's 1e-4 (tests/test_transfer_functions.py:166)
+    assert_close(got.numpy(), want, 1e-4, f"{analytic} {remove_latency} {smoothing}")
+
+
+def test_group_delay_matches_scipy_float64():
+    from scipy.signal import group_delay as scipy_gd
+
+    td = _irs(2048)
+    f, got = tf.group_delay(ImpulseResponse(None, td, FS))
+    for c in range(3):
+        _, want = scipy_gd([td[:, c].astype(np.float64), [1.0]], w=f, fs=FS)
+        assert_close(got[:, c].numpy() * FS, want, 1e-5, f"channel {c}")
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(padding_factor=1),
+                                dict(use_real_cepstrum=False, padding_factor=2)],
+                         ids=["default", "pad1", "scipy"])
+def test_minimum_phase_and_group_delays_match_jax(kw):
+    p, j = _ir_pair(_irs(2048))
+    f, got = tf.minimum_phase(p, **kw)
+    jf, want = jtf.minimum_phase(j, **kw)
+    np.testing.assert_allclose(f, jf)
+    # the JAX package's 1e-5 (tests/test_transfer_functions.py:180); scipy's
+    # Hilbert method gives NaN at the same bins on both sides
+    assert_finite_close(got.numpy(), want, 1e-5, f"minimum phase {kw}")
+    if kw.get("use_real_cepstrum", True):
+        for smoothing in (0, 6):
+            kw2 = dict(smoothing=smoothing, padding_factor=kw.get("padding_factor", 8))
+            assert_close(tf.minimum_group_delay(p, **kw2)[1].numpy(),
+                         jtf.minimum_group_delay(j, **kw2)[1], 1e-5, f"min gd {kw2}")
+
+
+@pytest.mark.parametrize("analytic", [True, False])
+@pytest.mark.parametrize("remove_latency", [False, True])
+def test_excess_group_delay_matches_jax(analytic, remove_latency):
+    p, j = _ir_pair(_irs(2000))  # not 5-smooth: the minimum's grid differs
+    for smoothing in (0, 3):
+        f, got = tf.excess_group_delay(p, smoothing, remove_latency, analytic)
+        jf, want = jtf.excess_group_delay(j, smoothing, remove_latency, analytic)
+        np.testing.assert_allclose(f, jf)
+        assert_close(got.numpy(), want, 1e-4, f"{analytic} {remove_latency} {smoothing}")
+
+
+@pytest.mark.parametrize("keep_low", [True, False])
+@pytest.mark.parametrize("norm", [None, "energy", "Peak", -6.0])
+def test_combine_ir_with_dirac_matches_jax(keep_low, norm):
+    p, j = _ir_pair(_irs(4096) * 0.8)
+    got = tf.combine_ir_with_dirac(p, 1000, keep_low, normalization=norm)
+    want = jtf.combine_ir_with_dirac(j, 1000, keep_low, normalization=norm)
+    assert isinstance(got, ImpulseResponse)
+    # the JAX package's 5e-4 (tests/test_transfer_functions.py:458)
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 5e-4, f"{keep_low} {norm}")
+    with pytest.raises(AssertionError):
+        tf.combine_ir_with_dirac(p, 1000, keep_low, normalization="rms")
+
+
+@pytest.mark.parametrize("mode", ["direct", "min", "lin"])
+def test_ir_to_filter_and_back_match_jax(mode):
+    from dsptoolbox_tpu_torch.classes import Filter, FilterBank
+
+    p, j = _ir_pair(_irs(1024))
+    filt = tf.ir_to_filter(p, 1, mode)
+    jfilt = jtf.ir_to_filter(j, 1, mode)
+    assert isinstance(filt, Filter) and filt.is_fir
+    # lin: the group delay in use is the float32 maximum of the minimum
+    # group delay, and a rounding difference δ in it turns the phase at
+    # Nyquist by π·fs·δ: held at the JAX package's 5e-5
+    # (tests/test_transfer_functions.py:206) or four float32 ulps of that
+    # delay, whichever is larger; the composition itself is exact
+    def tol_for(n_samples):
+        if mode != "lin":
+            return {"direct": 0, "min": 1e-6}[mode]
+        gd = n_samples / (2 * FS)
+        return max(5e-5, 4 * np.pi * FS * float(np.spacing(np.float32(gd))))
+
+    assert_close(filt.ba[0], jfilt.ba[0], tol_for(len(filt.ba[0])), mode)
+    if mode == "lin":
+        own = tf.lin_phase_from_mag(Spectrum.from_signal(p.get_channels(1)), FS)
+        np.testing.assert_array_equal(filt.ba[0], own.time_data[:, 0].double().numpy())
+    bank = tf.ir_to_filter(p, None, mode)
+    assert isinstance(bank, FilterBank) and len(bank) == 3
+    back = tf.filter_to_ir(bank)
+    assert_close(back.time_data.numpy(), np.asarray(jtf.filter_to_ir(
+        jtf.ir_to_filter(j, None, mode)).time_data), tol_for(back.length_samples),
+        f"{mode} bank")
+    if mode == "direct":  # the round trip (tests/test_transfer_functions.py:213)
+        assert_close(tf.filter_to_ir(filt).time_data[:, 0].numpy(),
+                     p.time_data[:, 1].numpy(), 1e-6, "round trip")
+    with pytest.raises(AssertionError):
+        tf.ir_to_filter(p, 0, "zero")
+    with pytest.raises(TypeError):
+        tf.filter_to_ir(p)
+
+
+def test_window_frequency_dependent_matches_jax():
+    p, j = _ir_pair(_irs(2048))
+    got = tf.window_frequency_dependent(p, 8)
+    want = jtf.window_frequency_dependent(j, 8)
+    np.testing.assert_allclose(got.frequency_vector_hz, want.frequency_vector_hz)
+    assert got.is_complex and got.spectral_data.shape == (1025, 3)
+    assert_close(got.spectral_data.numpy(), np.asarray(want.spectral_data), 2e-5, "fdw")
+    with pytest.raises(AssertionError):
+        tf.window_frequency_dependent(p, 8, 3.0)
+
+
+def test_fdw_core_phase_accuracy_long_signal():
+    # twin of the JAX package's guard (tests/test_transfer_functions.py:249):
+    # the rotation phase f·n/T reaches ~1e4 cycles; the coarse/fine mod-1
+    # split keeps the complex error near float32's accumulation floor
+    # against a float64 direct sum (the unsplit float32 phase: ~2e-3)
+    rng = np.random.default_rng(7)
+    T, C = 16384, 2
+    x = rng.standard_normal((T, C)).astype(np.float32)
+    freqs = np.linspace(50.0, T / 2 - 50.0, 32)  # fractional bins
+    alpha = np.full(32, 3.0)
+    peaks = np.array([64, T - 200])
+    spec = bk.fdw_core(torch.from_numpy(x), freqs, alpha, peaks).numpy()
+    half = (T - 1) / 2
+    n_rel = np.arange(T)[:, None] - peaks[None, :]
+    n = np.arange(T)
+    oracle = np.zeros((32, C), complex)
+    for i, (f, a) in enumerate(zip(freqs, alpha)):
+        win = np.exp(-0.5 * (n_rel / half) ** 2 * a)
+        rot = np.exp(-2j * np.pi * f * n / T)
+        oracle[i] = (win * rot[:, None] * x).sum(0)
+    err = np.abs(spec - oracle).max() / np.abs(oracle).max()
+    assert err < 2e-4, f"fdw complex error {err:.2e}"
+
+
+def test_fdw_core_chunks_by_its_memory_budget(monkeypatch):
+    td = torch.from_numpy(_irs(1024))
+    f = np.arange(1, 513, dtype=np.float64)
+    alpha = np.linspace(1, 50, 512)
+    whole = bk.fdw_core(td, f, alpha, np.array([96, 211, 430]))
+    monkeypatch.setattr(bk, "_FDW_CHUNK_BYTES", 5 * 1024 * 3 * 4)  # 5 bins a chunk
+    torch.testing.assert_close(bk.fdw_core(td, f, alpha, np.array([96, 211, 430])), whole,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("min_phase", [True, False])
+def test_find_ir_latency_matches_jax(min_phase):
+    p, j = _ir_pair(_irs(4096))
+    got = tf.find_ir_latency(p, min_phase)
+    want = jtf.find_ir_latency(j, min_phase)
+    assert isinstance(got, np.ndarray)
+    # the JAX package's 1e-2 samples (tests/test_transfer_functions.py:232)
+    np.testing.assert_allclose(got, want, atol=1e-2)
+    np.testing.assert_allclose(got, DELAYS, atol=1.0)
+
+
+@pytest.fixture(scope="module")
+def distorted_sweep_ir():
+    """A 2 s SyncLog sweep through x + 0.05x² + 0.02x³ and a short room IR,
+    deconvolved with padding by the JAX package: its IR, with harmonic IRs
+    before the main peak."""
+    jsweep, _ = jgen.chirp(FS, jgen.ChirpType.SyncLog, [20, 20000], 2.0,
+                           padding_end_seconds=1.0)
+    s = np.asarray(jsweep.time_data)[:, 0].astype(np.float64)
+    rec = np.convolve(s + 0.05 * s**2 + 0.02 * s**3, _rooms(2000)[:, 0])[: len(s)]
+    ir = jtf.spectral_deconvolve(jclasses.Signal(None, rec.astype(np.float32)[:, None], FS),
+                                 jclasses.Signal(None, s.astype(np.float32)[:, None], FS),
+                                 padding=True)
+    return np.asarray(ir.time_data)
+
+
+def test_harmonics_from_chirp_ir_match_jax(distorted_sweep_ir):
+    p, j = _ir_pair(distorted_sweep_ir)
+    got = tf.harmonics_from_chirp_ir(p, [20, 20000], 2.0, 4)
+    want = jtf.harmonics_from_chirp_ir(j, [20, 20000], 2.0, 4)
+    assert len(got) == 4
+    for g, w in zip(got, want):
+        assert isinstance(g, ImpulseResponse)
+        assert_close(g.time_data.numpy(), np.asarray(w.time_data), 2e-5, "harmonic")
+    # each harmonic IR peaks where `get_harmonic_times` puts it
+    ts = bk.get_harmonic_times([20, 20000], 2.0, 5)
+    np.testing.assert_array_equal(ts, jbk.get_harmonic_times([20, 20000], 2.0, 5))
+    assert bk.get_chirp_rate([20000, 20], 2.0) == jbk.get_chirp_rate([20, 20000], 2.0)
+    with pytest.raises(AssertionError):
+        tf.harmonics_from_chirp_ir(ImpulseResponse(None, _irs(1024), FS), [20, 20000], 2.0)
+
+
+def test_harmonic_distortion_analysis_matches_jax(distorted_sweep_ir):
+    p, j = _ir_pair(distorted_sweep_ir)
+    got = tf.harmonic_distortion_analysis(p, [20, 20000], 2.0, 3, generate_plot=False)
+    want = jtf.harmonic_distortion_analysis(j, [20, 20000], 2.0, 3, generate_plot=False)
+    assert set(got) == set(want) == {"1", "2", "3", "4", "thd", "thd_n", "thd_percent"}
+    for key in want:
+        np.testing.assert_allclose(got[key].frequency_vector_hz, want[key].frequency_vector_hz)
+        g, w = got[key].spectral_data, np.asarray(want[key].spectral_data)
+        if g.is_complex():  # the fundamental's and the harmonics' smoothed phases
+            assert_phase_close(g, w, phase_range(w), key)
+        else:
+            assert_close(g.numpy(), w, 2e-5, key)
+    # the list form: the fundamental and its harmonics' IRs
+    harms = tf.harmonics_from_chirp_ir(p, [20, 20000], 2.0, 2)
+    jharms = jtf.harmonics_from_chirp_ir(j, [20, 20000], 2.0, 2)
+    got = tf.harmonic_distortion_analysis([p.copy()] + harms, generate_plot=False)
+    want = jtf.harmonic_distortion_analysis([j.copy()] + jharms, generate_plot=False)
+    for key in ("thd", "thd_n", "thd_percent"):
+        assert_close(got[key].spectral_data.numpy(), np.asarray(want[key].spectral_data),
+                     2e-5, f"list {key}")
     with pytest.raises(NotImplementedError):
-        ir.get_spectrum()
+        tf.harmonic_distortion_analysis(p, [20, 20000], 2.0, 3)
+    with pytest.raises(TypeError):
+        tf.harmonic_distortion_analysis(Signal(None, _irs(1024), FS), generate_plot=False)
+
+
+@pytest.mark.parametrize("channel", [None, 1])
+@pytest.mark.parametrize("offset", [20e-3, None])
+def test_trim_ir_matches_jax(channel, offset):
+    p, j = _ir_pair(_irs(16384))
+    got, start, stop = tf.trim_ir(p, channel, offset)
+    want, jstart, jstop = jtf.trim_ir(j, channel, offset)
+    assert (start, stop) == (jstart, jstop)
+    assert isinstance(got, ImpulseResponse) and got.device.type == "cpu"
+    assert_close(got.time_data.numpy(), np.asarray(want.time_data), 0, "trimmed")
