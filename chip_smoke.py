@@ -91,6 +91,20 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   counted, B2's outputs against the plain paths and scipy float64, each
   call against the plain paths (the activity mask's flips against a
   float64 recursion printed), each timed with its device idle share;
+- the transforms path (`dsptoolbox_tpu_torch.tools.feature_chain`): (a)
+  log-mel (40 bands), MFCC, chroma, Hilbert and the DFT at 31 third-octave
+  centres on the 60 s recording, (b) its spectrum through 31 order-8
+  third-octave bandpasses in parallel (B3) and in zero phase (B2), (c) CWT
+  (64 Morlet scales, plain and synchrosqueezed) and VQT on 10 s of music at
+  44.1 kHz, (d) LPC (order 16, Yule-Walker, Burg, synthesis) on the
+  recording at 16 kHz, (e) warping ("bark", 4096 samples and the whole
+  65,536) and Laguerre on the measurement's 16 windowed IRs: counted (B1,
+  B3, B2), each kernel against its plain version at the path's shapes, the
+  features against float64 numpy, scipy and direct sums, LPC against
+  float64 Burg and Yule-Walker and its synthesis against scipy's lfilter,
+  warping and Laguerre against the float64 recursion of the JAX package's
+  scans; the device kernels of one warp, Laguerre and LPC synthesis call;
+  each step timed;
 - the chains of `dsptoolbox_tpu_torch.tools.pipeline_chains` through
   `pipeline`, each captured into one CUDA graph: config 2 at both sizes
   (B1), the transfer-function measurement (B4), config 3 with its amplitude
@@ -1667,6 +1681,365 @@ def standard_phase(dev, sig, card: str) -> dict:
     return {"iir_lead": b2, "iir_lead_err": b2_err}
 
 
+def np_burg(x, order: int):
+    """Burg's method in float64 numpy over the last axis of ``x (..., L)``:
+    (coefficients ``(..., order+1)``, prediction error)."""
+    import numpy as np
+
+    fwd, bwd = x[..., 1:], x[..., :-1]
+    a = np.zeros(x.shape[:-1] + (order + 1,))
+    a[..., 0] = 1.0
+    den = np.sum(fwd**2 + bwd**2, axis=-1)
+    for i in range(order):
+        k = -2.0 * np.sum(bwd * fwd, axis=-1) / (den + np.finfo(np.float64).eps)
+        a[..., 1 : i + 2] = a[..., 1 : i + 2] + k[..., None] * a[..., i::-1]
+        fwd, bwd = fwd + k[..., None] * bwd, bwd + k[..., None] * fwd
+        den = (1.0 - k**2) * den - bwd[..., -1] ** 2 - fwd[..., 0] ** 2
+        fwd, bwd = fwd[..., 1:], bwd[..., :-1]
+    return a, den
+
+
+def np_yule_walker(x, order: int):
+    """Yule-Walker in float64 numpy over the last axis of ``x (..., L)``:
+    the biased autocorrelation, then Levinson-Durbin."""
+    import numpy as np
+
+    L = x.shape[-1]
+    r = np.stack([np.sum(x[..., : L - k] * x[..., k:], axis=-1) for k in range(order + 1)],
+                 axis=-1) / L
+    a = np.zeros(x.shape[:-1] + (order + 1,))
+    a[..., 0] = 1.0
+    err = r[..., 0].copy()
+    for i in range(1, order + 1):
+        k = -np.sum(a[..., :i] * r[..., i:0:-1], axis=-1) / err
+        a[..., : i + 1] = a[..., : i + 1] + k[..., None] * a[..., i::-1]
+        err = err * (1.0 - k**2)
+    return a, err
+
+
+def np_allpass_scans(x, lam: float):
+    """The JAX package's warping and Laguerre scans in float64 (scipy's
+    lfilter T times): ``Σₙ x[n]·Aⁿδ`` and, for the transpose, output k the
+    last sample of Aᵏ applied to the reversed x; x ``(T, C)``."""
+    import numpy as np
+    from scipy.signal import lfilter
+
+    T = len(x)
+    d = np.zeros(T)
+    d[0] = 1.0
+    warped = d[:, None] * x[0][None]
+    for n in range(1, T):
+        d = lfilter([-lam, 1.0], [1.0, -lam], d)
+        warped += d[:, None] * x[n][None]
+    cur = x[::-1].T.copy()
+    rows = [cur[:, -1]]
+    for _ in range(1, T):
+        cur = lfilter([-lam, 1.0], [1.0, -lam], cur, axis=-1)
+        rows.append(cur[:, -1])
+    return warped, np.array(rows)
+
+
+def device_kernels(fn) -> int | None:
+    """CUDA kernels that one call of ``fn`` launches, from `torch.profiler`
+    (None where the profiler records no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def features_phase(dev, session, irs, card: str) -> dict:
+    """The transforms path (`tools/feature_chain.py`) at full size: (a) the
+    STFT features, Hilbert and the DFT on config 2's 16 × 60 s session, (b)
+    the filter-bank spectrum at the 31 third-octave centres, parallel (B3)
+    and zero phase (B2), (c) CWT (plain, synchrosqueezed) and VQT on 10 s of
+    music at 44.1 kHz, (d) LPC (Yule-Walker, Burg, synthesis) on the session
+    at 16 kHz, (e) warping and Laguerre on the measured room's 16 windows of
+    65,536 samples. Counted (B1, B2, B3), each kernel against its plain
+    version at the path's shapes; log-mel, MFCC and chroma against a float64
+    numpy STFT times the same matrices; Hilbert against scipy float64; the
+    DFT, the CWT (4 scales) against float64 direct sums; the spectra
+    against scipy float64 from 100 Hz; LPC against float64 numpy Burg and
+    Yule-Walker, its synthesis against scipy's lfilter on the same noise;
+    warping and Laguerre against the float64 recursion of the JAX package's
+    scans at 4096 samples, at 65,536 against a float64 run of another tile
+    width. Each step timed with CUDA events (median of 20, of 5 for the
+    host-bound ones), the steps with kernels against the plain paths.
+    Returns the kernels' launches and errors on the path and the times."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    from scipy.signal import hilbert as scipy_hilbert
+    from scipy.signal import lfilter, sosfilt, sosfiltfilt
+
+    from dsptoolbox_tpu_torch import transforms as tr
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.classes.filterbank import _sos_bank_or_none
+    from dsptoolbox_tpu_torch.generators.generators import _generator
+    from dsptoolbox_tpu_torch.ops import cuda_framing, cuda_iir_bank, iir, iir_block
+    from dsptoolbox_tpu_torch.ops.framing import reconstruct_framed_signal
+    from dsptoolbox_tpu_torch.ops.windows import get_window
+    from dsptoolbox_tpu_torch.standard.enums import FilterPassType, Window
+    from dsptoolbox_tpu_torch.tools import feature_chain as fc
+    from dsptoolbox_tpu_torch.transforms import _backend as tb
+
+    t_phase = time.perf_counter()
+    fs, C, T = session.sampling_rate_hz, session.number_of_channels, session.length_samples
+    music = fc.music()
+    lpc_sig = fc.lpc_signal(session)
+    torch.cuda.synchronize()
+    out = {"times": []}
+
+    def timed(label: str, fn, n: int = N_TIMED, plain_too: bool = False) -> None:
+        fns = (fn, lambda: plain(fn)) if plain_too else (fn,)
+        ms = time_pair(*fns, n=n, warm=1)
+        line = f"time features {label}: {ms[0]:.4f} ms"
+        if plain_too:
+            line += f", plain paths {ms[1]:.4f} ms"
+        print(f"{line} (median of {n}; {card})")
+        out["times"].append({"step": label, "ms": ms[0],
+                             "plain_ms": ms[1] if plain_too else None})
+
+    def check(label: str, err: float, tol: float, what: str = "scale-rel") -> None:
+        print(f"features {label}: {what} {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            fail(f"features {label} is off")
+
+    # 30. the path once, counted (the session's STFT not cached)
+    session._cache.clear()
+    res, launched = counted_run(lambda: fc.run(session, music, lpc_sig, irs))
+    print(f"features: launches {launched} (B1: the STFT once and each lpc once; B3 the "
+          f"parallel bank; B2 forward and backward for each of the {len(fc.THIRD_OCTAVES)} "
+          "zero-phase bands)")
+    if (launched["framing"] != 4 or launched["iir_bank"] < 1
+            or launched["iir_lead"] != 2 * len(fc.THIRD_OCTAVES)):
+        fail("features: the path did not go through B1, B3 and B2 as it should")
+    out.update(framing=launched["framing"], iir_bank=launched["iir_bank"],
+               iir_lead=launched["iir_lead"])
+
+    # 31. the kernels against their plain versions at the path's shapes:
+    # B1 at the STFT's and LPC's frames, B3 at the bank, B2 at one zero-phase band
+    win = torch.as_tensor(get_window(Window.Hann, 1024), dtype=torch.float32, device=dev)
+    win512 = torch.as_tensor(get_window(Window.Hann, fc.LPC_WINDOW), dtype=torch.float32,
+                             device=dev)
+    b1_err = 0.0
+    for xin, w, step, pad in ((session._x, win, 512, 512),
+                              (lpc_sig._x, win512, fc.LPC_HOP, 0)):
+        err = float((cuda_framing.windowed_frames_cuda(xin, w, step, False, pad)
+                     - cuda_framing.windowed_frames_plain(xin, w, step, False, pad)
+                     ).abs().max())
+        b1_err = max(b1_err, err)
+        check(f"B1 x {tuple(xin.shape)} L={w.shape[0]} step={step} pad={pad} vs plain", err,
+              1e-6, "max abs err")
+    factor = 2 ** (1 / 6)
+    filters = [Filter.iir_filter(fc.BANK_ORDER, [f / factor, f * factor],
+                                 FilterPassType.Bandpass, fs) for f in fc.THIRD_OCTAVES]
+    bank = _sos_bank_or_none(filters)
+    ops, rest = iir_block.bank_kernel_stages(bank, T, dev)
+    lead = ops["n_full"] * ops["L"]
+    y_k = torch.empty((1, len(bank), C, T), device=dev)
+    y_p = torch.empty_like(y_k)
+    cuda_iir_bank.sosfilt_bank_lead_cuda(ops, session._x, y_k)
+    cuda_iir_bank.sosfilt_bank_lead_plain(ops, session._x, y_p)
+    torch.cuda.synchronize()
+    b3_err = float((y_k[..., :lead] - y_p[..., :lead]).abs().max())
+    scale = float(y_p[..., :lead].abs().max())
+    print(f"features: B3 bank (B, R, T) = {(len(bank), C, T)}, {ops['kernel']['lanes']} lanes, "
+          f"L = {ops['L']}, {len(rest[0]) if rest else 0} more stages; |dy| {b3_err:.3e} "
+          f"<= 1e-5*{scale:.3e}")
+    if rest or not b3_err <= 1e-5 * scale:
+        fail("features: B3 disagrees with its plain version at the bank")
+    k_ms, p_ms = time_pair(lambda: cuda_iir_bank.sosfilt_bank_lead_cuda(ops, session._x, y_k),
+                           lambda: cuda_iir_bank.sosfilt_bank_lead_plain(ops, session._x, y_p),
+                           n=5, warm=1)
+    nb, f32, f64, f64_mm = bank_bound(ops, C)
+    b3_bound, b3_by = bound(nb, 0.0, f64, f64_mm, f32)
+    print(f"time features B3 bank (B, R, K, L) = {(len(bank), C, ops['n_full'], ops['L'])}: "
+          f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b3_bound:.4f} ms ({b3_by}, "
+          f"{k_ms / b3_bound:.2f}×) (median of 5; {card})")
+    out["iir_bank_time"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b3_bound,
+                            "bound_by": b3_by}
+    del y_k, y_p
+    sos_1k = filters[17].sos
+    z_k = iir.sosfiltfilt(sos_1k, session._x)
+    z_p = plain(lambda: iir.sosfiltfilt(sos_1k, session._x))
+    b2_err = float((z_k - z_p).abs().max())
+    check(f"B2 zero-phase 1 kHz band x {tuple(session._x.shape)} vs plain", b2_err,
+          1e-5 * float(z_p.abs().max()), "max abs err")
+    out.update(framing_err=b1_err, iir_bank_err=b3_err, iir_lead_err=b2_err)
+    del z_k, z_p
+
+    # 32. (a) against float64 numpy on 2 channels: the STFT power times the
+    # same matrices, Hilbert against scipy, the DFT against direct sums
+    sub = [0, 1]
+    x64 = session._x[sub].double().cpu().numpy()
+    P64 = np.abs(np.fft.rfft(np_frames(x64, 1024, 512, pad=512), axis=-1)) ** 2  # (2, K, F)
+    f_hz = np.fft.rfftfreq(1024, 1 / fs)
+    t_s, f_mel, logmel = res["(a) log_mel_spectrogram"]
+    mfilt = tr.mel_filterbank(f_hz, None, fc.N_MELS)[0]
+    mel64 = np.maximum(P64 @ mfilt.T, np.finfo(np.float32).tiny)  # (2, K, B)
+    want = 10 * np.log10(mel64).transpose(2, 1, 0)
+    got = logmel[..., sub]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"features log-mel: shape {got.shape}, want {want.shape}, or non-finite")
+    check("(a) log-mel (40 bands) vs float64 numpy, dB", float(np.abs(got - want).max()), 1e-2,
+          "max abs dB")
+    k = np.arange(fc.N_MELS)
+    dct = 2.0 * np.cos(np.pi * k[:, None] * (2 * k[None, :] + 1) / (2 * fc.N_MELS))
+    check("(a) MFCC vs float64 numpy", rel_err(res["(a) mfcc"][2][..., sub],
+                                               np.abs(np.einsum("nb,bkc->nkc", dct, want))),
+          1e-3)
+    _, chroma, pitch = res["(a) chroma_stft"]
+    pf = 440.0 * 2 ** ((np.arange(128) - 69) / 12)
+    pm = ((f_hz[None] >= pf[:, None] * 2 ** (-1 / 24))
+          & (f_hz[None] < pf[:, None] * 2 ** (1 / 24))).astype(float)
+    cm = (np.arange(128)[None] % 12 == np.arange(12)[:, None]).astype(float)
+    pitch64 = P64 @ pm.T
+    check("(a) chroma vs float64 numpy", rel_err(chroma[..., sub], np.log1p(
+        0.5 * pitch64 @ cm.T).transpose(2, 1, 0)), 1e-3)
+    check("(a) pitch features vs float64 numpy", rel_err(pitch[..., sub], np.log1p(
+        0.5 * pitch64).transpose(2, 1, 0)), 1e-3)
+    h = res["(a) hilbert"]
+    z = torch.complex(h._x[sub], h._x_imag[sub]).cpu().numpy()
+    check("(a) hilbert vs scipy float64", float(np.abs(z - scipy_hilbert(x64, axis=-1)).max()),
+          1e-4, "max abs err")
+    spec = res["(a) dft at 31 third-octave centres"]
+    n = np.arange(T)
+    picks = (0, 15, 30)
+    want = [np.sum(np.exp(-2j * np.pi * fc.THIRD_OCTAVES[i] * n / fs) * x64[0]) for i in picks]
+    check("(a) DFT at 20 Hz, 630 Hz, 20 kHz (channel 0) vs a float64 direct sum",
+          rel_err(spec[list(picks), 0], np.array(want)), 2e-4)
+    del P64, mel64, want, x64
+
+    # 33. (b) the spectra against scipy float64 on channel 0, bands in threads
+    x0 = session._x[0].double().cpu().numpy()
+    for name, run in (("", sosfilt), (", zero phase", sosfiltfilt)):
+        got = res["(b) spectrum_via_filterbank" + name].spectral_data[:, 0].cpu().numpy()
+        with Pool(8) as pool:
+            want = np.array(list(pool.map(lambda f: run(f.sos, x0).std(), filters)))
+        errs = np.abs(got - want) / want
+        high = fc.THIRD_OCTAVES >= 100
+        print(f"features (b) spectrum{name} below 100 Hz vs scipy float64: rel "
+              + ", ".join(f"{f:.0f} Hz {e:.1e}" for f, e in zip(fc.THIRD_OCTAVES[~high],
+                                                               errs[~high])))
+        check(f"(b) spectrum{name} from 100 Hz vs scipy float64 (channel 0)",
+              float(errs[high].max()), 1e-4, "max rel err")
+
+    # 34. (c) the CWT against float64 direct sums at 4 scales, 4096 samples
+    xm = music._x[0].double().cpu().numpy()
+    cw = res["(c) cwt"]
+    picks = np.linspace(0, len(xm) - 1, 4096).astype(int)
+    wavelet = fc.morlet()
+    err = 0.0
+    for fi in (0, 21, 42, 63):
+        w = np.asarray(wavelet.get_wavelet(fc.CWT_FREQUENCIES[fi], fc.MUSIC_FS))
+        w = w / np.abs(w).sum()
+        start = (len(w) - 1) // 2
+        xp = np.pad(xm, (len(w), len(w)))
+        # "same": y[n] = Σ_k w[k]·x[n + start − k]
+        idx = picks[:, None] + start - np.arange(len(w))[None] + len(w)
+        want = (xp[idx] * w[None]).sum(axis=1)
+        err = max(err, rel_err(cw[fi, picks, 0], want))
+    check("(c) CWT at 4 scales vs float64 direct sums", err, 2e-4)
+    sq = res["(c) cwt, synchrosqueezed"]
+    two = tb.squeeze_scalogram(cw, fc.CWT_FREQUENCIES, fc.MUSIC_FS)
+    check("(c) synchrosqueezed CWT vs the two-stage squeeze_scalogram", rel_err(sq, two), 1e-5)
+    f_v, vq = res["(c) vqt"]
+    head = music.copy_with_new_time_data(music._x[:, : fc.MUSIC_FS].T.cpu())
+    vq_cpu = tr.vqt(head, return_device=True)[1]
+    head_gpu = tr.vqt(music.copy_with_new_time_data(music._x[:, : fc.MUSIC_FS].T),
+                      return_device=True)[1]
+    # 24 bins an octave over 5 octaves (its frequency vector has 12 an
+    # octave, as the JAX package's: `transforms.py:655-657`)
+    if tuple(vq.shape) != (120, music.length_samples, 1) or not bool(
+            torch.isfinite(torch.view_as_real(vq)).all()):
+        fail("features (c) vqt: shape or non-finite")
+    check("(c) VQT (first second) vs the CPU", rel_err(head_gpu, vq_cpu), 1e-5)
+    del cw, sq, two
+
+    # 35. (d) LPC against float64 numpy on channel 0's frames; the synthesis
+    # against scipy's lfilter on the same noise
+    frames = cuda_framing.windowed_frames(lpc_sig._x, win512, fc.LPC_HOP, False)
+    f0 = frames[0].double().cpu().numpy()  # (K, L)
+    K = f0.shape[0]
+    for name, oracle in (("Yule-Walker", np_yule_walker), ("Burg", np_burg)):
+        a, e = res[f"(d) lpc, {name}"]
+        wa, we = oracle(f0, fc.LPC_ORDER)
+        check(f"(d) LPC {name} order {fc.LPC_ORDER}, {K} frames vs float64 numpy",
+              max(rel_err(a[:, :, 0].T, wa), rel_err(e[:, 0], we)), 1e-6)
+    a, var = res["(d) lpc, Burg"]
+    noise = torch.randn((lpc_sig.number_of_channels, K, fc.LPC_WINDOW),
+                        generator=_generator(fc.LPC_SEED, dev), dtype=torch.float64, device=dev)
+    src = (noise[0] * torch.as_tensor(np.sqrt(np.maximum(var[:, 0], 0)), device=dev)[:, None]
+           ).cpu().numpy()
+    synth = np.stack([lfilter([1.0], a[:, k, 0], src[k]) for k in range(K)])
+    rec = reconstruct_framed_signal(torch.from_numpy(synth).float(), fc.LPC_HOP,
+                                    get_window(Window.Hann, fc.LPC_WINDOW),
+                                    lpc_sig.length_samples)
+    syn = res["(d) lpc, Burg with synthesis"]
+    check("(d) LPC synthesis (channel 0) vs scipy lfilter on the same noise",
+          rel_err(syn._x[0], rec * syn.amplitude_scale_factor), 1e-5)
+
+    # 36. (e) warping and Laguerre at 4096 samples against the float64
+    # recursions (4 channels), warping at 65,536 against a float64 run
+    lam = tb.get_warping_factor(fc.WARP_SCALE, fs)
+    t0 = time.perf_counter()
+    w64, _ = np_allpass_scans(irs._x[:4, : fc.WARP_LENGTH].T.double().cpu().numpy(), lam)
+    lag_in = fc.laguerre_input(irs)
+    lam_l = fc.LAGUERRE_FACTOR
+    xl = lag_in._x[:4].double().cpu().numpy()
+    hp_ = np.sqrt(1 - lam_l**2) * (-lam_l) ** np.arange(fc.WARP_LENGTH)
+    u = np.stack([np.convolve(row[::-1], hp_)[: fc.WARP_LENGTH] for row in xl])
+    _, l64 = np_allpass_scans(u[:, ::-1].T.copy(), -lam_l)
+    print(f"features (e): float64 recursions {time.perf_counter() - t0:.1f} s on the host")
+    # (the outputs are IRs that constrain their amplitude: the oracles scaled alike)
+    warped = res[f"(e) warp {fc.WARP_SCALE}, {fc.WARP_LENGTH} samples"][0]
+    check(f"(e) warp {fc.WARP_SCALE} (lambda {lam:.4f}), {fc.WARP_LENGTH} samples vs the float64 "
+          "recursion", rel_err(warped._x[:4].T, w64 * warped.amplitude_scale_factor), 5e-4)
+    lag = res[f"(e) laguerre {lam_l}, {fc.WARP_LENGTH} samples"]
+    check(f"(e) laguerre {lam_l}, {fc.WARP_LENGTH} samples vs the float64 recursion",
+          rel_err(lag._x[:4].T, l64 * lag.amplitude_scale_factor), 1e-4)
+    whole = res[f"(e) warp {fc.WARP_SCALE}, whole IR"][0]
+    M = tb._tile(*irs._x.T.shape)
+    ref64 = tb.allpass_apply(irs._x.T.double(), lam, tile=2 * M)
+    check(f"(e) warp, {irs.length_samples} samples, float32 vs float64 at tile {2 * M}",
+          rel_err(whole._x.T, ref64 * whole.amplitude_scale_factor), 1e-5)
+    del ref64, whole
+
+    # 37. no launch per output sample: device kernels of one call
+    for name in (f"(e) warp {fc.WARP_SCALE}, whole IR",
+                 f"(e) laguerre {lam_l}, {fc.WARP_LENGTH} samples",
+                 "(d) lpc, Burg with synthesis"):
+        fn = fc.calls(session, music, lpc_sig, irs)[name]
+        n_k = device_kernels(fn)
+        print(f"features {name}: {n_k if n_k is not None else 'not measured'} device kernels "
+              "a call")
+        out.setdefault("device_kernels", {})[name] = n_k
+
+    # 38. times
+    host_bound = {"(b) spectrum_via_filterbank, zero phase", f"(e) warp {fc.WARP_SCALE}, whole IR",
+                  "(d) lpc, Yule-Walker", "(d) lpc, Burg", "(d) lpc, Burg with synthesis",
+                  "(c) vqt", "(c) cwt, synchrosqueezed"}
+    with_kernels = {"(a) log_mel_spectrogram", "(a) mfcc", "(a) chroma_stft",
+                    "(b) spectrum_via_filterbank", "(b) spectrum_via_filterbank, zero phase",
+                    "(d) lpc, Yule-Walker", "(d) lpc, Burg", "(d) lpc, Burg with synthesis"}
+    for name, fn in fc.calls(session, music, lpc_sig, irs).items():
+        if name in fc.STFT_STEPS:
+            step = (lambda f=fn: (session._cache.clear(), f()))  # the STFT included
+        else:
+            step = fn
+        timed(name, step, n=5 if name in host_bound else N_TIMED,
+              plain_too=name in with_kernels)
+    print(f"features phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 def np_quadratic(h, C):
     """``Re(h^H C_f h)`` in float64 numpy, ``(G, F)``."""
     import numpy as np
@@ -2523,7 +2896,20 @@ def main() -> int:
     # 24-25. config 2 at 1 x 4 s and 16 x 60 s (B1), and the standard
     # functions on the 60 s recording (B2)
     c2 = config2_phase(dev, card)
-    std = standard_phase(dev, c2.pop("minute"), card)
+    minute = c2.pop("minute")
+    std = standard_phase(dev, minute, card)
+
+    # 30-38. the transforms path on the 60 s session (B1, B3, B2), music,
+    # LPC at 16 kHz and the measured room's windows
+    feat = features_phase(dev, minute, windowed_irs, card)
+    del minute
+    torch.cuda.empty_cache()
+    b3["launches_by_path"]["transforms"] = feat["iir_bank"]
+    b3["launches"] += feat["iir_bank"]
+    b3["max_abs_err_by_path"] = {"config3": b3["max_abs_err"], "transforms": feat["iir_bank_err"]}
+    b3["max_abs_err"] = max(b3["max_abs_err"], feat["iir_bank_err"])
+    b3["transforms_times"] = feat["times"]
+    b3["transforms_bank"] = feat["iir_bank_time"]
 
     # 26. the chains through `pipeline`, each captured into one CUDA graph:
     # config 2 (B1), the TF path (B4), config 3 (B3), the crossover bands (B2)
@@ -2561,14 +2947,17 @@ def main() -> int:
          "source": "dsptoolbox_tpu_torch/csrc/framing.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
          "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
-                      + c2["framing"] + pl_launches["framing"] + tfa["framing"]),
+                      + c2["framing"] + pl_launches["framing"] + tfa["framing"]
+                      + feat["framing"]),
          "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
                               "config5": c5["framing"], "config2": c2["framing"],
                               "pipeline": pl_launches["framing"],
-                              "tf_analysis": tfa["framing"]},
-         "max_abs_err": max(b1_err, c2["framing_err"], tfa["framing_err"]),
+                              "tf_analysis": tfa["framing"], "transforms": feat["framing"]},
+         "max_abs_err": max(b1_err, c2["framing_err"], tfa["framing_err"],
+                            feat["framing_err"]),
          "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"],
-                                 "tf_analysis": tfa["framing_err"]},
+                                 "tf_analysis": tfa["framing_err"],
+                                 "transforms": feat["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "by_path_shape": b1_shapes, "config2_times": c2["times"],
@@ -2577,13 +2966,16 @@ def main() -> int:
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
-                      + pl_launches["iir_lead"] + tfa["iir_lead"]),
+                      + pl_launches["iir_lead"] + tfa["iir_lead"] + feat["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
                               "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"],
-                              "tf_analysis": tfa["iir_lead"]},
-         "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"]),
+                              "tf_analysis": tfa["iir_lead"], "transforms": feat["iir_lead"]},
+         "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"],
+                            feat["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
-                                 "standard": std["iir_lead_err"]},
+                                 "standard": std["iir_lead_err"],
+                                 "transforms": feat["iir_lead_err"]},
+         "transforms_device_kernels": feat.get("device_kernels"),
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
         b3,

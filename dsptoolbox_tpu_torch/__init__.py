@@ -18,7 +18,7 @@ The root mirrors the JAX package's (`dsptoolbox_tpu/__init__.py:16-83`):
 the standard functions and enums, the classes, the ported namespaces,
 `pipeline` (a chain of calls as one CUDA graph) and `compute_all`. Not
 ported yet, so not exported: ``CalibrationData`` (A5), ``load_pkl_object``
-(A5's ``io``), the namespaces ``distances`` and ``effects`` (A11), ``audio_io``, ``plots`` and
+(A5's ``io``), the namespaces ``distances`` and ``effects`` (A11), ``audio_io`` and
 ``tools`` (A14; the port's own `tools` package holds its run and
 measurement scripts).
 """
@@ -90,6 +90,7 @@ from .classes import (
 from . import beamforming
 from . import filterbanks
 from . import generators
+from . import plots
 from . import room_acoustics
 from . import transfer_functions
 from . import transforms
@@ -151,6 +152,7 @@ __all__ = [
     "filterbanks",
     "transforms",
     "beamforming",
+    "plots",
     "default_complex",
     "default_device",
     "default_float",

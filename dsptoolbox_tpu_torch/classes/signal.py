@@ -610,6 +610,27 @@ class Signal:
             self._cache["spectrogram"] = entry
         return entry[1].copy(), entry[2].copy(), entry[3]
 
+    def _get_power_spectrogram_device(self):
+        """``(t, f, P (F, frames, C))``: ``|S|²`` of the cached STFT
+        (`classes/signal.py:1361`), the input of the mel, MFCC and chroma
+        projections. ``P`` is a permuted view of a channels-first
+        ``(C, frames, F)`` tensor on the signal's device, cached as long as
+        `get_spectrogram` serves the same ``S``.
+
+        ``f`` is the grid of the FFT length, as `get_spectrogram` gives it;
+        the JAX package's power spectrogram gives the window's, which with
+        ``fft_length_samples > window_length_samples`` has fewer bins than
+        ``P`` (its mel and MFCC projections then fail on the shapes, and
+        its `chroma_stft` rebuilds the grid, `transforms.py:453-461`)."""
+        t, f, S = self.get_spectrogram()
+        entry = self._cache.get("spectrogram_power")
+        if entry is None or entry[0] is not S or entry[1] != S._version:
+            s_cf = S.permute(2, 1, 0)  # the STFT's (C, frames, F) tensor
+            power = (s_cf.real.square() + s_cf.imag.square()).permute(2, 1, 0)
+            entry = (S, S._version, power)
+            self._cache["spectrogram_power"] = entry
+        return t, f, entry[2]
+
     def _get_csm_device(self):
         """``(freqs, real (F, C, C), imag (F, C, C))``: the cached CSM split
         into real and imaginary views (`classes/signal.py:1166-1208`)."""

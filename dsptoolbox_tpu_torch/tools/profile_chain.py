@@ -1,6 +1,6 @@
 """Where the port's time goes on a CUDA device.
 
-    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf tfa fb ra c2 pipeline | all]
+    python -m dsptoolbox_tpu_torch.tools.profile_chain [--runs 20] [--case chain das bf tf tfa fb ra c2 feat pipeline | all]
 
 ``chain``: at the measurement chain's shapes (16 signals × 8 s at 48 kHz,
 float32) it profiles, with `torch.profiler`, the framing kernel, the IIR
@@ -57,6 +57,13 @@ RIRs; (c) the image-source fleet's generator (64 pairs, 272 M images).
 functions on the 60 s recording (`speech_chain.standard_calls`: loudness,
 true peak, RMS, crest factor, latencies, the activity detector,
 the envelope), a few calls each.
+
+``feat``: the transforms path (`tools.feature_chain`): every step of (a)
+the STFT features, Hilbert and the DFT on config 2's 16 × 60 s session,
+(b) the filter-bank spectrum (B3; zero phase, B2), (c) CWT and VQT on 10 s
+of music, (d) LPC at 16 kHz, (e) warping and Laguerre on the measurement
+path's 16 windows of 65,536 samples, a few calls each; the STFT features
+with the session's STFT computed anew each call.
 
 ``pipeline``: each chain of `tools.pipeline_chains` (config 2 at both
 sizes, the TF path, config 3, the four crossover bands as `Filter`s)
@@ -461,6 +468,26 @@ def profile_c2(dev, runs: int) -> None:
                      event_calls=5, warm=1)
 
 
+def profile_feat(dev, runs: int) -> None:
+    from . import feature_chain as fc
+    from . import measurement
+    from . import speech_chain as sc
+
+    sweep = measurement.excitation()
+    _, windowed, _, _ = measurement.run(
+        measurement.recording(sweep, measurement.room_irs()[0]), sweep)
+    session = sc.signal(*sc.MINUTE)
+    music = fc.music()
+    lpc_sig = fc.lpc_signal(session)
+    few = dict(runs=min(runs, 5), host_calls=5, event_calls=5, warm=1)
+    for name, fn in fc.calls(session, music, lpc_sig, windowed).items():
+        if name in fc.STFT_STEPS:
+            step = (lambda f=fn: (session._cache.clear(), f()))  # the STFT included
+        else:
+            step = fn
+        profile_call(f"features {name}", step, **few)
+
+
 def profile_pipeline(dev, runs: int) -> None:
     from .. import pipeline
     from . import pipeline_chains as pc
@@ -487,7 +514,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=20, help="profiled calls per case")
     ap.add_argument("--case", choices=("chain", "das", "bf", "tf", "tfa", "fb", "ra", "c2",
-                                       "pipeline", "all"),
+                                       "feat", "pipeline", "all"),
                     nargs="+", default=["all"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -507,7 +534,7 @@ def main(argv=None) -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    cases = ({"chain", "das", "bf", "tf", "tfa", "fb", "ra", "c2", "pipeline"}
+    cases = ({"chain", "das", "bf", "tf", "tfa", "fb", "ra", "c2", "feat", "pipeline"}
              if "all" in args.case else set(args.case))
     if "das" in cases:
         profile_das(dev, args.runs)
@@ -523,6 +550,8 @@ def main(argv=None) -> int:
         profile_ra(dev, args.runs)
     if "c2" in cases:
         profile_c2(dev, args.runs)
+    if "feat" in cases:
+        profile_feat(dev, args.runs)
     if "pipeline" in cases:
         profile_pipeline(dev, args.runs)
     if "chain" not in cases:

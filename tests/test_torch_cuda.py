@@ -1022,3 +1022,104 @@ def test_compute_transfer_function_frames_each_signal_once_on_card(dev):
         for want in (plain, cpu):  # the DC bin, a noise/noise ratio, left out
             assert _rel(got.spectral_data[1:], want.spectral_data[1:]) <= 2e-5
             assert _rel(got.coherence[1:], want.coherence[1:]) <= 2e-5
+
+
+def test_stft_features_and_lpc_launch_b1_and_match_plain(dev):
+    """`log_mel_spectrogram`, `mfcc` and `chroma_stft` on the card frame
+    through B1 once (the power spectrogram is cached with the STFT), `lpc`
+    once a call; each matches the plain paths and the CPU."""
+    from dsptoolbox_tpu_torch import transforms
+    from dsptoolbox_tpu_torch.tools import speech_chain
+
+    x = speech_chain.signal(2, 1.0).time_data.cpu()
+    sigs = {"card": Signal(None, x.to(dev), 48000), "cpu": Signal(None, x, 48000)}
+    plain = Signal(None, x.to(dev), 48000)
+    cuda_framing.launches = 0
+    out = {}
+    for name, s in sigs.items():
+        out[name] = (transforms.log_mel_spectrogram(s, generate_plot=False)[2],
+                     transforms.mfcc(s, generate_plot=False)[2],
+                     transforms.chroma_stft(s)[1],
+                     transforms.lpc(s, 16, 512, use_burg_method=True)[0],
+                     transforms.lpc(s, 16, 512)[0])
+        torch.cuda.synchronize()
+        if name == "card":
+            assert cuda_framing.launches == 3  # the STFT once, each lpc once
+    assert cuda_framing.launches == 3  # CPU tensors take the plain path
+    with _config.kernels_off():
+        out["plain"] = (transforms.log_mel_spectrogram(plain, generate_plot=False)[2],
+                        transforms.mfcc(plain, generate_plot=False)[2],
+                        transforms.chroma_stft(plain)[1],
+                        transforms.lpc(plain, 16, 512, use_burg_method=True)[0],
+                        transforms.lpc(plain, 16, 512)[0])
+    assert cuda_framing.launches == 3
+    for want in (out["plain"], out["cpu"]):
+        logmel, mf, chroma, burg, yw = out["card"]
+        valid = want[0] > -300
+        assert np.abs(logmel - want[0])[valid].max() < 1e-3  # dB
+        assert _rel(mf, want[1]) <= 1e-5
+        assert _rel(chroma, want[2]) <= 1e-5
+        assert _rel(burg, want[3]) <= 1e-6 and _rel(yw, want[4]) <= 1e-6
+
+
+def test_spectrum_via_filterbank_launches_b3_and_b2_and_meets_scipy(dev):
+    """The parallel bank through B3 (one launch), in zero phase each band
+    through B2 (forward and backward); both against scipy's float64
+    sosfilt/sosfiltfilt and RMS on the bands at and above 100 Hz."""
+    from scipy.signal import sosfiltfilt
+
+    from dsptoolbox_tpu_torch import transforms
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.standard.enums import FilterPassType
+
+    x = (0.3 * RNG.standard_normal((96000, 2))).astype(np.float32)
+    s = Signal(None, x, 48000, device=dev)
+    centres = 1000.0 * 10.0 ** (np.arange(-17, 14) / 10)
+    factor = 2 ** (1 / 6)
+    for zero_phase, run in ((False, sosfilt), (True, sosfiltfilt)):
+        cuda_iir_bank.launches = 0
+        cuda_iir.launches = 0
+        sp = transforms.spectrum_via_filterbank(s, centres, 1 / 3, None, 8, zero_phase)
+        torch.cuda.synchronize()
+        if zero_phase:
+            assert cuda_iir.launches == 2 * len(centres)
+        else:
+            assert cuda_iir_bank.launches >= 1 and cuda_iir.launches == 0
+        got = sp.spectral_data.cpu().numpy()
+        assert got.shape == (31, 2) and sp.spectral_data.device == s.device
+        for b, fc in enumerate(centres):
+            if fc < 100:
+                continue
+            sos = Filter.iir_filter(8, [fc / factor, fc * factor], FilterPassType.Bandpass,
+                                    48000).sos
+            want = run(sos, x.astype(np.float64), axis=0).std(axis=0)
+            assert np.abs(got[b] - want).max() / np.abs(want).max() <= 1e-4, fc
+
+
+def test_allpass_operator_on_card_meets_float64_recursion(dev):
+    """`warp`'s D·x and `laguerre`'s Dᵀ·v on the card at T = 4096 against
+    the float64 recursions of the JAX package's scans (scipy's lfilter T
+    times); no kernel launch, none per sample."""
+    from scipy.signal import lfilter
+
+    from dsptoolbox_tpu_torch.transforms import _backend as tb
+
+    T, lam = 4096, -0.76
+    x = RNG.standard_normal((T, 2))
+    d = np.zeros(T)
+    d[0] = 1.0
+    warped = d[:, None] * x[0][None]
+    for n in range(1, T):
+        d = lfilter([-lam, 1.0], [1.0, -lam], d)
+        warped = warped + d[:, None] * x[n][None]
+    cur = x[::-1].T.copy()
+    rows = [cur[:, -1]]
+    for _ in range(1, T):
+        cur = lfilter([-lam, 1.0], [1.0, -lam], cur, axis=-1)
+        rows.append(cur[:, -1])
+    transposed = np.array(rows)
+    xt = torch.from_numpy(x).to(dev)
+    assert _rel(tb.allpass_apply(xt, lam), warped) <= 1e-10
+    assert _rel(tb.allpass_apply_t(xt, lam), transposed) <= 1e-10
+    assert _rel(tb.allpass_apply(xt.float(), lam), warped) <= 1e-6
+    assert _rel(tb.allpass_apply_t(xt.float(), lam), transposed) <= 1e-6

@@ -46,7 +46,10 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.standard, dsptoolbox_tpu_torch.transforms\n"
         "import dsptoolbox_tpu_torch.tools.speech_chain, dsptoolbox_tpu_torch.helpers.latency\n"
         "import dsptoolbox_tpu_torch.helpers.frequency_conversion\n"
-        "import dsptoolbox_tpu_torch.tools.profile_chain\n"
+        "import dsptoolbox_tpu_torch.tools.profile_chain, dsptoolbox_tpu_torch.plots\n"
+        "import dsptoolbox_tpu_torch.tools.feature_chain, dsptoolbox_tpu_torch.transforms._backend\n"
+        "import dsptoolbox_tpu_torch.helpers.ar_estimation\n"
+        "assert 'matplotlib' not in sys.modules  # imported at the first plot only\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
         "assert not bad, bad\n"
@@ -61,7 +64,7 @@ def test_import_leaves_jax_out_and_needs_no_triton():
 
 
 @pytest.mark.parametrize(
-    "first", ["classes", "filterbanks", "standard", "generators", "transforms"])
+    "first", ["classes", "filterbanks", "standard", "generators", "transforms", "plots"])
 def test_each_layer_imports_first(first):
     """No import cycle: the layers below `standard` take the enums from the
     leaf module `_enums`, so any of them may be the first import."""
@@ -288,7 +291,7 @@ def test_default_device_is_cuda_and_numpy_follows_it():
 # port's own `tools` package holds its run and measurement scripts)
 WAITING = {"load_pkl_object": "A5"}
 WAITING_ROOT = {**WAITING, "CalibrationData": "A5", "distances": "A11", "effects": "A11",
-                "audio_io": "A14", "plots": "A14", "tools": "A14"}
+                "audio_io": "A14", "tools": "A14"}
 # the port's own exports: the steering factors as tensors on a device; at
 # the root, the device and kernel switches of `_config`
 PORT_ONLY = {
@@ -299,16 +302,22 @@ PORT_ONLY = {
 
 
 @pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming",
-                                       "transfer_functions", pytest.param("", id="root")])
+                                       "transfer_functions", "transforms", "plots",
+                                       pytest.param("", id="root")])
 def test_exports_match_the_jax_package(namespace):
     """Each namespace (and, for "", the package's root) exports the JAX
-    package's names but those still waiting, plus the port's own."""
+    package's names but those still waiting, plus the port's own (the JAX
+    package's `plots` has no ``__all__``: its public names)."""
     import importlib
+    import inspect
 
     import dsptoolbox_tpu
 
     suffix = f".{namespace}" if namespace else ""
-    jax_names = set(importlib.import_module(f"dsptoolbox_tpu{suffix}").__all__)
+    jax_module = importlib.import_module(f"dsptoolbox_tpu{suffix}")
+    jax_names = set(getattr(jax_module, "__all__", None) or [
+        n for n in dir(jax_module)
+        if not n.startswith("_") and not inspect.ismodule(getattr(jax_module, n))])
     port = importlib.import_module(f"dsptoolbox_tpu_torch{suffix}")
     waiting = set(WAITING if namespace else WAITING_ROOT)
     if not namespace:
@@ -412,3 +421,45 @@ def test_transfer_function_analysis_launches_no_kernel_on_cpu_tensors():
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
     assert cuda_banded.launches == 0
+
+
+def test_feature_chain_launches_no_kernel_on_cpu_tensors():
+    """`tools.feature_chain`'s steps (the STFT features, Hilbert, the DFT,
+    the filter-bank spectrum in both phases, CWT, VQT, LPC, warping and
+    Laguerre) on CPU tensors at a small size: the plain versions, no
+    launch; under the framing kernel's "on" the STFT features and `lpc`
+    raise, under the bank's "on" the filter-bank spectrum."""
+    from dsptoolbox_tpu_torch import transforms
+    from dsptoolbox_tpu_torch.ops import cuda_iir_bank
+    from dsptoolbox_tpu_torch.tools import feature_chain, speech_chain
+
+    cuda_framing.launches = 0
+    cuda_iir.launches = 0
+    cuda_iir_bank.launches = 0
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        session = speech_chain.signal(2, 0.5)
+        rng = np.random.default_rng(0)
+        irs = ImpulseResponse(None, (0.3 * rng.standard_normal((4096, 2))).astype(np.float32),
+                              48000)
+        out = feature_chain.run(session, feature_chain.music(seconds=0.2),
+                                feature_chain.lpc_signal(session), irs)
+        assert len(out) == 16
+        _config.set_framing_kernel("on")
+        for fn in (lambda: transforms.mfcc(session, generate_plot=False),
+                   lambda: transforms.lpc(session, 8, 512)):
+            session._cache.clear()
+            with pytest.raises(ValueError, match="CUDA"):
+                fn()
+        _config.set_framing_kernel("auto")
+        _config.set_bank_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            transforms.spectrum_via_filterbank(session, [500.0, 1000.0], 1 / 3)
+    finally:
+        _config.set_framing_kernel("auto")
+        _config.set_bank_kernel("auto")
+        _config.set_default_device(old)
+    assert cuda_framing.launches == 0
+    assert cuda_iir.launches == 0
+    assert cuda_iir_bank.launches == 0

@@ -4,8 +4,10 @@ fractional-octave smoothing, `minimum_phase`, `spectrum_utilities`), the
 standard backend's group delay and minimum phase, and the filter group
 delay (`classes.filter_helpers.group_delay_filter`, `Filter.get_group_delay`)
 against the JAX package on the CPU, on the same seeded numpy inputs, at
-`assert_close`'s 2e-5 scale-relative unless stated. Sizes are small: up
-to 4097 bins, 3 channels."""
+`assert_close`'s 2e-5 scale-relative unless stated; and `ar_estimation`
+(Levinson-Durbin, Yule-Walker, Burg in float64 on the data's device)
+against the JAX package's host numpy at 1e-10. Sizes are small: up to 4097
+bins, 3 channels."""
 
 import numpy as np
 import pytest
@@ -266,3 +268,50 @@ def test_filter_get_group_delay_matches_jax():
     got_s = Filter.from_sos(sos, 48000).get_group_delay(freqs, in_seconds=False)
     np.testing.assert_allclose(got_s, want * 48000, rtol=1e-12)
     assert len(Filter.from_ba(np.ones(7), [1.0], 48000)) == 7
+
+
+# ======== ar_estimation ======================================================
+from scipy.signal import lfilter  # noqa: E402
+
+from dsptoolbox_tpu.helpers import ar_estimation as jar  # noqa: E402
+from dsptoolbox_tpu_torch.helpers import ar_estimation  # noqa: E402
+
+# 512-sample frames (time first): white noise, and resonant AR(2) frames
+# whose reflection coefficients approach 1
+AR_FRAMES = RNG.standard_normal((512, 24, 2))
+AR_FRAMES[:, :12] = lfilter([1.0], [1.0, -1.8, 0.95], AR_FRAMES[:, :12], axis=0)
+
+
+@pytest.mark.parametrize("name", ["yule_walker_ar", "burg_ar"])
+@pytest.mark.parametrize("order", [1, 4, 16])
+def test_ar_estimation_matches_jax(name, order):
+    """numpy in, numpy out; a tensor stays a tensor on its device, in
+    float64; both within 1e-10 of the JAX package's float64 numpy."""
+    want_a, want_e = getattr(jar, name)(AR_FRAMES, order)
+    a, e = getattr(ar_estimation, name)(AR_FRAMES, order)
+    assert isinstance(a, np.ndarray) and a.shape == (order + 1, 24, 2)
+    assert_close(a, want_a, 1e-10, f"{name} coefficients")
+    assert_close(e, want_e, 1e-10, f"{name} error")
+    ta, te = getattr(ar_estimation, name)(torch.from_numpy(AR_FRAMES).float(), order)
+    assert ta.dtype == torch.float64 and ta.device.type == "cpu"
+    wa, we = getattr(jar, name)(AR_FRAMES.astype(np.float32), order)
+    assert_close(ta.numpy(), wa, 1e-10, f"{name} from float32")
+    assert_close(te.numpy(), we, 1e-10, f"{name} error from float32")
+
+
+def test_burg_ar_of_one_channel_and_levinson_durbin_match_jax():
+    x = AR_FRAMES[:, 0, 0]
+    a, e = ar_estimation.burg_ar(x, 8)
+    ja, je = jar.burg_ar(x, 8)
+    assert a.shape == (9,) and np.ndim(e) == 0
+    assert_close(a, ja, 1e-10, "burg 1-D")
+    np.testing.assert_allclose(e, je, rtol=1e-10)
+    r = np.stack([np.correlate(AR_FRAMES[:, k, 0], AR_FRAMES[:, k, 0], "full")[511:520]
+                  for k in range(24)], axis=1) / 512
+    a, e = ar_estimation.levinson_durbin_recursion(r)
+    ja, je = jar.levinson_durbin_recursion(r)
+    assert_close(a, ja, 1e-10, "levinson")
+    assert_close(e, je, 1e-10, "levinson error")
+    # a singular autocorrelation gives NaN or inf downstream, no exception
+    a, _ = ar_estimation.levinson_durbin_recursion(np.zeros((3, 2)))
+    assert not np.isfinite(a[1:]).any()
