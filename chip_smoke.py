@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
-``nvcc`` per source, started together) and drives the port's paths:
+``nvcc`` per source, started together, with the FLAC codec's ``g++``) and
+drives the port's paths:
 
 - the measurement chain (`dsptoolbox_tpu_torch.headline.run`: 16 signals ×
   8 s at 48 kHz, STFT + 4-band crossover + deconvolution; ``per_band``
@@ -112,7 +113,20 @@ Builds the port's CUDA kernels from ``dsptoolbox_tpu_torch/csrc`` (one
   kernels launched while capturing, the replay against the eager run (2e-5
   scale-relative, TF 1e-4), a second call on other inputs, ``fn`` run at
   most twice, a chain reading a value back raising, eager and replay timed
-  in turns with their idle shares and the graph pool's size.
+  in turns with their idle shares and the graph pool's size;
+- config 2's session through the file layer
+  (`dsptoolbox_tpu_torch.tools.session_files`): written as a 24-bit WAV and
+  two 24-bit FLACs and loaded onto the card (equal to the file's numpy
+  decode, WAV equal to FLAC), calibrated from a 94 dB SPL calibrator file
+  (the factor against a float64 numpy RMS), a stateful ``(b, a)`` lowpass
+  (order 4 at 1 kHz, order 6 at 200 Hz) streamed in 60 blocks of 1 s (B2,
+  one launch a block) against one call and scipy's float64 ``lfilter``,
+  the order-4 zero phase (B2 twice) and a 1023-tap FIR zero phase against
+  float64 ``filtfilt``, `plot_spl`'s EMA (B2) and the attack/release
+  smoothing (the EMA kernel, `csrc/ema.cu`, against its plain loop and a
+  float64 recursion), save/load of the session, a Filter, a FilterBank and
+  a Spectrum, and the two calls whose default plot raised (C8); each step
+  timed, the host-bound ones with their device idle share.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -144,7 +158,7 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
-KERNELS = ("framing", "das_map", "banded", "iir_bank")
+KERNELS = ("framing", "das_map", "banded", "iir_bank", "ema")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes (Hermitian C), and
@@ -174,6 +188,11 @@ FP32_FLOP_S = 67e12
 FP64_FLOP_S = 34e12
 FP64_TC_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
+# ROADMAP C9: non-finite samples of the JAX package's float32 stateful
+# lfilter on the session phase's two filters (2 channels x 48,000 samples
+# of white noise), asserted by tests/test_torch_iir_ba.py on the CPU (the
+# card's machine has no JAX)
+C9_NON_FINITE = ("89,464", "95,534")
 
 
 def fail(msg: str) -> None:
@@ -1412,13 +1431,14 @@ def counted_modules() -> dict:
     from dsptoolbox_tpu_torch.ops import (
         cuda_banded,
         cuda_das,
+        cuda_ema,
         cuda_framing,
         cuda_iir,
         cuda_iir_bank,
     )
 
     return {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
-            "banded": cuda_banded, "iir_bank": cuda_iir_bank}
+            "banded": cuda_banded, "iir_bank": cuda_iir_bank, "ema": cuda_ema}
 
 
 def counted_run(fn):
@@ -2454,6 +2474,385 @@ def pipeline_phase(dev, card: str) -> dict:
     return {"launches": launches, "times": times}
 
 
+def np_ema(x, alpha: float, beta: float):
+    """The attack/release recursion in float64 numpy over ``x (C, T)``:
+    ``y[0] = x[0]``, ``y[t] = y[t-1] + a·(x[t] − y[t-1])``, ``a`` = alpha
+    where the signal rises, else beta."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    y = np.empty_like(x)
+    carry = x[:, 0].copy()
+    y[:, 0] = carry
+    for t in range(1, x.shape[1]):
+        a = np.where(x[:, t] > carry, alpha, beta)
+        carry = carry + a * (x[:, t] - carry)
+        y[:, t] = carry
+    return y
+
+
+def np_fir_filtfilt(b, x):
+    """scipy's ``filtfilt(b, [1], x)`` in float64 by FFT convolution: odd
+    padding of 3·len(b), each pass a convolution plus its start state
+    ``lfilter_zi · u[0]`` added to the first len(b) − 1 samples (an FIR's
+    ``lfilter`` with a state is exactly that)."""
+    import numpy as np
+    from scipy.signal import fftconvolve, lfilter_zi
+    from scipy.signal._arraytools import odd_ext
+
+    n = 3 * len(b)
+    zi = lfilter_zi(b, [1.0])
+
+    def one(u):
+        y = fftconvolve(u, b[None, :], axes=-1)[:, : u.shape[1]]
+        y[:, : len(zi)] += zi[None, :] * u[:, :1]
+        return y
+
+    y = one(odd_ext(np.asarray(x, np.float64), n, axis=-1))
+    y = one(np.ascontiguousarray(y[:, ::-1]))[:, ::-1]
+    return np.ascontiguousarray(y[:, n:-n])
+
+
+def session_files_phase(dev, card: str) -> dict:
+    """Config 2's 16 × 60 s session through the file layer
+    (`tools.session_files`): written as a 24-bit WAV and two 24-bit FLACs
+    and loaded onto the card with ``Signal(path)`` (equal to a numpy
+    decode of the file, WAV and FLAC equal); calibrated from a 94 dB SPL
+    calibrator file (the factor against a float64 numpy RMS); a stateful
+    ``(b, a)`` lowpass (order 4 at 1 kHz, order 6 at 200 Hz) streamed in
+    60 blocks of 1 s (B2, one launch a block) against one call on the
+    whole session and scipy's float64 ``lfilter``; the order-4 zero phase
+    (B2 twice) and a 1023-tap FIR zero phase against scipy's float64
+    ``filtfilt``; `plot_spl(window_length_s=0.125)` (its EMA on B2) and the
+    attack/release smoothing (the EMA kernel) against float64 recursions;
+    save/load of the session, a Filter, a FilterBank and a Spectrum; the two
+    C8 calls with their defaults. Counted (every count 0 just before the
+    path, read just after it), each kernel against its plain version, each
+    step timed with CUDA events, the host-bound ones with their device idle
+    share. Returns B2's and the EMA kernel's launches, errors and times."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.signal import filtfilt, lfilter, lfilter_zi
+
+    from dsptoolbox_tpu_torch.classes import Filter, FilterBank, ImpulseResponse, Spectrum
+    from dsptoolbox_tpu_torch.helpers.smoothing import get_smoothing_factor_ema, time_smoothing
+    from dsptoolbox_tpu_torch.io import read_wav
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+    from dsptoolbox_tpu_torch.room_acoustics import ShoeboxRoom
+    from dsptoolbox_tpu_torch.tools import session_files as sf
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+    from dsptoolbox_tpu_torch.transfer_functions import harmonic_distortion_analysis
+
+    fs = sf.FS
+    label = "session files"
+    out = {}
+    # matplotlib is an optional dependency: where it is missing the plots
+    # raise after the computation they draw (plot_spl's smoothing runs
+    # first), and the figures are held by tests/test_torch_files.py on the
+    # CPU
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ModuleNotFoundError:
+        matplotlib = None
+    print(f"{label}: matplotlib "
+          f"{'present, Agg' if matplotlib else 'not installed: no figure is drawn here'}")
+
+    def without_figure(fn, fallback):
+        """``fn()``, or ``fallback()`` where ``fn`` needed matplotlib."""
+        if matplotlib is not None:
+            return fn()
+        try:
+            return fn()
+        except ModuleNotFoundError as e:
+            if e.name != "matplotlib":
+                raise
+            return fallback()
+    with tempfile.TemporaryDirectory() as d:
+        s = sf.session()
+        torch.cuda.synchronize()
+        C, T = s.number_of_channels, s.length_samples
+        n_blocks = T // int(sf.BLOCK_S * fs)
+        coeffs = sf.stream_coefficients()
+        fir = sf.fir_coefficients()
+
+        # the path, counted as a whole and step by step
+        def drive():
+            mods = counted_modules()
+            marks = {}
+
+            def mark(name):
+                torch.cuda.synchronize()
+                marks[name] = {k: m.launches for k, m in mods.items()}
+
+            t0 = time.perf_counter()
+            out["paths"] = sf.write_session(s, d)
+            out["write_s"] = time.perf_counter() - t0
+            out["wav"] = sf.load_wav(out["paths"]["wav"])
+            out["flac"] = sf.load_flac(out["paths"]["flac"])
+            out["cal_path"] = sf.write_calibrator(d)
+            out["calibrated"], out["cal"] = sf.calibrate(out["wav"], out["cal_path"])
+            mark("load_calibrate")
+            x = out["wav"]
+            for i, (b, a) in enumerate(coeffs):
+                out[f"stream{i}"] = sf.stream(x, b, a)
+                mark(f"stream{i}")
+                out[f"whole{i}"] = sf.whole(x, b, a)
+                mark(f"whole{i}")
+            out["zp_iir"] = sf.zero_phase(x, *coeffs[0])
+            mark("zp_iir")
+            out["zp_fir"] = sf.zero_phase(x, fir, [1.0])
+            mark("zp_fir")
+            out["spl"] = without_figure(lambda: sf.spl_plot(x), lambda: (None, None))
+            mark("spl")
+            out["ar"] = sf.attack_release(x._x ** 2)
+            mark("ar")
+            filt = Filter.from_ba(*coeffs[1], fs)
+            out["saved"] = {"session": x, "filter": filt, "bank": FilterBank([filt, filt]),
+                            "spectrum": Spectrum(*x.get_channels([0, 1]).get_spectrum())}
+            out["loaded"] = sf.save_and_load(out["saved"], d)
+            mark("save_load")
+            room = ShoeboxRoom([4.0, 3.0, 2.5], t60_s=0.4)
+            room_args = ([1.0, 1.0, 1.0], [2.0, 2.0, 1.2], np.linspace(20, 200, 50))
+            out["room"] = without_figure(
+                lambda: room.get_analytical_transfer_function(*room_args),
+                lambda: room.get_analytical_transfer_function(*room_args, generate_plot=False))
+            n = fs
+            chirp = np.sin(2 * np.pi * 20 * (1000 ** (np.arange(n) / n) - 1) / np.log(1000))
+            y = chirp + 0.05 * chirp**2
+            h = np.fft.irfft(np.fft.rfft(y, 2 * n) / (np.fft.rfft(chirp, 2 * n) + 1e-3), 2 * n)[:n]
+            hd_ir = ImpulseResponse(None, h.astype(np.float32), fs)
+            out["hd"] = without_figure(
+                lambda: harmonic_distortion_analysis(hd_ir.copy(), [20, 20000], 1.0, 3),
+                lambda: harmonic_distortion_analysis(hd_ir.copy(), [20, 20000], 1.0, 3,
+                                                     generate_plot=False))
+            mark("c8")
+            return marks
+
+        marks, launched = counted_run(drive)
+        print(f"{label}: launches {launched}")
+        steps_l = {}
+        prev = {k: 0 for k in launched}
+        for name, m in marks.items():
+            steps_l[name] = {k: m[k] - prev[k] for k in m if m[k] - prev[k]}
+            prev = m
+        print(f"{label}: launches by step {steps_l}")
+        if launched["ema"] != 1 or launched["iir_lead"] == 0:
+            fail(f"{label}: the path did not go through B2 and the EMA kernel")
+        for i in range(len(coeffs)):
+            if steps_l[f"stream{i}"].get("iir_lead") != n_blocks:
+                fail(f"{label}: the streamed filter {i} did not launch B2 once a block")
+        if steps_l["zp_iir"].get("iir_lead") != 2 or steps_l["zp_fir"]:
+            fail(f"{label}: zero phase launched {steps_l['zp_iir']} / {steps_l['zp_fir']}")
+        if steps_l["spl"].get("iir_lead") != 1 or steps_l["ar"].get("ema") != 1:
+            fail(f"{label}: the smoothing did not launch B2 and the EMA kernel once each")
+
+        # 1. loads: on the card, equal to numpy decodes, WAV = FLAC
+        wav, flac = out["wav"], out["flac"]
+        decoded = read_wav(out["paths"]["wav"])[0].astype(np.float32)
+        same = (wav.device.type == dev.type and flac.device.type == dev.type
+                and np.array_equal(wav.time_data.cpu().numpy(), decoded)
+                and torch.equal(wav.time_data, flac.time_data))
+        sizes = [os.path.getsize(p) for p in [out["paths"]["wav"]] + out["paths"]["flac"]]
+        print(f"{label}: {C} ch x {T} samples written as a 24-bit WAV ({sizes[0]} B) and two "
+              f"FLACs ({sizes[1]} + {sizes[2]} B) in {out['write_s']:.2f} s; loaded on "
+              f"{wav.device}; WAV equal to a numpy decode and to the FLAC load: {same}")
+        if not same:
+            fail(f"{label}: the loaded session differs from its file")
+
+        # 2. calibration: the factor against a float64 numpy RMS of the file
+        cal_td = read_wav(out["cal_path"])[0].astype(np.float32).astype(np.float64)
+        want_factor = 10 ** (sf.CALIBRATOR[2] / 20) * 20e-6 / np.std(cal_td)
+        got_factor = float(out["cal"].calibration_factors[0])
+        f_err = abs(got_factor - want_factor) / want_factor
+        c_err = rel_err(out["calibrated"].time_data, wav.time_data.double() * want_factor)
+        print(f"{label}: calibration factor {got_factor:.9g} Pa/FS against float64 numpy "
+              f"{want_factor:.9g}: rel {f_err:.3e} (tol 1e-9); calibrated data scale-rel "
+              f"{c_err:.3e} (tol 2e-7)")
+        if not (f_err <= 1e-9 and c_err <= 2e-7 and out["calibrated"].calibrated_signal):
+            fail(f"{label}: calibration disagrees with float64 numpy")
+
+        # 3. the streamed stateful (b, a): = one call, = plain, = scipy f64
+        x64 = wav.time_data.T.double().cpu().numpy()
+        b2_err = 0.0
+        for i, (b, a) in enumerate(coeffs):
+            st, wh = out[f"stream{i}"].time_data, out[f"whole{i}"].time_data
+            sw = rel_err(st, wh)
+            plain_st = plain(lambda: sf.stream(wav, b, a)).time_data
+            b2_err = max(b2_err, float((st - plain_st).abs().max()))
+            zi = np.tile(lfilter_zi(b, a), (C, 1))
+            sc = rel_err(wh.T, lfilter(b, a, x64, zi=zi)[0])
+            print(f"{label}: stateful order {len(a) - 1} ({sf.STREAM_FILTERS[i][1]:g} Hz) in "
+                  f"{n_blocks} blocks vs one call scale-rel {sw:.3e} (tol 1e-6), vs plain "
+                  f"{rel_err(st, plain_st):.3e} (tol 2e-6), vs scipy f64 lfilter "
+                  f"{sc:.3e} (tol 5e-6); the JAX package's float32 scan on this filter: "
+                  f"{C9_NON_FINITE[i]} of 96,000 samples non-finite at 2 x 48,000 (ROADMAP "
+                  "C9, tests/test_torch_iir_ba.py on the CPU)")
+            if not (sw <= 1e-6 and rel_err(st, plain_st) <= 2e-6 and sc <= 5e-6):
+                fail(f"{label}: the streamed stateful filter {i} disagrees")
+            del st, wh, plain_st
+
+        # 4. zero phase against scipy float64 filtfilt
+        b, a = coeffs[0]
+        zp = out["zp_iir"].time_data.T
+        zp_plain = plain(lambda: sf.zero_phase(wav, b, a)).time_data.T
+        b2_err = max(b2_err, float((zp - zp_plain).abs().max()))
+        e_iir = rel_err(zp, np.ascontiguousarray(filtfilt(b, a, x64)))
+        fir_ref = np_fir_filtfilt(fir, x64)
+        short = x64[:1, : 2 * fs]
+        ident = rel_err(torch.from_numpy(np_fir_filtfilt(fir, short)),
+                        np.ascontiguousarray(filtfilt(fir, [1.0], short)))
+        e_fir = rel_err(out["zp_fir"].time_data.T, fir_ref)
+        print(f"{label}: zero phase order 4 vs scipy f64 filtfilt {e_iir:.3e}, vs plain "
+              f"{rel_err(zp, zp_plain):.3e}; {sf.FIR_TAPS}-tap FIR vs float64 filtfilt "
+              f"{e_fir:.3e} (its FFT form = scipy's filtfilt within {ident:.1e} on 2 s) "
+              "(tol 5e-6)")
+        if not (e_iir <= 5e-6 and e_fir <= 5e-6 and ident <= 1e-12
+                and rel_err(zp, zp_plain) <= 2e-5):
+            fail(f"{label}: zero phase disagrees with scipy")
+        del zp, zp_plain, fir_ref
+
+        # 5. smoothing: plot_spl's EMA (B2) and attack/release (EMA kernel)
+        power = wav._x ** 2
+        alpha = get_smoothing_factor_ema(sf.SPL_WINDOW_S, fs)
+        one = time_smoothing(power, fs, sf.SPL_WINDOW_S)
+        p64 = power.double().cpu().numpy()
+        bb, aa = np.array([alpha]), np.array([1.0, alpha - 1.0])
+        one_ref = lfilter(bb, aa, p64, zi=lfilter_zi(bb, aa)[None] * p64[:, :1])[0]
+        e_one = rel_err(one, one_ref)
+        fig = out["spl"][0]
+        if matplotlib is None:
+            fig = "no figure (matplotlib not installed)"
+        # the EMA kernel's output at the path's shape, held at windows
+        # spread along the rows (chunk edges, both shared buffers, the
+        # middle, the last partial chunk): over W samples from t0, the plain
+        # loop and a float64 recursion, each seeded with the kernel's own
+        # carry y[t0 - 1] (the loop's y[0] is its first input), against
+        # y[t0 - 1 : t0 + W]
+        ar_a, ar_b = (get_smoothing_factor_ema(t, fs) for t in sf.ATTACK_RELEASE_S)
+        y_ar, W = out["ar"], 2400
+        starts = [1, 7 * 2048 - 5, T // 3, T // 2 + 1001, 2 * T // 3 + 2047, T - W]
+        ema_err, e_ar, bit_equal = 0.0, 0.0, True
+        for t0 in starts:
+            seeded = torch.cat([y_ar[:, t0 - 1:t0], power[:, t0:t0 + W]], dim=-1)
+            got = y_ar[:, t0 - 1:t0 + W]
+            want = cuda_ema.ema_attack_release_plain(seeded, ar_a, ar_b)
+            bit_equal = bit_equal and torch.equal(got, want)
+            ema_err = max(ema_err, float((got - want).abs().max()))
+            e_ar = max(e_ar, rel_err(got, np_ema(seeded.double().cpu().numpy(), ar_a, ar_b)))
+        drawn = fig if matplotlib is None else type(fig).__name__
+        print(f"{label}: plot_spl(window {sf.SPL_WINDOW_S} s) -> {drawn}; its EMA "
+              f"vs float64 lfilter scale-rel {e_one:.3e} (tol 1e-5); attack/release "
+              f"{sf.ATTACK_RELEASE_S} on ({C}, {T}) at {len(starts)} windows of {W} samples "
+              f"from t0 = {starts}, each seeded with the kernel's carry: vs a float64 "
+              f"recursion {e_ar:.3e} (tol 1e-5), vs its plain loop max abs {ema_err:.3e} "
+              f"(tol 1e-6; bit-equal {bit_equal})")
+        if not (e_one <= 1e-5 and e_ar <= 1e-5 and ema_err <= 1e-6
+                and (matplotlib is None or isinstance(fig, matplotlib.figure.Figure))):
+            fail(f"{label}: smoothing disagrees")
+
+        # 6. save and load
+        for name, obj in out["saved"].items():
+            back = out["loaded"][name]
+            if name == "session":
+                ok = torch.equal(back.time_data, obj.time_data) and back.device == obj.device
+            elif name == "filter":
+                ok = all(np.array_equal(u, v) for u, v in zip(back.ba, obj.ba))
+            elif name == "bank":
+                ok = all(np.array_equal(u.ba[0], v.ba[0]) and np.array_equal(u.ba[1], v.ba[1])
+                         for u, v in zip(back.filters, obj.filters))
+            else:
+                ok = (torch.equal(back.spectral_data, obj.spectral_data)
+                      and np.array_equal(back.frequency_vector_hz, obj.frequency_vector_hz))
+            print(f"{label}: {name} saved and loaded with equal arrays: {ok}")
+            if not ok:
+                fail(f"{label}: {name} did not come back equal")
+
+        # 7. C8: the two calls with their defaults return figures (without
+        # matplotlib they are not run: their outputs with generate_plot=False)
+        room_plot, hd_plot = out["room"][2], out["hd"].get("plot")
+        finite = (np.isfinite(out["room"][0]).all()
+                  and bool(torch.isfinite(out["hd"]["thd"].spectral_data).all()))
+        if matplotlib is None:
+            ok = finite and room_plot is None and hd_plot is None
+            print(f"{label}: C8 with their defaults (figures): not run on this machine (no "
+                  "matplotlib; tests/test_torch_files.py holds them on the CPU); with "
+                  f"generate_plot=False their outputs are finite: {ok}")
+        else:
+            ok = (finite and isinstance(room_plot[0], matplotlib.figure.Figure)
+                  and isinstance(hd_plot[0], matplotlib.figure.Figure))
+            print(f"{label}: C8 calls with their defaults return figures: {ok}")
+            plt.close("all")
+        if not ok:
+            fail(f"{label}: a C8 call failed")
+
+        # times: CUDA events in turns with the plain paths where a kernel
+        # runs; the host-bound steps' device idle share
+        times = {}
+
+        def timed(name, fn, with_plain=True, n=3):
+            ms = time_pair(fn, lambda: plain(fn), n=n, warm=1) if with_plain else \
+                time_pair(fn, n=n, warm=1)
+            times[name] = {"ms": ms[0], "plain_ms": ms[1] if with_plain else None}
+            extra = f", plain {ms[1]:.4f} ms" if with_plain else ""
+            print(f"time {label} {name}: {ms[0]:.4f} ms{extra} [{card}]")
+
+        timed("load wav", lambda: sf.load_wav(out["paths"]["wav"]), False, n=2)
+        timed("load flac", lambda: sf.load_flac(out["paths"]["flac"]), False, n=2)
+        timed("calibrate", lambda: sf.calibrate(wav, out["cal_path"]), False)
+        for i, (b, a) in enumerate(coeffs):
+            timed(f"stream order {len(a) - 1}", lambda: sf.stream(wav, b, a))
+            times[f"stream order {len(a) - 1}"]["per_block_ms"] = \
+                times[f"stream order {len(a) - 1}"]["ms"] / n_blocks
+            timed(f"whole order {len(a) - 1}", lambda: sf.whole(wav, b, a))
+        timed("zero phase order 4", lambda: sf.zero_phase(wav, *coeffs[0]))
+        timed("zero phase FIR", lambda: sf.zero_phase(wav, fir, [1.0]), False)
+        timed("EMA one coefficient", lambda: time_smoothing(power, fs, sf.SPL_WINDOW_S))
+        timed("save and load", lambda: sf.save_and_load(out["saved"], d), False, n=2)
+        for name, fn in (("load wav", lambda: sf.load_wav(out["paths"]["wav"])),
+                         ("calibrate", lambda: sf.calibrate(wav, out["cal_path"])),
+                         ("stream order 6", lambda: sf.stream(wav, *coeffs[1]))):
+            r = profile_call(f"{label}: {name}", fn, runs=1, host_calls=1, event_calls=1, warm=1)
+            times[name]["idle"] = r["idle"]
+            print(f"time {label} {name}: device busy {r['busy_us']:.0f} us of "
+                  f"{r['wall_us']:.0f} us wall, idle share {r['idle']:.4f} [{card}]")
+
+        # the EMA kernel against its plain loop: the kernel at the path's
+        # shape, both at (C, cut) for the comparison (the plain loop takes
+        # ~90 us a sample, minutes at the path's T); its bound: the
+        # bytes, or T steps of its dependent chain (compare, select,
+        # multiply, add: four float32 operations at 4 cycles each) at the
+        # card's maximum SM clock
+        ema_ms = time_pair(lambda: cuda_ema.ema_attack_release_cuda(power, ar_a, ar_b),
+                           n=3, warm=1)[0]
+        cut = fs // 4
+        cut_power = power[:, :cut].contiguous()
+        ema_cut_ms, plain_cut_ms = time_pair(
+            lambda: cuda_ema.ema_attack_release_cuda(cut_power, ar_a, ar_b),
+            lambda: cuda_ema.ema_attack_release_plain(cut_power, ar_a, ar_b), n=2, warm=1)
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60).stdout.split()[0]
+        chain_ms = T * 16 / (float(clock) * 1e6) * 1e3
+        bytes_ms = 8.0 * C * T / HBM_BYTES_S * 1e3
+        ema_bound = max(chain_ms, bytes_ms)
+        ema_by = "operations" if chain_ms >= bytes_ms else "bytes"
+        print(f"time {label} EMA kernel ({C}, {T}): {ema_ms:.4f} ms; at ({C}, {cut}): kernel "
+              f"{ema_cut_ms:.4f} ms, plain loop {plain_cut_ms:.4f} ms; bound {ema_bound:.4f} ms "
+              f"({ema_by}: {T} steps x 16 cycles at {clock} MHz; bytes {bytes_ms:.4f} ms) "
+              f"[{card}]")
+    return {"iir_lead": launched["iir_lead"], "iir_lead_err": b2_err,
+            "ema": launched["ema"], "ema_err": ema_err, "ema_ms": ema_ms,
+            "ema_plain_ms": plain_cut_ms, "ema_at_plain_shape_ms": ema_cut_ms,
+            "ema_plain_shape": [C, cut], "ema_bound_ms": ema_bound, "ema_bound_by": ema_by,
+            "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -2491,11 +2890,16 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}")
     rng = np.random.default_rng(0)
 
-    # 2. build every kernel, one nvcc per source, all at once
+    # 2. build every kernel, one nvcc per source, and the FLAC codec (g++),
+    # all at once
+    from dsptoolbox_tpu_torch.io import flac
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        codec = pool.submit(flac._build)
         list(pool.map(_cuda.load, KERNELS))
-    print(f"build {', '.join(KERNELS)}: {time.perf_counter() - t0:.2f} s")
+        codec.result()
+    print(f"build {', '.join(KERNELS)} and the FLAC codec: {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         entry = _cuda.BUILD_LOG.get(name, {})
         print(f"build {name}.cu: {entry.get('seconds', 0.0):.2f} s")
@@ -2911,6 +3315,12 @@ def main() -> int:
     b3["transforms_times"] = feat["times"]
     b3["transforms_bank"] = feat["iir_bank_time"]
 
+    # 39-45. config 2's session through the file layer: WAV/FLAC, the
+    # calibration, the stateful (b, a) streamed (B2), zero phase (B2), the
+    # smoothing (B2, the EMA kernel), save/load, the C8 calls
+    sess = session_files_phase(dev, card)
+    torch.cuda.empty_cache()
+
     # 26. the chains through `pipeline`, each captured into one CUDA graph:
     # config 2 (B1), the TF path (B4), config 3 (B3), the crossover bands (B2)
     pl = pipeline_phase(dev, card)
@@ -2966,15 +3376,19 @@ def main() -> int:
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
-                      + pl_launches["iir_lead"] + tfa["iir_lead"] + feat["iir_lead"]),
+                      + pl_launches["iir_lead"] + tfa["iir_lead"] + feat["iir_lead"]
+                      + sess["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
                               "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"],
-                              "tf_analysis": tfa["iir_lead"], "transforms": feat["iir_lead"]},
+                              "tf_analysis": tfa["iir_lead"], "transforms": feat["iir_lead"],
+                              "session_files": sess["iir_lead"]},
          "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"],
-                            feat["iir_lead_err"]),
+                            feat["iir_lead_err"], sess["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
                                  "standard": std["iir_lead_err"],
-                                 "transforms": feat["iir_lead_err"]},
+                                 "transforms": feat["iir_lead_err"],
+                                 "session_files": sess["iir_lead_err"]},
+         "session_files_times": sess["times"],
          "transforms_device_kernels": feat.get("device_kernels"),
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
@@ -2991,6 +3405,15 @@ def main() -> int:
          "library": "packed_quadratic_from_hp: GEMM part only, steering pre-built",
          "by_path_shape": b5_paths, "at_m160": b5_m160, "config5_times": c5["times"]},
         b4,
+        {"name": "ema_smoothing", "route": "cuda",
+         "source": "dsptoolbox_tpu_torch/csrc/ema.cu",
+         "replaces": "dsptoolbox_tpu/helpers/smoothing.py:164 (lax.scan, no Pallas kernel)",
+         "launches": sess["ema"], "launches_by_path": {"session_files": sess["ema"]},
+         "max_abs_err": sess["ema_err"], "ms": sess["ema_ms"],
+         "plain_ms": sess["ema_plain_ms"], "plain_shape": sess["ema_plain_shape"],
+         "ms_at_plain_shape": sess["ema_at_plain_shape_ms"],
+         "bound_ms": sess["ema_bound_ms"], "bound_by": sess["ema_bound_by"],
+         "library_ms": None},
     ]}
     # each kernel's captured chains: eager and replay ms, idle shares, pool
     by_kernel = {"windowed_frames": "framing", "sosfilt_lead": "iir_lead",

@@ -9,7 +9,8 @@ one, on `default_device()` ("cuda" unless `set_default_device` changed it).
 
 Hand-written CUDA kernels replace the JAX package's Pallas kernels
 (`ops.cuda_framing`, `ops.cuda_iir`, `ops.cuda_iir_bank`, `ops.cuda_das`,
-`ops.cuda_banded`). They are compiled
+`ops.cuda_banded`); `ops.cuda_ema` runs the attack/release smoothing
+that the JAX package runs as a device loop. They are compiled
 from ``csrc/`` at first use on a CUDA tensor; a CPU tensor always takes the
 plain PyTorch version, so importing this package needs neither ``nvcc`` nor
 a GPU.
@@ -17,10 +18,9 @@ a GPU.
 The root mirrors the JAX package's (`dsptoolbox_tpu/__init__.py:16-83`):
 the standard functions and enums, the classes, the ported namespaces,
 `pipeline` (a chain of calls as one CUDA graph) and `compute_all`. Not
-ported yet, so not exported: ``CalibrationData`` (A5), ``load_pkl_object``
-(A5's ``io``), the namespaces ``distances`` and ``effects`` (A11), ``audio_io`` and
-``tools`` (A14; the port's own `tools` package holds its run and
-measurement scripts).
+ported yet, so not exported: the namespaces ``distances`` and ``effects``
+(A11), ``audio_io`` and ``tools`` (A14; the port's own `tools` package holds
+its run and measurement scripts).
 """
 
 from ._config import (
@@ -33,6 +33,7 @@ from ._config import (
     set_default_device,
     set_default_float,
     set_framing_kernel,
+    set_ema_kernel,
     set_iir_kernel,
 )
 from .standard import (
@@ -49,6 +50,7 @@ from .standard import (
     fade,
     fractional_delay,
     latency,
+    load_pkl_object,
     lufs_integrated,
     merge_filters,
     modify_signal_length,
@@ -79,6 +81,7 @@ from .standard import (
     Window,
 )
 from .classes import (
+    CalibrationData,
     Filter,
     FilterBank,
     ImpulseResponse,
@@ -99,6 +102,8 @@ from ._defer import compute_all
 
 __all__ = [
     "Signal",
+    "CalibrationData",
+    "load_pkl_object",
     "ImpulseResponse",
     "MultiBandSignal",
     "Filter",
@@ -162,5 +167,6 @@ __all__ = [
     "set_default_device",
     "set_default_float",
     "set_framing_kernel",
+    "set_ema_kernel",
     "set_iir_kernel",
 ]

@@ -78,6 +78,7 @@ _IIR_KERNEL = "auto"
 _DAS_KERNEL = "auto"
 _BANDED_KERNEL = "auto"
 _BANK_KERNEL = "auto"
+_EMA_KERNEL = "auto"
 
 
 def _check_mode(mode: str) -> str:
@@ -140,6 +141,18 @@ def bank_kernel() -> str:
     return _BANK_KERNEL
 
 
+def set_ema_kernel(mode: str) -> None:
+    """Switch for the attack/release EMA kernel (`ops.cuda_ema`), the route
+    of `helpers.smoothing.time_smoothing` with a release time on a CUDA
+    tensor."""
+    global _EMA_KERNEL
+    _EMA_KERNEL = _check_mode(mode)
+
+
+def ema_kernel() -> str:
+    return _EMA_KERNEL
+
+
 _CLEAN_SC_DEVICE = True
 
 
@@ -159,14 +172,16 @@ def clean_sc_on_device() -> bool:
 def kernels_off():
     """Every kernel switch "off" inside the block (the plain PyTorch
     paths); the previous modes are restored after it."""
-    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL
-    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL)
+    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL, _EMA_KERNEL
+    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL,
+             _EMA_KERNEL)
     _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = _BANDED_KERNEL = _BANK_KERNEL = "off"
+    _EMA_KERNEL = "off"
     try:
         yield
     finally:
         (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL,
-         _BANK_KERNEL) = saved
+         _BANK_KERNEL, _EMA_KERNEL) = saved
 
 
 def use_kernel(mode: str, x: torch.Tensor) -> bool:

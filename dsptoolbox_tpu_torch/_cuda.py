@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` at first
 use, then loaded with ``ctypes``. The hash covers the source, so an edited
-kernel is rebuilt. Nothing here runs at import time.
+kernel is rebuilt (`build`, which also builds the host FLAC codec with
+``g++``, `io.flac`). Nothing here runs at import time.
 
 `Kernel` is the wrappers' launch path: the library and the ``ctypes``
 function are resolved once, at the first launch, so a launch adds to the
@@ -52,12 +53,11 @@ def _nvcc() -> str:
     )
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<name>.cu`` (built if needed)."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC / f"{name}.cu"
+def build(src: Path, name: str, command: list) -> Path:
+    """``_build/lib<name>-<hash>.so`` built from ``src`` with ``command``
+    (the compiler and its flags; ``-o <out> <src>`` are appended) unless
+    it exists: the hash covers the source, so an edited source is rebuilt.
+    The compiler's output and time go to `BUILD_LOG` under ``name``."""
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
@@ -67,22 +67,26 @@ def load(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True,
-            text=True,
-        )
+        proc = subprocess.run([*command, "-o", tmp, str(src)], capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed to build {src.name}:\n{proc.stdout}{proc.stderr}"
+                f"{command[0]} failed to build {src.name}:\n{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, out)
         BUILD_LOG[name] = {
             "seconds": time.perf_counter() - t0,
             "log": proc.stdout + proc.stderr,
         }
-    lib = ctypes.CDLL(str(out))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu`` (built if needed)."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(CSRC / f"{name}.cu", name, [_nvcc(), *NVCC_FLAGS])))
     _LIBS[name] = lib
     return lib
 

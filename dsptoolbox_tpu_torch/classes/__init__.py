@@ -1,7 +1,8 @@
-"""Container classes (`dsptoolbox_tpu/classes`): thin ports of `Signal`,
-`ImpulseResponse`, `Spectrum`, `Filter`, `FilterBank` and
-`MultiBandSignal`."""
+"""Container classes (`dsptoolbox_tpu/classes`): `Signal`,
+`ImpulseResponse`, `Spectrum`, `Filter`, `FilterBank`, `MultiBandSignal`
+and `CalibrationData`."""
 
+from .calibration_data import CalibrationData
 from .filter import Filter
 from .filterbank import FilterBank
 from .impulse_response import ImpulseResponse
@@ -9,4 +10,4 @@ from .multibandsignal import MultiBandSignal
 from .signal import Signal
 from .spectrum import Spectrum
 
-__all__ = ["Filter", "FilterBank", "ImpulseResponse", "MultiBandSignal", "Signal", "Spectrum"]
+__all__ = ["CalibrationData", "Filter", "FilterBank", "ImpulseResponse", "MultiBandSignal", "Signal", "Spectrum"]

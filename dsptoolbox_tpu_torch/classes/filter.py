@@ -1,26 +1,38 @@
 """Filter: an LTI digital filter in zpk / SOS / ba representation
 (`dsptoolbox_tpu/classes/filter.py`).
 
-Designs and conversions are host numpy/scipy; `filter_signal` runs on the
-signal's device through `filter_helpers`. Not ported yet: the FIR
-designer, ``filter_and_resample_signal``, metadata, plots and saving.
+Designs and conversions are host numpy/scipy; `filter_signal` and
+`filter_and_resample_signal` run on the signal's device through
+`filter_helpers`, `ops.iir` and `ops.fft_conv`. The plots draw on `plots`;
+`save_filter` pickles.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
+from fractions import Fraction
+from pickle import HIGHEST_PROTOCOL, dump
 from warnings import warn
 
 import numpy as np
 import scipy.signal as sig
+import torch
 
 from .._enums import (
     BiquadEqType,
     FilterCoefficientsType,
     FilterPassType,
     IirDesignMethod,
+    Window,
 )
-from .filter_helpers import biquad_coefficients, filter_on_signal, filter_on_signal_ba, impulse
+from ..helpers.other import check_format_in_path
+from .filter_helpers import (
+    biquad_coefficients,
+    filter_on_signal,
+    filter_on_signal_ba,
+    group_delay_filter,
+    impulse,
+)
 from .impulse_response import ImpulseResponse
 from .signal import Signal
 
@@ -95,6 +107,40 @@ class Filter:
         )
 
     @staticmethod
+    def fir_filter(
+        order: int,
+        frequency_hz,
+        type_of_pass: FilterPassType,
+        sampling_rate_hz: int,
+        window: Window = Window.Hamming,
+    ) -> "Filter":
+        """Windowed FIR design with ``scipy.signal.firwin``
+        (`classes/filter.py:107`)."""
+        return Filter(
+            {
+                FilterCoefficientsType.Ba: [
+                    sig.firwin(
+                        numtaps=order + 1,
+                        cutoff=frequency_hz,
+                        window=(window if window is not None else Window.Hamming).to_scipy_format(),
+                        pass_zero=type_of_pass.to_str(),
+                        fs=sampling_rate_hz,
+                    ),
+                    np.asarray([1.0]),
+                ]
+            },
+            sampling_rate_hz,
+        )
+
+    @staticmethod
+    def fir_from_file(path: str, channel: int = 0) -> "Filter":
+        """An FIR whose taps are one channel of a WAV or FLAC file."""
+        from .impulse_response import ImpulseResponse
+
+        ir = ImpulseResponse.from_file(path)
+        return Filter.from_ba(ir.time_data[:, channel].cpu().numpy(), [1.0], ir.sampling_rate_hz)
+
+    @staticmethod
     def from_ba(b, a, sampling_rate_hz: int) -> "Filter":
         return Filter({FilterCoefficientsType.Ba: [b, a]}, sampling_rate_hz)
 
@@ -114,6 +160,7 @@ class Filter:
         zi0 = (sig.sosfilt_zi(self.sos) if self.has_sos
                else sig.lfilter_zi(self.ba[0], self.ba[1]))
         self.zi = [zi0.copy() for _ in range(number_of_channels)]
+        self._zi_cascade = None
         return self
 
     # ======== Properties ====================================================
@@ -205,6 +252,27 @@ class Filter:
     def __len__(self):
         return self.order + 1
 
+    def __str__(self):
+        return self.metadata_str
+
+    @property
+    def metadata(self) -> dict:
+        return {
+            "filter_type": "iir" if self.is_iir else "fir",
+            "sampling_rate_hz": self.sampling_rate_hz,
+            "order": self.order,
+        }
+
+    @property
+    def metadata_str(self) -> str:
+        txt = "\n"
+        for k, v in self.metadata.items():
+            txt += f"{str(k).replace('_', ' ').capitalize()}: {v}\n"
+        return txt
+
+    def show_info(self):
+        print(self.metadata_str)
+
     # ======== Filtering =====================================================
     def filter_signal(
         self,
@@ -245,13 +313,83 @@ class Filter:
                 warning_on_complex_output=self.warning_if_complex,
             )
         else:
-            new_signal, zi_new = filter_on_signal_ba(
+            new_signal, zi_new, kept = filter_on_signal_ba(
                 signal, self.ba, channels=channels, zi=zi_old, zero_phase=zero_phase,
                 is_fir=self.is_fir, warning_on_complex_output=self.warning_if_complex,
+                kept=getattr(self, "_zi_cascade", None),
             )
+            if activate_zi:
+                # the exact cascade states behind ``zi`` (`_cascade_update`)
+                self._zi_cascade = kept
         if activate_zi:
             self.zi = zi_new
         return new_signal
+
+    def filter_and_resample_signal(self, signal: Signal, new_sampling_rate_hz: int) -> Signal:
+        """The filter as a decimator or interpolator
+        (`classes/filter.py:745`), on the signal's device: an FIR through
+        its polyphase branches (one batched FFT convolution), an IIR by
+        `ops.iir.lfilter` and then subsampling, or after zero stuffing."""
+        from ..helpers.polyphase import polyphase_decomposition
+        from ..ops.fft_conv import fft_convolve
+        from ..ops.iir import lfilter
+
+        frac = Fraction(new_sampling_rate_hz, signal.sampling_rate_hz).as_integer_ratio()
+        assert frac[0] == 1 or frac[1] == 1, (
+            f"{new_sampling_rate_hz} is not valid because it needs down- "
+            f"AND upsampling (Up/Down: {frac[0]}/{frac[1]})"
+        )
+        x = signal._x  # (C, T)
+        if self.is_iir and not hasattr(self, "ba"):
+            self.ba = list(sig.sos2tf(self.sos))
+        if frac[0] == 1:  # downsampling
+            assert signal.sampling_rate_hz == self.sampling_rate_hz, "Sampling rates do not match"
+            down = frac[1]
+            if self.is_fir:
+                # polyphase decimator (`classes/filter_helpers.py:505-567`):
+                # front-padded components, flipped filter branches, one
+                # batched convolution, the group delay trimmed
+                b = self.ba[0]
+                half_length = (len(b) - 1) // 2
+                poly, _ = polyphase_decomposition(x.T, down, flip=False)  # (Tp, n, C)
+                b_poly, _ = polyphase_decomposition(
+                    torch.as_tensor(b, dtype=x.dtype, device=x.device), down, flip=True)
+                conv = fft_convolve(poly.permute(2, 1, 0), b_poly[:, :, 0].T)  # (C, n, ·)
+                y_full = conv.sum(dim=1)
+                # parity: the reference's end index is (-hl) // down
+                # (`classes/filter_helpers.py:559-561`)
+                end = (-half_length) // down
+                y = y_full[:, half_length // down: end or None]
+            else:
+                y = lfilter(self.ba[0], self.ba[1], x)[0][..., ::down]
+        else:  # upsampling
+            up = frac[0]
+            assert signal.sampling_rate_hz * up == self.sampling_rate_hz, (
+                "Sampling rates do not match. For the upsampler, the "
+                "sampling rate of the filter should match the output's"
+            )
+            if self.is_fir:
+                # polyphase interpolator (`classes/filter_helpers.py:570-652`)
+                b = self.ba[0]
+                half_length = (len(b) - 1) // 2
+                b_poly, padding = polyphase_decomposition(
+                    torch.as_tensor(b, dtype=x.dtype, device=x.device), up)
+                conv = fft_convolve(x[:, None, :], (b_poly * up)[:, :, 0].T)  # (C, up, ·)
+                y_full = conv.transpose(1, 2).reshape(x.shape[0], -1)
+                if padding == up:
+                    y = y_full[:, half_length:-half_length]
+                else:
+                    y = y_full[:, half_length + padding: -half_length + padding]
+            else:
+                T = x.shape[-1]
+                z = x.new_zeros(x.shape + (up,))
+                # zero stuffing loses 1/up of the energy; the reference
+                # multiplies by up (`classes/filter_helpers.py:641-642`)
+                z[..., 0] = x * up
+                y = lfilter(self.ba[0], self.ba[1], z.reshape(x.shape[0], T * up))[0]
+        new_sig = signal.copy_with_new_time_data(y.T)
+        new_sig.sampling_rate_hz = new_sampling_rate_hz
+        return new_sig
 
     # ======== Getters =======================================================
     def get_coefficients(self, coefficients_mode: FilterCoefficientsType):
@@ -279,6 +417,75 @@ class Filter:
 
     def copy(self) -> "Filter":
         return deepcopy(self)
+
+    # ======== Plots and saving ==============================================
+    def _info_text(self, ax):
+        target = ax[0] if np.ndim(ax) else ax
+        target.text(0.1, 0.5, self.metadata_str, transform=target.transAxes,
+                    verticalalignment="top",
+                    bbox=dict(boxstyle="round", facecolor="grey", alpha=0.75))
+
+    def plot_magnitude(self, length_samples: int = 512, range_hz=[20, 20e3], normalize=None,
+                       zero_phase: bool = False, show_info_box: bool = True):
+        """Magnitude response through the filter's IR
+        (`classes/filter.py:973`)."""
+        from .._enums import MagnitudeNormalization
+
+        ir = self.get_ir(length_samples, zero_phase=zero_phase)
+        if normalize is None:
+            normalize = MagnitudeNormalization.NoNormalization
+        fig, ax = ir.plot_magnitude(range_hz=range_hz, normalize=normalize, show_info_box=False)
+        if show_info_box:
+            self._info_text(ax)
+        return fig, ax
+
+    def plot_taps(self, show_info_box: bool = False, in_db: bool = False):
+        """The taps of an FIR; an IIR raises (`classes/filter.py:1207`)."""
+        from ..helpers.gain_and_level import to_db
+        from ..plots import general_plot
+
+        assert self.is_fir, "Plotting taps is only valid for FIR filters"
+        taps = np.asarray(self.ba[0])
+        t = np.arange(0, len(taps)) / self.sampling_rate_hz
+        y = to_db(taps, True) if in_db else taps
+        return general_plot(t, y[:, None], log_x=False, xlabel="Time / s",
+                            ylabel="Taps / dBFS" if in_db else "Taps",
+                            info_box=self.metadata_str if show_info_box else None)
+
+    def plot_group_delay(self, length_samples: int = 512, range_hz=[20, 20e3],
+                         show_info_box: bool = False):
+        """Group delay from the coefficients, host float64
+        (`classes/filter.py:1034`)."""
+        from ..plots import general_plot
+
+        ba = self.get_coefficients(FilterCoefficientsType.Ba)
+        f, gd = group_delay_filter(ba, length_samples, self.sampling_rate_hz)
+        return general_plot(f[1:], (gd[1:] * 1e3)[:, None], range_hz,
+                            ylabel="Group delay / ms",
+                            info_box=self.metadata_str if show_info_box else None)
+
+    def plot_phase(self, length_samples: int = 512, range_hz=[20, 20e3], unwrap: bool = False,
+                   show_info_box: bool = False):
+        """Phase response through the filter's IR (`classes/filter.py:1104`)."""
+        ir = self.get_ir(length_samples)
+        fig, ax = ir.plot_phase(range_hz=range_hz, unwrap=unwrap)
+        if show_info_box:
+            self._info_text(ax)
+        return fig, ax
+
+    def plot_zp(self, show_info_box: bool = False):
+        """Zeros and poles on the unit circle (`classes/filter.py:1161`)."""
+        from ._plots import zp_plot
+
+        z, p, k = self.get_coefficients(FilterCoefficientsType.Zpk)
+        return zp_plot(z, p, self.metadata_str if show_info_box else None)
+
+    def save_filter(self, path: str):
+        """Pickle the filter (`classes/filter.py:1242`)."""
+        path = check_format_in_path(path, "pkl")
+        with open(path, "wb") as data_file:
+            dump(self, data_file, HIGHEST_PROTOCOL)
+        return self
 
     def get_ir(self, length_samples: int, zero_phase: bool = False, device=None):
         """Impulse response of the filter (`classes/filter.py:461`), on

@@ -4,8 +4,7 @@ Coefficients stay host numpy; the data runs through `ops.iir` (the blocked
 IIR, kernel B2 on a CUDA tensor) and `ops.fft_conv`, channels-first, on the
 signal's device. Not ported: the float64 host-scipy routing of the JAX
 package's ``_oracle_exact_f64`` (float64 mode runs the same torch paths in
-float64), and zero-phase ``ba`` filtering. The RBJ biquad coefficients are host
-float64 numpy, copied.
+float64). The RBJ biquad coefficients are host float64 numpy, copied.
 """
 
 from __future__ import annotations
@@ -16,8 +15,9 @@ import numpy as np
 import torch
 
 from ..ops.fft_conv import fft_convolve
-from ..ops.iir import sosfilt, sosfilt_zero_state, sosfiltfilt
-from ..ops.iir_block import lfilter_block
+from ..ops.cuda_iir import MAX_STATES
+from ..ops.iir_block import ba_cascade, lfilter_statespace
+from ..ops.iir import _odd_ext, filtfilt_ba, lfilter, lfilter_zi, sosfilt, sosfilt_zero_state, sosfiltfilt
 from .._enums import BiquadEqType
 
 
@@ -202,6 +202,32 @@ def _zi_update(zi, channels: np.ndarray, run):
     return y, [zi_all[c] for c in range(zi_all.shape[0])]
 
 
+def _cascade_update(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, channels: np.ndarray,
+                    kept):
+    """A stateful IIR ``(b, a)`` of order 3 to `cuda_iir.MAX_STATES` through
+    `iir_block.lfilter_statespace` with the per-channel states ``zi``.
+    ``kept`` (one entry a channel of ``zi``, or None) holds, for each
+    channel filtered before, the TDF2 state it was handed and the cascade
+    state that state came from: a channel whose ``zi`` is still the one
+    handed out continues from its exact cascade state, any other from its
+    ``zi`` mapped into the cascade. Returns ``y``, the updated list and the
+    updated ``kept``."""
+    zi_all = np.stack([np.asarray(z, np.float64) for z in zi], axis=0)
+    kept = list(kept) if kept is not None and len(kept) == len(zi) else [None] * len(zi)
+    _, to_cascade, _ = ba_cascade(b, a)
+    zc = zi_all[channels] @ to_cascade.T
+    for i, c in enumerate(channels):
+        if kept[c] is not None and np.array_equal(kept[c][0], zi_all[c]):
+            zc[i] = kept[c][1]
+    y, zf, zc_end = lfilter_statespace(b, a, x, zc=zc)
+    states = torch.cat([zf, zc_end], dim=-1).cpu().numpy()  # one host fetch
+    zf, zc_end = states[:, : zi_all.shape[1]], states[:, zi_all.shape[1]:]
+    zi_all[channels] = zf
+    for i, c in enumerate(channels):
+        kept[c] = (zf[i].copy(), zc_end[i].copy())
+    return y, [zi_all[c] for c in range(zi_all.shape[0])], kept
+
+
 def filter_on_signal(
     signal,
     sos: np.ndarray,
@@ -228,6 +254,28 @@ def filter_on_signal(
     return _replace_channels(signal, y.T, channels, warning_on_complex_output), zi_new
 
 
+def _zero_phase_fir(b: np.ndarray, a: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """``scipy.signal.filtfilt`` of an FIR in convolution form
+    (`dsptoolbox_tpu/classes/filter_helpers.py:394-424`): without feedback
+    the TDF2 start state ``lfilter_zi · u[0]`` adds to the first N output
+    samples, so each pass is one FFT convolution and one add."""
+    padlen = 3 * max(len(a), len(b))
+    if x.shape[-1] <= padlen:
+        raise ValueError("Input too short for filtfilt padding")
+    zi0 = torch.as_tensor(lfilter_zi(b, a), dtype=x.dtype, device=x.device)
+    h = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    n = zi0.shape[0]
+
+    def one_pass(u):
+        y = fft_convolve(u, h)[..., : u.shape[-1]]
+        y[..., :n] += zi0 * u[..., :1]
+        return y
+
+    y = one_pass(_odd_ext(x, padlen))
+    y = one_pass(y.flip(-1)).flip(-1)
+    return y[..., padlen:-padlen]
+
+
 def filter_on_signal_ba(
     signal,
     ba,
@@ -236,25 +284,31 @@ def filter_on_signal_ba(
     zero_phase: bool = False,
     is_fir: bool = False,
     warning_on_complex_output: bool = True,
+    kept=None,
 ):
     """``ba`` filtering of (selected channels of) a Signal
     (`classes/filter_helpers.py:323`): an FIR without state is one FFT
-    convolution cut to the signal's length, the rest the blocked
-    ``lfilter`` (a state only up to order 2). Zero-phase ``ba`` filtering is
-    not ported yet. Returns ``(new_signal, zi_new)``."""
-    if zero_phase:
-        raise NotImplementedError("zero-phase ba filtering (filtfilt) is not ported yet")
+    convolution cut to the signal's length (in zero phase, two with the
+    start states added); the rest goes through `ops.iir.lfilter` (a state
+    of any order) or, in zero phase, `ops.iir.filtfilt_ba`. A state of an
+    IIR on the cascade route continues from the exact cascade states in
+    ``kept`` (`_cascade_update`). Returns ``(new_signal, zi_new, kept)``."""
     b, a = np.atleast_1d(ba[0]), np.atleast_1d(ba[1])
     channels = _channels(signal, channels)
     x = _select(signal, channels)
     zi_new = None
-    if zi is not None:
-        y, zi_new = _zi_update(zi, channels, lambda z: lfilter_block(b, a, x, zi=z))
+    order = max(len(a), len(b)) - 1
+    if zi is not None and len(np.trim_zeros(a, "b")) > 1 and 2 < order <= MAX_STATES:
+        y, zi_new, kept = _cascade_update(b, a, x, zi, channels, kept)
+    elif zi is not None:
+        y, zi_new = _zi_update(zi, channels, lambda z: lfilter(b, a, x, zi=z))
+    elif zero_phase:
+        y = _zero_phase_fir(b, a, x) if is_fir else filtfilt_ba(b, a, x)
     elif is_fir:
         cdt = torch.complex64 if x.dtype == torch.float32 else torch.complex128
         h = torch.as_tensor(b / a[0], dtype=cdt if np.iscomplexobj(b) else x.dtype,
                             device=x.device)
         y = fft_convolve(x, h)[..., : x.shape[-1]]
     else:
-        y = lfilter_block(b, a, x)[0]
-    return _replace_channels(signal, y.T, channels, warning_on_complex_output), zi_new
+        y = lfilter(b, a, x)[0]
+    return _replace_channels(signal, y.T, channels, warning_on_complex_output), zi_new, kept

@@ -6,20 +6,23 @@ into one ``(B, S, 6)`` bank and applied in one call of
 `ops.iir_block.sosfilt_bank_apply_planes` (the filter-bank kernel B3 on a
 float32 CUDA tensor); its operators are built once per (bank, length,
 dtype, device) and kept on the device. The bands stay on the device as
-views of the bank's output planes. Not ported: ``mesh=`` (band-parallel
-banks over several devices), the frequency-sampling bank path, multirate
-filtering of a MultiBandSignal, the bank's transfer function, filter
-removal and reordering, saving and plots.
+views of the bank's output planes. `filter_multiband_signal` filters each
+band with its own filter; the plots draw the bank's IRs' spectra on
+`plots`; `save_filterbank` pickles. Not ported: ``mesh=`` (band-parallel
+banks over several devices) and the frequency-sampling bank path.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
+from pickle import HIGHEST_PROTOCOL, dump
+from warnings import warn
 
 import numpy as np
 import torch
 
 from .._config import in_pipeline
+from ..helpers.other import check_format_in_path
 from ..ops.iir_block import bank_device_operators, sosfilt_bank_apply_planes, stack_sos_bank
 from .._enums import FilterBankMode
 from .filter import Filter
@@ -178,12 +181,78 @@ class FilterBank:
     def __iter__(self):
         return iter(self.filters)
 
+    def __str__(self):
+        return self.metadata_str
+
+    @property
+    def metadata(self) -> dict:
+        info = {
+            "number_of_filters": self.number_of_filters,
+            "same_sampling_rate": self.same_sampling_rate,
+        }
+        if self.same_sampling_rate and self.filters:
+            info["sampling_rate_hz"] = self.sampling_rate_hz
+        info["types_of_filters"] = tuple(set(f.metadata["filter_type"] for f in self.filters))
+        return info
+
+    @property
+    def metadata_str(self) -> str:
+        txt = "Filter bank:"
+        for k, v in (self.metadata | self.info).items():
+            txt += f" | {str(k).replace('_', ' ').capitalize()}: {v}"
+        txt += "\n" + "–" * len(txt)
+        for ind, f in enumerate(self.filters):
+            txt += f"\nFilter {ind}:"
+            for kf, vf in f.metadata.items():
+                txt += f" | {str(kf).replace('_', ' ').capitalize()}: {vf}"
+        return txt
+
+    def show_info(self):
+        print(self.metadata_str)
+        return self
+
     # ======== Filter management =============================================
     def add_filter(self, filt: Filter, index: int = -1) -> "FilterBank":
         filters = self.filters
         filters = filters + [filt] if index == -1 else filters[:index] + [filt] + filters[index:]
         self.filters = filters
         return self
+
+    def remove_filter(self, index: int = -1, return_filter: bool = False):
+        assert self.filters, "There are no filters to remove"
+        filters = list(self.filters)
+        f = filters.pop(index)
+        self.filters = filters
+        if return_filter:
+            return self, f
+        return self
+
+    def swap_filters(self, new_order) -> "FilterBank":
+        new_order = np.atleast_1d(np.asarray(new_order).squeeze())
+        assert len(new_order) == self.number_of_filters, "The number of filters does not match"
+        assert all(new_order < self.number_of_filters) and all(new_order >= 0), (
+            f"Indexes of new filters have to be in [0, {self.number_of_filters - 1}]"
+        )
+        assert len(np.unique(new_order)) == len(new_order), (
+            "There are repeated indexes in the new order vector"
+        )
+        self.filters = [self.filters[i] for i in new_order]
+        return self
+
+    def save_filterbank(self, path: str):
+        """Pickle the bank (`classes/filterbank.py:762`)."""
+        path = check_format_in_path(path, "pkl")
+        with open(path, "wb") as data_file:
+            dump(self, data_file, HIGHEST_PROTOCOL)
+        return self
+
+    @staticmethod
+    def firs_from_file(path: str) -> "FilterBank":
+        """One FIR per channel of a WAV or FLAC file."""
+        ir = ImpulseResponse.from_file(path)
+        taps = ir.time_data.cpu().numpy()
+        return FilterBank([Filter.from_ba(taps[:, ch], [1.0], ir.sampling_rate_hz)
+                           for ch in range(ir.number_of_channels)])
 
     def copy(self) -> "FilterBank":
         return deepcopy(self)
@@ -229,7 +298,43 @@ class FilterBank:
             zero_phase=zero_phase, same_sampling_rate=self.same_sampling_rate,
         )
 
+    def filter_multiband_signal(self, mbsignal: MultiBandSignal, activate_zi: bool = False,
+                                zero_phase: bool = False) -> MultiBandSignal:
+        """Each band through its own filter (`classes/filterbank.py:521`)."""
+        assert np.all(mbsignal.sampling_rate_hz == self.sampling_rate_hz), (
+            "Sampling rates do not match"
+        )
+        if zero_phase:
+            assert not activate_zi, "Zero-phase filtering and zi cannot be used at the same time"
+        if activate_zi and (not hasattr(self.filters[0], "zi")
+                            or len(self.filters[0].zi) != mbsignal.number_of_channels):
+            self.initialize_zi(mbsignal.number_of_channels)
+        new_sig = mbsignal.copy()
+        for n in range(mbsignal.number_of_bands):
+            new_sig.bands[n] = self.filters[n].filter_signal(
+                mbsignal.bands[n], channels=None, activate_zi=activate_zi, zero_phase=zero_phase)
+        return new_sig
+
     # ======== Getters =======================================================
+    def get_transfer_function(self, frequency_vector_hz: np.ndarray, mode: FilterBankMode
+                              ) -> np.ndarray:
+        """The bank's complex transfer function, host scipy
+        (`classes/filterbank.py:568`): Parallel → (frequency, filter),
+        Sequential and Summed → (frequency,). Parity: the Summed sum starts
+        from ones, as in the reference."""
+        if mode == FilterBankMode.Parallel:
+            h = np.zeros((len(frequency_vector_hz), self.number_of_filters), dtype=np.complex128)
+            for ind, f in enumerate(self.filters):
+                h[:, ind] = f.get_transfer_function(frequency_vector_hz)
+            return h
+        if mode in (FilterBankMode.Sequential, FilterBankMode.Summed):
+            h = np.ones(len(frequency_vector_hz), dtype=np.complex128)
+            for f in self.filters:
+                tf = f.get_transfer_function(frequency_vector_hz)
+                h = h * tf if mode == FilterBankMode.Sequential else h + tf
+            return h
+        raise ValueError("No valid mode")
+
     def get_ir(
         self,
         length_samples: int = 1024,
@@ -254,3 +359,64 @@ class FilterBank:
         d = ImpulseResponse(None, impulse(length_samples), self.sampling_rate_hz,
                             constrain_amplitude=False, device=device)
         return self.filter_signal(d, mode, zero_phase=zero_phase)
+
+    # ======== Plots =========================================================
+    def _response_spectra(self, length_samples: int, mode, zero_phase: bool = False):
+        """``(f, spectra (F, n))`` of the bank's IRs: one per filter in
+        Parallel, the combined one otherwise; None for a multirate bank,
+        whose plots the reference skips with a warning
+        (`classes/filterbank.py:633`)."""
+        if not self.same_sampling_rate:
+            warn("Plotting for multirate FilterBank is not supported, skipping plots")
+            return None
+        out = self.get_ir(length_samples, mode, zero_phase=zero_phase)
+        bands = out.bands if mode == FilterBankMode.Parallel else [out]
+        irs = torch.stack([b.time_data[:, 0] for b in bands], dim=1).cpu().numpy()
+        return np.fft.rfftfreq(length_samples, 1 / self.sampling_rate_hz), np.fft.rfft(irs, axis=0)
+
+    def _labels(self, n: int) -> list:
+        return [f"Filter {k}" for k in range(n)]
+
+    def plot_magnitude(self, length_samples: int = 1024,
+                       mode: FilterBankMode = FilterBankMode.Parallel, range_hz=[20, 20e3],
+                       zero_phase: bool = False):
+        """Magnitude responses (`classes/filterbank.py:655`)."""
+        from ..helpers.gain_and_level import to_db
+        from ..plots import general_plot
+
+        resp = self._response_spectra(length_samples, mode, zero_phase)
+        if resp is None:
+            return None
+        f, sp = resp
+        return general_plot(f, to_db(np.abs(sp), True), range_hz, ylabel="Magnitude / dB",
+                            labels=self._labels(sp.shape[1]))
+
+    def plot_phase(self, length_samples: int = 1024,
+                   mode: FilterBankMode = FilterBankMode.Parallel, range_hz=[20, 20e3],
+                   unwrap: bool = False):
+        """Phase responses (`classes/filterbank.py:690`)."""
+        from ..plots import general_plot
+
+        resp = self._response_spectra(length_samples, mode)
+        if resp is None:
+            return None
+        f, sp = resp
+        ph = np.angle(sp)
+        if unwrap:
+            ph = np.unwrap(ph, axis=0)
+        return general_plot(f, ph, range_hz, ylabel="Phase / rad",
+                            labels=self._labels(sp.shape[1]))
+
+    def plot_group_delay(self, length_samples: int = 1024,
+                         mode: FilterBankMode = FilterBankMode.Parallel, range_hz=[20, 20e3]):
+        """Group delays (`classes/filterbank.py:724`)."""
+        from ..plots import general_plot
+        from ..standard.backend import group_delay_direct
+
+        resp = self._response_spectra(length_samples, mode)
+        if resp is None:
+            return None
+        f, sp = resp
+        gd = group_delay_direct(torch.as_tensor(np.angle(sp)), f[1] - f[0]).numpy() * 1e3
+        return general_plot(f, gd, range_hz, ylabel="Group delay / ms",
+                            labels=self._labels(sp.shape[1]))

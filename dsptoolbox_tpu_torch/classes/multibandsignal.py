@@ -1,15 +1,18 @@
 """MultiBandSignal: a list of per-band Signals, optionally multirate
 (`dsptoolbox_tpu/classes/multibandsignal.py`). The bands' data stays on
-their device. Not ported: band removal and reordering, ``get_all_bands``,
-metadata strings, plots and saving.
+their device; `save_signal` pickles.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
+from pickle import HIGHEST_PROTOCOL, dump
+from warnings import warn
 
 import numpy as np
 import torch
+
+from ..helpers.other import check_format_in_path
 
 from .signal import DeviceTimeData, Signal
 
@@ -103,6 +106,12 @@ class MultiBandSignal:
         return [b.length_samples for b in self.bands]
 
     @property
+    def length_seconds(self):
+        if self.same_sampling_rate:
+            return self.bands[0].length_seconds
+        return [b.length_seconds for b in self.bands]
+
+    @property
     def is_complex_signal(self) -> bool:
         return self.bands[0].is_complex_signal
 
@@ -111,6 +120,41 @@ class MultiBandSignal:
 
     def __iter__(self):
         return iter(self.bands)
+
+    def __str__(self):
+        return self.metadata_str
+
+    @property
+    def metadata(self) -> dict:
+        return {
+            "number_of_bands": self.number_of_bands,
+            "same_sampling_rate": self.same_sampling_rate,
+            "sampling_rate_hz": self.sampling_rate_hz,
+            "number_of_channels": self.number_of_channels,
+        }
+
+    @property
+    def metadata_str(self) -> str:
+        txt = "Multiband signal:"
+        for k, v in (self.metadata | self.info).items():
+            txt += f" | {str(k).replace('_', ' ').capitalize()}: {v}"
+        txt += "\n" + "–" * len(txt)
+        for ind, band in enumerate(self.bands):
+            txt += f"\nSignal {ind}:"
+            for kf, vf in band.metadata.items():
+                txt += f" | {str(kf).replace('_', ' ').capitalize()}: {vf}"
+        return txt
+
+    def show_info(self):
+        print(self.metadata_str)
+        return self
+
+    def save_signal(self, path: str):
+        """Pickle the bands (`classes/multibandsignal.py:264`)."""
+        path = check_format_in_path(path, "pkl")
+        with open(path, "wb") as data_file:
+            dump(self, data_file, HIGHEST_PROTOCOL)
+        return self
 
     def copy(self) -> "MultiBandSignal":
         """A deep copy: the bands' tensors are copied on their device."""
@@ -122,6 +166,28 @@ class MultiBandSignal:
         bands = self.bands
         bands = bands + [sig] if index == -1 else bands[:index] + [sig] + bands[index:]
         self.bands = bands
+        return self
+
+    def remove_band(self, index: int = -1, return_band: bool = False):
+        """Remove (and with ``return_band`` return) one band."""
+        assert self.bands, "There are no bands to remove"
+        bands = list(self.bands)
+        band = bands.pop(index)
+        self.bands = bands
+        if return_band:
+            return self, band
+        return self
+
+    def swap_bands(self, new_order) -> "MultiBandSignal":
+        new_order = np.atleast_1d(np.asarray(new_order).squeeze())
+        assert len(new_order) == self.number_of_bands, "The number of bands does not match"
+        assert len(np.unique(new_order)) == len(new_order), (
+            "There are repeated indexes in the new order vector"
+        )
+        assert np.all((new_order >= 0) & (new_order < self.number_of_bands)), (
+            "Indexes of the new order vector exceed the number of bands"
+        )
+        self.bands = [self.bands[i] for i in new_order]
         return self
 
     def collapse(self) -> Signal:
@@ -146,6 +212,17 @@ class MultiBandSignal:
     def _band_data(self, b: Signal) -> torch.Tensor:
         td = b.time_data
         return torch.complex(td, b.time_data_imaginary) if self.is_complex_signal else td
+
+    def get_all_bands(self, channel: int = 0):
+        """One channel of every band: a Signal of the bands' class with one
+        channel per band (same rate), or ``(list of tensors, list of
+        rates)`` for a multirate signal; on the bands' device."""
+        cols = [self._band_data(b)[:, channel] for b in self.bands]
+        if self.same_sampling_rate:
+            return type(self.bands[0])(None, torch.stack(cols, dim=1), self.sampling_rate_hz)
+        if self.is_complex_signal:
+            warn("Output is complex since signal data had imaginary part")
+        return cols, [b.sampling_rate_hz for b in self.bands]
 
     def get_all_time_data(self):
         """All data stacked ``(T, bands, channels)`` with the sampling rate

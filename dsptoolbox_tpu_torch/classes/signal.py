@@ -23,15 +23,20 @@ unwrapped phase by `helpers.smoothing.fractional_octave_smoothing`, and the
 physical-unit scalings go through `helpers.spectrum_utilities.scale_spectrum`
 (with the IR's window where it carries one), on the device.
 
-Not ported yet: reading audio files (``path``), the lazy/deferred host
-returns and the device-spectrum caches of a tunnelled backend, plots and
-the mesh-parallel CSM.
+A ``path`` (WAV or FLAC) is read on the host by `io.read_audio` and its
+samples go to the device once, as numpy data does. `save_signal` writes
+WAV, FLAC or a pickle; the plots (`plot_*`) draw on `plots` with the data
+brought to numpy at the plot.
+
+Not ported yet: the lazy/deferred host returns and the device-spectrum
+caches of a tunnelled backend, and the mesh-parallel CSM.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
 from functools import lru_cache
+from pickle import HIGHEST_PROTOCOL, dump
 from typing import NamedTuple
 from warnings import warn
 
@@ -39,13 +44,13 @@ import numpy as np
 import torch
 
 from .._config import default_complex, default_device, default_float, in_pipeline
-from ..helpers.other import unwrap
+from ..helpers.other import check_format_in_path, unwrap
 from ..helpers.smoothing import fractional_octave_smoothing
 from ..helpers.spectrum_utilities import scale_spectrum
 from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import csm_from_spectrum, csm_welch, stft, welch
-from .._enums import SpectrumMethod, SpectrumScaling, Window
+from .._enums import MagnitudeNormalization, SpectrumMethod, SpectrumScaling, Window
 
 
 class DeviceTimeData(NamedTuple):
@@ -88,18 +93,28 @@ class Signal:
         activate_cache: bool = False,
         device=None,
     ):
-        """``device``: where numpy ``time_data`` goes (default:
-        `_config.default_device()`); a tensor keeps its own device."""
+        """``path``: a WAV or FLAC file, read on the host (`io.read_audio`).
+        ``device``: where numpy ``time_data`` (or the file's samples) goes
+        (default: `_config.default_device()`); a tensor keeps its own
+        device."""
         if path is not None:
-            raise NotImplementedError(
-                "reading audio files is not ported yet; pass time_data"
+            assert time_data is None, (
+                "Constructor cannot take a path and a vector at the same time"
             )
-        assert time_data is not None, (
-            "Either a path to an audio file or a time vector has to be "
-            "passed"
-        )
-        assert sampling_rate_hz is not None, "A sampling rate should be passed!"
+            assert sampling_rate_hz is None, (
+                "Constructor cannot take a path and a sampling rate at the same time"
+            )
+            from ..io import read_audio
+
+            time_data, sampling_rate_hz = read_audio(path)
+        else:
+            assert time_data is not None, (
+                "Either a path to an audio file or a time vector has to be "
+                "passed"
+            )
+            assert sampling_rate_hz is not None, "A sampling rate should be passed!"
         self.constrain_amplitude = constrain_amplitude
+        self.calibrated_signal = False
         self.activate_cache = activate_cache
         self._cache: dict = {}
         self._numpy_device = default_device() if device is None else device
@@ -107,6 +122,10 @@ class Signal:
         self.time_data = time_data
         self.set_spectrum_parameters()
         self.set_spectrogram_parameters()
+
+    @staticmethod
+    def from_file(path: str) -> "Signal":
+        return Signal(path)
 
     @staticmethod
     def from_time_data(
@@ -245,6 +264,42 @@ class Signal:
     def constrain_amplitude(self, nca):
         assert isinstance(nca, bool)
         self._constrain_amplitude = nca
+
+    @property
+    def calibrated_signal(self) -> bool:
+        """Whether the data is in Pascal (`CalibrationData.calibrate_signal`)."""
+        return self._calibrated_signal
+
+    @calibrated_signal.setter
+    def calibrated_signal(self, ncs):
+        assert isinstance(ncs, bool)
+        self._calibrated_signal = ncs
+
+    @property
+    def metadata(self) -> dict:
+        return {
+            "sampling_rate_hz": self.sampling_rate_hz,
+            "number_of_channels": self.number_of_channels,
+            "signal_length_samples": self.length_samples,
+            "signal_length_seconds": self.length_seconds,
+            "constrain_amplitude": self.constrain_amplitude,
+            "amplitude_scale_factor": self.amplitude_scale_factor,
+            "is_complex_signal": self.is_complex_signal,
+        }
+
+    @property
+    def metadata_str(self) -> str:
+        txt = "\n"
+        for k, v in self.metadata.items():
+            txt += f"{str(k).replace('_', ' ').capitalize()}: {v}\n"
+        return txt
+
+    def __str__(self):
+        return self.metadata_str
+
+    def show_info(self):
+        print(self.metadata_str)
+        return self
 
     # ======== Spectrum configuration ========================================
     def set_spectrum_parameters(
@@ -410,13 +465,14 @@ class Signal:
         sampling_rate_hz: int | None = None,
         allow_padding_trimming: bool = True,
     ) -> "Signal":
-        """Append channels from time data ``(T, C)`` (numpy or a tensor),
-        padded or trimmed at the end to this signal's length, in place
-        (`classes/signal.py:725`). Reading a file is not ported yet."""
+        """Append channels from a WAV or FLAC file or from time data
+        ``(T, C)`` (numpy or a tensor), padded or trimmed at the end to this
+        signal's length, in place (`classes/signal.py:725`)."""
         if path is not None:
-            raise NotImplementedError(
-                "reading audio files is not ported yet; pass new_time_data"
-            )
+            assert new_time_data is None, "Only path or new time data is accepted, not both."
+            from ..io import read_audio
+
+            new_time_data, sampling_rate_hz = read_audio(path)
         assert sampling_rate_hz == self.sampling_rate_hz, (
             f"{sampling_rate_hz} does not match {self.sampling_rate_hz} "
             "as the sampling rate"
@@ -637,7 +693,230 @@ class Signal:
         f, csm = self._csm()
         return f.copy(), csm.real, csm.imag
 
-    # ======== Copies ========================================================
+    # ======== Plots =========================================================
+    def _latency_delays(self, remove_ir_latency) -> np.ndarray:
+        """Per-channel delays in samples for ``remove_ir_latency``: "peak",
+        "min_phase" or the delays themselves (`classes/signal.py:1557`)."""
+        from ..helpers.latency import fractional_latency, get_fractional_impulse_peak_index
+
+        if not isinstance(remove_ir_latency, str):
+            return np.atleast_1d(remove_ir_latency)
+        mode = remove_ir_latency.lower()
+        if mode == "peak":
+            return get_fractional_impulse_peak_index(self.time_data, 1)
+        if mode == "min_phase":
+            from ..helpers.minimum_phase import min_phase_ir_from_real_cepstrum
+
+            min_ir = min_phase_ir_from_real_cepstrum(self._x, 8).T[: len(self), :]
+            return fractional_latency(self.time_data, min_ir, 1)
+        raise ValueError("No valid latency removal")
+
+    def _phase_without_latency(self, f, ph: np.ndarray, remove_ir_latency) -> np.ndarray:
+        from ..helpers.latency import remove_ir_latency_from_phase
+
+        delays = self._latency_delays(remove_ir_latency)
+        return remove_ir_latency_from_phase(
+            f, torch.as_tensor(ph), np.asarray(delays), self.sampling_rate_hz).numpy()
+
+    def plot_magnitude(
+        self,
+        range_hz=[20.0, 20e3],
+        normalize: MagnitudeNormalization = MagnitudeNormalization.NoNormalization,
+        range_db=None,
+        smoothing: int = 0,
+        show_info_box: bool = False,
+    ):
+        """Magnitude spectrum per channel (`classes/signal.py:1412`)."""
+        from ..helpers.spectrum_utilities import get_normalized_spectrum
+        from ..plots import general_plot
+
+        prior = self._spectrum_parameters["smoothing"]
+        self._spectrum_parameters["smoothing"] = 0
+        try:
+            f, sp = self.get_spectrum()
+        finally:
+            self._spectrum_parameters["smoothing"] = prior
+        f, mag_db = get_normalized_spectrum(
+            f=f, spectra=sp, is_amplitude_scaling=self.spectrum_scaling.is_amplitude_scaling(),
+            f_range_hz=range_hz, normalize=normalize, smoothing=smoothing, phase=False,
+            calibrated_data=self.calibrated_signal,
+        )
+        txt = None
+        if show_info_box:
+            txt = (f"Info\nMode: {self._spectrum_parameters['method']}"
+                   f"\nRange: {range_hz}\nNormalized: {normalize}\nSmoothing: {smoothing}")
+        suffix = {
+            MagnitudeNormalization.NoNormalization: "" if self.calibrated_signal else "FS",
+            MagnitudeNormalization.OneKhz: " (normalized @ 1 kHz)",
+            MagnitudeNormalization.OneKhzFirstChannel: " (normalized @ 1 kHz for first channel)",
+            MagnitudeNormalization.Max: " (normalized @ peak)",
+            MagnitudeNormalization.MaxFirstChannel: " (normalized @ peak for first channel)",
+            MagnitudeNormalization.Energy: " (normalized with average energy)",
+            MagnitudeNormalization.EnergyFirstChannel: (
+                " (normalized with average energy of first channel)"),
+        }[normalize]
+        return general_plot(f, np.asarray(mag_db), range_hz, range_y=range_db,
+                            ylabel="Magnitude / dB" + suffix, info_box=txt,
+                            labels=[f"Channel {n}" for n in range(self.number_of_channels)])
+
+    def plot_time(self):
+        """The waveform of each channel (`classes/signal.py:1471`)."""
+        from ..plots import general_subplots_line
+
+        td = self.time_data.cpu().numpy()
+        fig, ax = general_subplots_line(
+            self.time_vector_s, td, sharex=True,
+            ylabels=[f"Channel {n}" for n in range(self.number_of_channels)],
+            xlabels="Time / s",
+        )
+        td_im = self.time_data_imaginary
+        td_im = None if td_im is None else td_im.cpu().numpy()
+        for n in range(self.number_of_channels):
+            mx = np.max(np.abs(td[:, n])) * 1.1 if td.size else 1.0
+            if td_im is not None:
+                ax[n].plot(self.time_vector_s, td_im[:, n], alpha=0.9, linestyle="dotted")
+            if mx > 0:
+                ax[n].set_ylim([-mx, mx])
+        return fig, ax
+
+    def plot_spl(self, normalize_at_peak: bool = False,
+                 dynamic_range_db: float | None = 100.0, window_length_s: float = 0.0):
+        """Momentary level per channel in dBFS, or dB SPL for a calibrated
+        signal (`classes/signal.py:1494`). The power and its smoothing
+        (`helpers.smoothing.time_smoothing`, B2 on a float32 CUDA tensor)
+        run on the device; the levels come to numpy at the plot."""
+        from ..helpers.gain_and_level import to_db
+        from ..helpers.smoothing import time_smoothing
+        from ..plots import general_subplots_line
+
+        p0 = 20e-6 if self.calibrated_signal and not normalize_at_peak else 1.0
+        x = self._x / p0
+        if normalize_at_peak:
+            x = x / x.abs().max()
+        power = x**2
+        if window_length_s > 0:
+            power = time_smoothing(power, self.sampling_rate_hz, window_length_s)
+        spl = to_db(power.T, False).cpu().numpy()
+        if dynamic_range_db is not None:
+            spl = np.clip(spl, np.max(spl) - abs(dynamic_range_db), None)
+        unit = "dBFS" if not self.calibrated_signal or normalize_at_peak else "dB SPL"
+        return general_subplots_line(
+            self.time_vector_s, spl, sharex=True,
+            ylabels=[f"Channel {n} / {unit}" for n in range(self.number_of_channels)],
+            xlabels="Time / s",
+        )
+
+    def plot_group_delay(self, range_hz=[20.0, 20e3], smoothing: int = 0,
+                         remove_ir_latency=None):
+        """Group delay −dφ/dω of the unpadded FFT spectrum
+        (`classes/signal.py:1536`); ``remove_ir_latency``: None, "peak",
+        "min_phase" or per-channel delays in samples."""
+        from ..plots import general_plot
+        from ..standard.backend import group_delay_direct
+
+        prior = self._spectrum_parameters.copy()
+        self.set_spectrum_parameters(method=SpectrumMethod.FFT,
+                                     scaling=SpectrumScaling.FFTBackward,
+                                     pad_to_fast_length=False)
+        try:
+            f, sp = self.get_spectrum(force_computation=True)
+        finally:
+            self._spectrum_parameters = prior
+        ph = sp.angle().cpu().numpy()
+        if ph.ndim == 1:
+            ph = ph[:, None]
+        if remove_ir_latency is not None:
+            ph = self._phase_without_latency(f, ph, remove_ir_latency)
+        gd = group_delay_direct(torch.as_tensor(ph), f[1] - f[0], axis=0)
+        if smoothing != 0:
+            gd = fractional_octave_smoothing(gd, None, smoothing)
+        return general_plot(f, gd.numpy() * 1e3, range_hz, ylabel="Group delay / ms",
+                            labels=[f"Channel {n}" for n in range(self.number_of_channels)])
+
+    def plot_spectrogram(self, channel_number: int = 0, log_freqs: bool = True,
+                         dynamic_range_db=50):
+        """Spectrogram of one channel (`classes/signal.py:1610`)."""
+        from ..plots import general_matrix_plot
+
+        t, f, S = self.get_spectrogram()
+        mag = S[..., channel_number].abs().cpu().numpy()
+        mag_db = 20 * np.log10(mag + np.finfo(np.float64).eps)
+        return general_matrix_plot(
+            mag_db, range_x=(t[0], t[-1]), range_y=(max(f[0], 1.0), f[-1]),
+            range_z=dynamic_range_db, xlabel="Time / s", ylabel="Frequency / Hz",
+            zlabel="Magnitude / dB", ylog=log_freqs,
+        )
+
+    def plot_phase(self, range_hz=[20.0, 20e3], unwrap: bool = False, smoothing: int = 0,
+                   remove_ir_latency=None):
+        """Phase of the FFT spectrum (`classes/signal.py:1633`);
+        ``remove_ir_latency`` as in `plot_group_delay`."""
+        from ..plots import general_plot
+
+        assert self.spectrum_method == SpectrumMethod.FFT, (
+            "Phase cannot be plotted since the spectrum is not complex. Set "
+            "the spectrum method to FFT"
+        )
+        prior = self._spectrum_parameters["smoothing"]
+        self._spectrum_parameters["smoothing"] = 0
+        try:
+            f, sp = self.get_spectrum()
+        finally:
+            self._spectrum_parameters["smoothing"] = prior
+        ph = sp.angle().cpu().numpy()
+        if remove_ir_latency is not None:
+            ph = self._phase_without_latency(f, ph, remove_ir_latency)
+        if smoothing != 0:
+            ph = fractional_octave_smoothing(
+                torch.as_tensor(np.unwrap(ph, axis=0)), None, smoothing).numpy()
+            ph = (ph + np.pi) % (2 * np.pi) - np.pi
+        if unwrap:
+            ph = np.unwrap(ph, axis=0)
+        return general_plot(f, np.asarray(ph), range_hz, ylabel="Phase / rad",
+                            labels=[f"Channel {n}" for n in range(self.number_of_channels)])
+
+    def plot_csm(self, range_hz=[20.0, 20e3], with_phase=True):
+        """The CSM's lower triangle (`classes/signal.py:1714`)."""
+        from ._plots import csm_plot
+
+        f, csm = self.get_csm()
+        return csm_plot(f, csm, range_hz, True, with_phase)
+
+    # ======== Saving / copying ==============================================
+    def save_signal(self, path: str, mode: str = "wav", bit_depth: int = 32):
+        """Save as WAV (16, 24, 32 float or 64 float bits), FLAC (8, 16 or
+        24 bits; other depths take 24) or a pickle
+        (`classes/signal.py:1723`). The samples are read back from the
+        device once."""
+        mode = mode.lower()
+        path = check_format_in_path(path, mode)
+        if mode == "wav":
+            from ..io import write_wav
+
+            subtype = {16: "PCM_16", 24: "PCM_24", 32: "FLOAT", 64: "DOUBLE"}.get(bit_depth)
+            if subtype is None:
+                raise ValueError(
+                    "Selected bit depth is not valid. Use either 16, 24, 32 or 64"
+                )
+            write_wav(path, self.time_data.cpu().numpy(), self.sampling_rate_hz, subtype)
+        elif mode == "flac":
+            from ..io.flac import write_flac
+
+            bits = bit_depth if bit_depth in (8, 16, 24) else 24
+            write_flac(path, self.time_data.cpu().numpy(), self.sampling_rate_hz, bits)
+        elif mode == "pkl":
+            with open(path, "wb") as data_file:
+                dump(self, data_file, HIGHEST_PROTOCOL)
+        else:
+            raise ValueError(f"{mode} is not a supported saving mode. Use wav, flac or pkl")
+        return self
+
+    def __getstate__(self):
+        """Pickle without the caches (they are rebuilt on demand)."""
+        d = dict(self.__dict__)
+        d["_cache"] = {}
+        return d
+
     def copy(self) -> "Signal":
         """A deep copy: the tensors are copied on their device."""
         return deepcopy(self)
@@ -653,6 +932,7 @@ class Signal:
             self.constrain_amplitude, device=self.device,
         )
         new_signal.activate_cache = self.activate_cache
+        new_signal.calibrated_signal = self.calibrated_signal
         new_signal._spectrum_parameters = dict(self._spectrum_parameters)
         new_signal._spectrogram_parameters = dict(self._spectrogram_parameters)
         return new_signal

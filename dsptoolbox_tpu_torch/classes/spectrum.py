@@ -13,14 +13,15 @@ by gathers over host brackets (`helpers/interpolation.py`), cubic by the
 dense not-a-knot operator built on the host (scipy) and applied as one
 float32 product up to 4096 bins, above that by scipy's ``CubicSpline`` on
 the host, as the JAX package does. Octave smoothing runs through
-`helpers.smoothing.fractional_octave_smoothing` on the device. Not ported:
-plots and ``save_spectrum``.
+`helpers.smoothing.fractional_octave_smoothing` on the device. The plots
+draw on `plots`; `save_spectrum` pickles.
 """
 
 from __future__ import annotations
 
 from copy import deepcopy
 from functools import lru_cache
+from pickle import HIGHEST_PROTOCOL, dump
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ import torch
 from .._config import default_complex, default_device, default_float
 from ..helpers.gain_and_level import from_db, to_db
 from ..helpers.interpolation import linear_interpolate, pchip_interpolate
-from ..helpers.other import unwrap
+from ..helpers.other import check_format_in_path, unwrap
 from ..helpers.smoothing import fractional_octave_smoothing
 from ..helpers.spectrum_utilities import apply_real_operator, warp_frequency_vector
 from .._enums import (
@@ -37,6 +38,7 @@ from .._enums import (
     InterpolationDomain,
     InterpolationEdgeHandling,
     InterpolationScheme,
+    MagnitudeNormalization,
     SpectrumType,
     Window,
 )
@@ -493,6 +495,41 @@ class Spectrum:
         return ((power[1:] + power[:-1]) / 2.0 * dx).sum(dim=0)
 
     # ======== Copies ========================================================
+    # ======== Plots and saving ==============================================
+    def plot_magnitude(self, in_db: bool = True,
+                       normalization: MagnitudeNormalization = MagnitudeNormalization.NoNormalization,
+                       dynamic_range_db=None):
+        """Magnitude per channel (`classes/spectrum.py:597`)."""
+        from ..helpers.spectrum_utilities import get_normalized_spectrum
+        from ..plots import general_plot
+
+        f, mag_db = get_normalized_spectrum(self.frequency_vector_hz, self.spectral_data, True,
+                                            None, normalization, 0, False, False)
+        mat = np.asarray(mag_db)
+        if not in_db:
+            mat = 10 ** (mat / 20)
+        return general_plot(f, np.atleast_2d(mat.T).T, None, range_y=dynamic_range_db,
+                            ylabel="Magnitude / " + ("dB" if in_db else "1"),
+                            labels=[f"Channel {n}" for n in range(self.number_of_channels)])
+
+    def plot_coherence(self):
+        """The coherence of each channel (`classes/spectrum.py:639`)."""
+        from ..plots import general_subplots_line
+
+        assert self.has_coherence, "No coherence has been saved"
+        return general_subplots_line(
+            self.frequency_vector_hz, self.coherence.cpu().numpy(), sharey=True, log_x=True,
+            ylabels=[rf"$\gamma^2$ Coherence {n}" for n in range(self.number_of_channels)],
+            xlabels="Frequency / Hz", range_y=[-0.1, 1.1],
+        )
+
+    def save_spectrum(self, path: str):
+        """Pickle the spectrum (`classes/spectrum.py:658`)."""
+        path = check_format_in_path(path, "pkl")
+        with open(path, "wb") as data_file:
+            dump(self, data_file, HIGHEST_PROTOCOL)
+        return self
+
     def copy(self) -> "Spectrum":
         """A deep copy: the tensors are copied on their device."""
         return deepcopy(self)

@@ -57,6 +57,26 @@ def from_db(x, amplitude_output: bool = True):
     return 10.0 ** (np.asarray(x) / factor)
 
 
+def rms(x, axis: int = -1, remove_mean: bool = True):
+    """RMS along ``axis`` (`helpers/gain_and_level.py:69`): the standard
+    deviation (the reference's ``_rms`` removes the mean), or with
+    ``remove_mean=False`` the plain quadratic mean. A tensor stays on its
+    device, numpy stays numpy."""
+    if torch.is_tensor(x):
+        if remove_mean:
+            return x.std(dim=axis, correction=0)
+        return x.abs().square().mean(dim=axis).sqrt()
+    x = np.asarray(x)
+    if remove_mean:
+        return np.std(x, axis=axis)
+    return np.sqrt(np.mean(np.abs(x) ** 2, axis=axis))
+
+
+def amplify_db(x, db: float):
+    """``x`` amplified by ``db`` decibels (`helpers/gain_and_level.py:81`)."""
+    return x * 10.0 ** (db / 20.0)
+
+
 def normalize(
     x: torch.Tensor,
     dbfs: float,

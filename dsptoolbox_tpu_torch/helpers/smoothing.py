@@ -7,8 +7,10 @@ PCHIP, convolves it with a normalized window and resamples it back. The
 grids and the window depend only on the length, so they are built on the
 host; the data runs through gathers and one FFT convolution on its device.
 The single-coefficient EMA that the IR trimming and the energy decay curve
-run on 1-D host data stays host scipy. Not ported yet: the device
-``time_smoothing``.
+run on 1-D host data stays host scipy. `time_smoothing` runs on the data's
+device: one coefficient as a first-order `ops.iir.lfilter` (B2 on a float32
+CUDA tensor), attack and release as `ops.cuda_ema.ema_attack_release` (the
+EMA kernel).
 """
 
 from __future__ import annotations
@@ -122,3 +124,43 @@ def time_smoothing_host(
     zi = lfilter_zi(b, a)
     y, _ = lfilter(b, a, x, zi=zi * x[..., :1], axis=-1)
     return y
+
+
+def time_smoothing(
+    x: torch.Tensor,
+    sampling_rate_hz: int,
+    ascending_time_s: float,
+    descending_time_s: float | None = None,
+    axis: int = -1,
+) -> torch.Tensor:
+    """Exponential moving average over time, with optional separate attack
+    and release time constants (`helpers/smoothing.py:130`), on ``x``'s
+    device (numpy input goes to the CPU).
+
+    One coefficient: ``lfilter([α], [1, α−1])`` from the steady state
+    scaled by the first sample (formed in float64), first order, so B2 on
+    a float32 CUDA tensor. With a release time the coefficient follows the
+    signal's direction, ``y[0] = x[0]``: `ops.cuda_ema.ema_attack_release`.
+    """
+    from ..ops.cuda_ema import ema_attack_release
+    from ..ops.iir import lfilter, lfilter_zi
+
+    x = torch.as_tensor(x).movedim(axis, -1)
+    alpha = (
+        get_smoothing_factor_ema(ascending_time_s, sampling_rate_hz)
+        if ascending_time_s > 0.0
+        else 1.0
+    )
+    if descending_time_s is None:
+        b = np.array([alpha])
+        a = np.array([1.0, -(1.0 - alpha)])
+        zi = torch.as_tensor(lfilter_zi(b, a), dtype=torch.float64, device=x.device)
+        y, _ = lfilter(b, a, x, zi=zi * x[..., :1].to(torch.float64))
+    else:
+        beta = (
+            get_smoothing_factor_ema(descending_time_s, sampling_rate_hz)
+            if descending_time_s > 0.0
+            else 1.0
+        )
+        y = ema_attack_release(x, alpha, beta)
+    return y.movedim(-1, axis)

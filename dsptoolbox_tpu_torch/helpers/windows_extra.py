@@ -51,3 +51,19 @@ def calculate_tukey_like_window(
         )
     )
     return 1 - window_full if inverse else window_full
+
+
+def gaussian_window_sigma(window_length: int, alpha: float = 2.5) -> float:
+    """Sigma of a gaussian window from its alpha (`helpers/windows_extra.py:57`)."""
+    return (window_length - 1) / (2 * alpha)
+
+
+def gaussian_window(length: int, alpha: float, symmetric: bool, offset: int = 0) -> np.ndarray:
+    """Matlab-convention gaussian window with an optional centre offset
+    (`helpers/windows_extra.py:62`)."""
+    if not symmetric:
+        length += 1
+    n = np.arange(length)
+    half = (length - 1) / 2
+    w = np.exp(-0.5 * (alpha * ((n - offset) - half) / half) ** 2)
+    return w[:-1] if not symmetric else w

@@ -89,14 +89,10 @@ def _sos_abcd(sos: np.ndarray):
     return _series_compose([_tdf2_abcd(sec[:3], sec[3:]) for sec in sos])
 
 
-@lru_cache(maxsize=256)
-def _block_operators(sos_key: tuple, L: int):
-    """Static (HmatT (L,L), GyT (N,L), ALT (N,N), MT (L,N)) in float64:
-    y_blk = x_blk @ HmatT + s @ GyT ;  s' = s @ ALT + x_blk @ MT."""
-    sos = np.asarray(sos_key).reshape(-1, 6)
-    if not np.iscomplexobj(sos):
-        sos = sos.astype(np.float64)
-    A, B, C, D = _sos_abcd(sos)
+def _abcd_operators(A, B, C, D, L: int):
+    """Block operators of the state-space system (A, B, C, D) for blocks of
+    ``L`` samples, in its dtype: (HmatT (L,L), GyT (N,L), ALT (N,N), MT (L,N))
+    with y_blk = x_blk @ HmatT + s @ GyT ;  s' = s @ ALT + x_blk @ MT."""
     dtype = A.dtype
     N = A.shape[0]
     powers = np.empty((L + 1, N, N), dtype)
@@ -114,6 +110,16 @@ def _block_operators(sos_key: tuple, L: int):
     AL = powers[L]
     M = np.stack([(powers[L - 1 - k] @ B)[:, 0] for k in range(L)], axis=1)
     return Hmat.T, Gy.T, AL.T, M.T
+
+
+@lru_cache(maxsize=256)
+def _block_operators(sos_key: tuple, L: int):
+    """`_abcd_operators` of the SOS cascade ``sos_key`` (flattened (S, 6)),
+    float64 (complex128 for a complex cascade)."""
+    sos = np.asarray(sos_key).reshape(-1, 6)
+    if not np.iscomplexobj(sos):
+        sos = sos.astype(np.float64)
+    return _abcd_operators(*_sos_abcd(sos), L)
 
 
 def _pick_block(T: int) -> int:
@@ -162,12 +168,42 @@ def operators_to_torch(ops: dict, device, dtype: torch.dtype) -> dict:
 
 @_config.device_cache(64)
 def _device_operators(key: tuple, L: int, dtype: torch.dtype, device: torch.device):
-    """`_block_operators` as tensors on ``device`` for a signal of ``dtype``,
-    cached so that repeated calls pay the host-to-device copies once."""
+    """`_block_operators` as tensors on ``device`` for a signal of
+    ``dtype``, cached so that repeated calls pay the host-to-device copies
+    once."""
     ops = operators_to_torch(
         dict(zip(_OPERATOR_NAMES, _block_operators(key, L))), device, dtype
     )
     return tuple(ops[k] for k in _OPERATOR_NAMES)
+
+
+def _run_blocks(key: tuple, x: torch.Tensor, s0: torch.Tensor, L: int):
+    """``x (B, T)`` in its compute dtype from the state ``s0 (B, N)``
+    through the blocked cascade ``key``: the full blocks through
+    `cuda_iir.sosfilt_lead` (B2 for float32 on a CUDA tensor, at any block
+    count; the plain version for other dtypes), the remainder tail as one
+    more block product. Returns ``(y (B, T), s_end (B, N))``, the state in
+    the state path's dtype."""
+    B, T = x.shape
+    H, G, A, M = _device_operators(key, L, x.dtype, x.device)
+    n_full = T // L
+    rem = T - n_full * L
+    if n_full > 0:
+        xb = x[:, : n_full * L].reshape(B, n_full, L)
+        # the kernel takes float32 only
+        lead = sosfilt_lead if x.dtype == torch.float32 else sosfilt_lead_plain
+        y, s_end = lead(H, G, A, M, xb, s0)
+        y = y.reshape(B, n_full * L)
+    else:
+        s_end = s0
+        y = x.new_zeros((B, 0))
+    if rem:
+        Hr, Gr, Ar, Mr = _device_operators(key, rem, x.dtype, x.device)
+        x_tail = x[:, n_full * L :]
+        y_tail = ((x_tail @ Hr).to(Gr.dtype) + s_end @ Gr).to(x.dtype)
+        s_end = s_end @ Ar + x_tail.to(Mr.dtype) @ Mr
+        y = torch.cat([y, y_tail], dim=-1)
+    return y, s_end
 
 
 def sosfilt_block(
@@ -223,32 +259,13 @@ def sosfilt_block(
     x = x.to(compute_dtype)
     batch = x.shape[:-1]
     B = math.prod(batch)
-    H, G, A, M = _device_operators(key, L, compute_dtype, x.device)
+    sdt = state_dtype(compute_dtype)
     s0 = (
-        torch.as_tensor(zi, dtype=A.dtype, device=x.device).reshape(B, N)
+        torch.as_tensor(zi, dtype=sdt, device=x.device).reshape(B, N)
         if zi is not None
-        else A.new_zeros((B, N))
+        else torch.zeros((B, N), dtype=sdt, device=x.device)
     )
-
-    n_full = T // L
-    rem = T - n_full * L
-    if n_full > 0:
-        xb = x[..., : n_full * L].reshape(B, n_full, L)
-        # every float32 lead takes `sosfilt_lead` (B2 on a CUDA tensor, at
-        # any block count); the kernel takes float32 only
-        lead = sosfilt_lead if compute_dtype == torch.float32 else sosfilt_lead_plain
-        y, s_end = lead(H, G, A, M, xb, s0)
-        y = y.reshape(B, n_full * L)
-    else:
-        s_end = s0
-        y = x.new_zeros((B, 0))
-
-    if rem:
-        Hr, Gr, Ar, Mr = _device_operators(key, rem, compute_dtype, x.device)
-        x_tail = x[..., n_full * L :].reshape(B, rem)
-        y_tail = ((x_tail @ Hr).to(Gr.dtype) + s_end @ Gr).to(compute_dtype)
-        s_end = s_end @ Ar + x_tail.to(Mr.dtype) @ Mr
-        y = torch.cat([y, y_tail], dim=-1)
+    y, s_end = _run_blocks(key, x.reshape(B, T), s0, L)
 
     # the state stays in the state path's dtype (float64 for float32 data)
     zf = s_end.reshape(batch + (S, 2))
@@ -290,6 +307,115 @@ def lfilter_block(
     y, _ = sosfilt_block(tf2sos(b, a), x, block_size=block_size)
     zf = torch.zeros(x.shape[:-1] + (order,), dtype=state_dtype(x.dtype), device=x.device)
     return y, zf
+
+
+def _polish_poles(a: np.ndarray, p: np.ndarray, steps: int = 6) -> np.ndarray:
+    """The roots ``p`` of the polynomial ``a`` refined by Newton steps in
+    extended precision (``np.clongdouble``), each step kept only where it
+    lowers |a(p)|: the clustered poles of a low-cutoff filter are found to
+    ~1e-7 in float64, which moves its response by a few 1e-6."""
+    c = np.asarray(a, np.longdouble)
+    dc = np.polyder(c)
+    z = np.asarray(p, np.clongdouble)
+    res = np.abs(np.polyval(c, z))
+    for _ in range(steps):
+        d = np.polyval(dc, z)
+        ok = d != 0
+        step = np.where(ok, np.polyval(c, z) / np.where(ok, d, 1), 0)
+        cand = z - step
+        better = np.abs(np.polyval(c, cand)) < res
+        z = np.where(better, cand, z)
+        res = np.where(better, np.abs(np.polyval(c, cand)), res)
+    return z.astype(np.complex128)
+
+
+def _observability(A: np.ndarray, C: np.ndarray, n: int):
+    """``[C; C A; …; C A^(n-1)]`` (the zero-input output of each state) of
+    a float64 system, exactly, as an mpmath matrix (50 digits)."""
+    import mpmath
+
+    Am = mpmath.matrix(A.tolist())
+    rows = [mpmath.matrix([C[0].tolist()])]
+    for _ in range(n - 1):
+        rows.append(rows[-1] * Am)
+    return mpmath.matrix([[r[0, j] for j in range(A.shape[0])] for r in rows])
+
+
+@lru_cache(maxsize=64)
+def _ba_cascade(ba_key: tuple):
+    """``(sos, to_cascade (2S, N), to_tdf2 (N, 2S))`` of the IIR direct form
+    ``ba_key = (b, a)``: the SOS cascade of its zeros and its poles (roots
+    of ``a`` refined in extended precision), and the maps between its
+    states and the TDF2 state of ``(b, a)`` that give the same zero-input
+    output over its 2S samples (2S = N, or N + 1 for an odd order, whose
+    extra mode sits at the origin). The observability matrices are ill
+    conditioned (~1e15 for a narrow band at low frequencies), so the maps
+    are solved exactly (mpmath, 50 digits) from the float64 systems and
+    rounded once."""
+    import mpmath
+    from scipy.signal import tf2zpk, zpk2sos
+
+    b, a = (np.asarray(v, np.float64) for v in ba_key)
+    z, p, k = tf2zpk(b, a)
+    # an odd order's real pole and zero in one first-order section
+    sos = zpk2sos(z, _polish_poles(a, p), k, pairing="keep_odd")
+    Ac, _, Cc, _ = _sos_abcd(sos)
+    At, _, Ct, _ = _tdf2_abcd(b, a)
+    n = Ac.shape[0]
+    with mpmath.workdps(50):
+        Oc, Ot = _observability(Ac, Cc, n), _observability(At, Ct, n)
+        to_cascade = np.array((mpmath.inverse(Oc) * Ot).tolist(), dtype=np.float64)
+        to_tdf2 = np.array((mpmath.inverse(Ot.T * Ot) * (Ot.T * Oc)).tolist(),
+                           dtype=np.float64)
+    return sos, to_cascade, to_tdf2
+
+
+def ba_cascade(b: np.ndarray, a: np.ndarray):
+    """``(sos, to_cascade (2S, N), to_tdf2 (N, 2S))`` of the IIR direct
+    form ``(b, a)`` (`_ba_cascade`), its trailing zeros trimmed and ``a``
+    normalized."""
+    b = np.trim_zeros(np.atleast_1d(np.asarray(b, dtype=np.float64)), "b")
+    a = np.trim_zeros(np.atleast_1d(np.asarray(a, dtype=np.float64)), "b")
+    if len(a) < 2:
+        raise ValueError("the cascade route takes an IIR (len(a) > 1)")
+    b, a = b / a[0], a / a[0]
+    N = max(len(a), len(b)) - 1
+    if N > MAX_STATES:
+        raise ValueError(f"the blocked lead holds at most {MAX_STATES} states, got N={N}")
+    return _ba_cascade((tuple(b.tolist()), tuple(a.tolist())))
+
+
+def lfilter_statespace(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi=None,
+                       block_size: int | None = None, zc=None):
+    """Stateful ``lfilter`` of the IIR direct form ``(b, a)`` of order N (at
+    most `cuda_iir.MAX_STATES`) over the last axis of real ``x (..., T)``,
+    run as the SOS cascade of its zeros and poles (`ba_cascade`) through
+    `sosfilt_block` (B2 on a float32 CUDA tensor), the state path in
+    float64. Returns ``(y, zf, zc_end)``: ``zf (..., N)`` in scipy's TDF2
+    layout and ``zc_end (..., 2S)`` the cascade's own final state, both
+    float64 (the state dtype).
+
+    The run starts from ``zc`` (a cascade state, as a previous call
+    returned it: exact) where it is given, else from the TDF2 state ``zi``
+    mapped into the cascade. The map rounds: a TDF2 state in float64 holds
+    the cascade's ~1e-8 first-section state to ~5e-8 relative only, so a
+    stream that hands back ``zf`` can move by a few 1e-8 of the output's
+    scale a handover, one that hands back ``zc_end`` not at all. In the TDF2
+    companion basis itself the block operators of a low-cutoff filter are
+    too ill-conditioned for any block length (order 6 at 200 Hz, 48 kHz:
+    A^128 has entries of 2.3e8 and in float64 a spectral radius of 6.0, so
+    the blocked recursion diverges; at L = 8 it is still 1.3e-3 off scipy).
+    """
+    sos, to_cascade, to_tdf2 = ba_cascade(b, a)
+    batch = x.shape[:-1]
+    sdt = state_dtype(x.dtype)
+    if zc is None:
+        s0 = torch.as_tensor(zi, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[1],))
+        zc = s0 @ torch.as_tensor(to_cascade.T, dtype=sdt, device=x.device)
+    zc = torch.as_tensor(zc, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[0],))
+    y, zc_end = sosfilt_block(sos, x, zi=zc.reshape(batch + (-1, 2)), block_size=block_size)
+    zc_end = zc_end.reshape(batch + (-1,))
+    return y, zc_end @ torch.as_tensor(to_tdf2.T, dtype=sdt, device=x.device), zc_end
 
 
 def stack_sos_bank(cascades) -> np.ndarray | None:

@@ -204,3 +204,37 @@ def sosfilt_freq(
     H = sos_freq_response(sos, nfft, full_spectrum=False, device=x.device)
     X = torch.fft.rfft(x, n=nfft, dim=-1)
     return torch.fft.irfft(X * H, n=nfft, dim=-1)[..., :T]
+
+
+def sos_bank_freq_response(sos_bank: np.ndarray, nfft: int, full_spectrum: bool,
+                           device=None) -> torch.Tensor:
+    """Stacked `sos_freq_response` of a bank ``(B, S, 6)`` → ``(B, F)``
+    complex64 on ``device``."""
+    return torch.stack([sos_freq_response(sos_bank[b], nfft, full_spectrum, device)
+                        for b in range(sos_bank.shape[0])])
+
+
+def sosfilt_bank_freq(sos_bank: np.ndarray, x: torch.Tensor, nfft: int | None = None
+                      ) -> torch.Tensor:
+    """Zero-state bank ``(B, S, 6)`` on ``x (..., T)`` → ``(B, ..., T)`` by
+    frequency sampling (`dsptoolbox_tpu/ops/iir_freq.py:240`): one forward
+    FFT shared by the bands, one band-batched product and inverse FFT."""
+    sos_bank = np.asarray(sos_bank)
+    B = sos_bank.shape[0]
+    T = x.shape[-1]
+    if nfft is None:
+        ms = [decay_margin(sos_bank[b]) for b in range(B)]
+        if any(m is None for m in ms):
+            raise ValueError("sosfilt_bank_freq: near-unstable band")
+        m = max(ms)
+        if m > 8 * T + 4096:
+            raise ValueError("sosfilt_bank_freq: margin too large")
+        nfft = next_fast_len(T + m, real=True)
+    shape = (B,) + (1,) * (x.ndim - 1) + (-1,)
+    if np.iscomplexobj(sos_bank) or x.is_complex():
+        H = sos_bank_freq_response(sos_bank, nfft, True, x.device).reshape(shape)
+        X = torch.fft.fft(x, n=nfft, dim=-1)
+        return torch.fft.ifft(X[None] * H, dim=-1)[..., :T]
+    H = sos_bank_freq_response(sos_bank, nfft, False, x.device).reshape(shape)
+    X = torch.fft.rfft(x, n=nfft, dim=-1)
+    return torch.fft.irfft(X[None] * H, n=nfft, dim=-1)[..., :T]

@@ -154,10 +154,9 @@ class ShoeboxRoom(Room):
     ):
         """Modal-sum transfer function as one batched expression over
         (modes × frequencies) (`_room_acoustics.py:558-685`): ``(p (F,)
-        complex numpy, modes, None)``. ``generate_plot=True`` raises until
-        the plots are ported."""
-        if generate_plot:
-            raise NotImplementedError("plots are not ported yet; pass generate_plot=False")
+        complex numpy, modes, plot)``, ``plot`` the ``(fig, ax)`` of the
+        magnitude normalized at its peak, or None without
+        ``generate_plot``."""
         source_pos = np.asarray(source_pos).squeeze()
         receiver_pos = np.asarray(receiver_pos).squeeze()
         assert self.check_if_in_room(source_pos), (
@@ -217,7 +216,16 @@ class ShoeboxRoom(Room):
 
         modes = np.concatenate([mode_freq[:, None], orders], axis=1)
         modes = modes[modes[:, 0].argsort()]
-        return p, modes, None
+        plot = None
+        if generate_plot:
+            from ..helpers.gain_and_level import to_db
+            from ..plots import general_plot
+
+            p_db = to_db(p, True)
+            p_db -= np.max(p_db)
+            plot = general_plot(f, p_db[:, None], range_x=[f[0], f[-1]], tight_layout=True)
+            plot[1].set_ylabel("Magnitude / dBFS (norm @ Peak)")
+        return p, modes, plot
 
     def add_detailed_absorption(self, detailed_absorption: dict):
         """Per-wall octave-band absorption data

@@ -35,6 +35,7 @@ from .other import (
     detrend,
     dither,
     envelope,
+    load_pkl_object,
     merge_filters,
     spectral_difference,
 )
@@ -47,6 +48,7 @@ from .pad_trim_methods import (
 from .resampling import resample, resample_filter
 
 __all__ = [
+    "load_pkl_object",
     "append_filterbanks",
     "append_signals",
     "append_spectra",

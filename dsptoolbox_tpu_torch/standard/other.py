@@ -6,7 +6,7 @@ phase: kernel B2 twice on a float32 CUDA signal), its mask and the
 selection of the active samples run there, and only the mask is fetched,
 packed into bits. ``spectral_difference`` divides two spectra on their
 device (energy normalization, octave smoothing and interpolation through
-the `Spectrum` class). Not ported yet: ``load_pkl_object`` (with `io`).
+the `Spectrum` class). `load_pkl_object` unpickles a saved object.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._config import device_cache
+from ..helpers.other import check_format_in_path
 from ..classes import Filter, FilterBank, MultiBandSignal, Signal, Spectrum
 from ..helpers.gain_and_level import from_db
 from ..helpers.latency import analytic_signal
@@ -34,6 +35,17 @@ from .enums import (
 # dither amplitude
 _HALF_SMALLEST_SUBNORMAL = 2.0**-24
 
+
+
+def load_pkl_object(path: str):
+    """Unpickle an object saved by a ``save_*`` method
+    (`standard/other.py:25`). Its tensors return to the devices they were
+    saved from. Like any pickle, run it only on files you trust."""
+    import pickle
+
+    path = check_format_in_path(path, "pkl")
+    with open(path, "rb") as inp:
+        return pickle.load(inp)
 
 def activity_detector(
     signal: Signal,

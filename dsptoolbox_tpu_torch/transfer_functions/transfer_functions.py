@@ -34,7 +34,7 @@ import torch
 from .._config import in_pipeline
 from ..classes import Filter, FilterBank, ImpulseResponse, Signal, Spectrum
 from ..classes.filter_helpers import group_delay_filter, impulse
-from ..helpers.gain_and_level import from_db
+from ..helpers.gain_and_level import from_db, to_db
 from ..helpers.latency import fractional_latency, get_fractional_impulse_peak_index
 from ..helpers.latency import remove_ir_latency_from_phase
 from ..helpers.minimum_phase import (
@@ -48,7 +48,7 @@ from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import welch_average, welch_plan, welch_spectra
 from ..standard.backend import group_delay_direct, minimum_phase_from_magnitude
-from .._enums import SpectrumType, Window
+from .._enums import MagnitudeNormalization, SpectrumType, Window
 from . import _backend as bk
 from .enums import SmoothingDomain, TransferFunctionType
 
@@ -827,10 +827,9 @@ def harmonic_distortion_analysis(
     ``{"1", "2", …, "thd", "thd_n", "thd_percent"}`` as Spectra. The
     spectra come from the IRs' devices; the harmonics' power spectra are
     summed on the fundamental's grid with host ``np.interp`` (one fetch
-    each), as in the JAX package. ``generate_plot=True`` raises until the
-    plots are ported."""
-    if generate_plot:
-        raise NotImplementedError("plots are not ported yet; pass generate_plot=False")
+    each), as in the JAX package. ``generate_plot`` adds ``"plot"``: the
+    fundamental's `plot_magnitude` ``[fig, ax]`` with the harmonics, THD and
+    THD+N drawn over it."""
     if isinstance(ir, list):
         for each_ir in ir:
             assert isinstance(each_ir, ImpulseResponse), "Unsupported type"
@@ -867,6 +866,9 @@ def harmonic_distortion_analysis(
     freqs, base_spectrum = ir2.get_spectrum()
     d["1"] = Spectrum(freqs, base_spectrum**0.5 if quadratic else base_spectrum)
     sp_thd = np.zeros(len(freqs))
+    if generate_plot:
+        fig, ax = ir2.plot_magnitude(smoothing=smoothing,
+                                     normalize=MagnitudeNormalization.NoNormalization)
     for i in range(len(harm)):
         if not passed_harmonics:
             harm[i] = window_ir(harm[i], len(harm[i]), constant_percentage=0.9)[0]
@@ -877,6 +879,8 @@ def harmonic_distortion_analysis(
         sp = sp[: int(inds.sum())]  # f ascends: the bins below the range's end
         sp_power = sp.squeeze().real if quadratic else sp.squeeze().abs() ** 2
         d[f"{i + 2}"] = Spectrum(f, sp**0.5 if quadratic else sp)
+        if generate_plot:
+            ax.plot(f, to_db(sp_power.cpu().numpy(), False))
         thd[pos_thd - len(harm[i]):pos_thd] = harm[i].time_data.squeeze()
         pos_thd -= len(harm[i])
         sp_thd += np.interp(freqs, f, sp_power.double().cpu().numpy(), left=0.0, right=0.0)
@@ -889,6 +893,14 @@ def harmonic_distortion_analysis(
     f_thd_n, sp_thd_n = thd_n.get_spectrum()
     if not quadratic:
         sp_thd_n = sp_thd_n.abs() ** 2.0
+    if generate_plot:
+        plot_thd = sp_thd.copy()
+        plot_thd[plot_thd == 0] = np.nan
+        ax.plot(freqs_thd, to_db(plot_thd, False))
+        ax.plot(f_thd_n, to_db(sp_thd_n.real.cpu().numpy(), False))
+        ax.legend(["Fundamental"] + [f"{i + 2} Harmonic" for i in range(n_harmonics)]
+                  + ["THD", "THD+N"])
+        d["plot"] = [fig, ax]
     d["thd_n"] = Spectrum(f_thd_n, sp_thd_n.real**0.5)
     d["thd"] = Spectrum(freqs_thd, sp_thd**0.5, device=dev)
     d["thd_percent"] = Spectrum(

@@ -471,7 +471,7 @@ def test_signal_time_data_rules_match_jax():
     np.testing.assert_allclose(ts.time_data_imaginary.numpy(),
                                np.asarray(js.time_data_imaginary), rtol=1e-6)
     assert ts.amplitude_scale_factor == pytest.approx(js.amplitude_scale_factor)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a path is read as a WAV or FLAC file
         Signal("a.wav")
     copy = ts.copy_with_new_time_data(np.ones((60, 2)) * 0.1)
     assert copy.sampling_rate_hz == FS and copy.constrain_amplitude

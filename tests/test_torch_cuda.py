@@ -1123,3 +1123,83 @@ def test_allpass_operator_on_card_meets_float64_recursion(dev):
     assert _rel(tb.allpass_apply_t(xt, lam), transposed) <= 1e-10
     assert _rel(tb.allpass_apply(xt.float(), lam), warped) <= 1e-6
     assert _rel(tb.allpass_apply_t(xt.float(), lam), transposed) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(16, 48000), (3, 2049), (1, 1), (2, 5, 4097), (4, 2048)])
+def test_ema_kernel_matches_plain_loop(dev, shape):
+    """`csrc/ema.cu` (attack/release EMA) against its plain loop: the same
+    float32 operations in the same order, so equal bit for bit; one launch
+    a call, rows across chunk edges and a single sample."""
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal(shape) ** 2).astype(np.float32)).to(dev)
+    before = cuda_ema.launches
+    got = cuda_ema.ema_attack_release(x, 0.0125, 2.5e-4)
+    torch.cuda.synchronize()
+    assert cuda_ema.launches == before + 1
+    want = cuda_ema.ema_attack_release_plain(x.cpu(), 0.0125, 2.5e-4)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(16, 48000), (3, 2049), (1, 1)])
+def test_ema_kernel_float64_matches_plain_loop(dev, shape):
+    """The EMA kernel's float64 instantiation: equal bit for bit to the
+    plain loop in float64, one launch a call."""
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(shape) ** 2).to(dev)
+    before = cuda_ema.launches
+    got = cuda_ema.ema_attack_release(x, 0.0125, 2.5e-4)
+    torch.cuda.synchronize()
+    assert cuda_ema.launches == before + 1 and got.dtype == torch.float64
+    assert torch.equal(got.cpu(), cuda_ema.ema_attack_release_plain(x.cpu(), 0.0125, 2.5e-4))
+
+
+@pytest.mark.parametrize("order,fc", [(4, 1000.0), (6, 200.0), (3, 1000.0)])
+def test_stateful_ba_runs_b2_and_meets_scipy_float64(dev, order, fc):
+    """A stateful ``(b, a)`` above order 2 through `ops.iir.lfilter` on the
+    card: B2 (one launch a call), equal to the plain path within float32
+    rounding and within 5e-6 of scipy's float64 ``lfilter`` of the same
+    coefficients, streamed in blocks (handing on the cascade's own state)
+    as one call."""
+    from scipy.signal import lfilter as sp_lfilter, lfilter_zi
+
+    from dsptoolbox_tpu_torch.ops import iir, iir_block
+
+    b, a = butter(order, fc, fs=48000)
+    rng = np.random.default_rng(order)
+    x = rng.standard_normal((3, 48000)).astype(np.float32)
+    zi = lfilter_zi(b, a) * x[:, :1]
+    ref = sp_lfilter(b, a, x.astype(np.float64), zi=zi)[0]
+    before = cuda_iir.launches
+    y, zf = iir.lfilter(b, a, torch.from_numpy(x).to(dev), zi=zi)
+    torch.cuda.synchronize()
+    assert cuda_iir.launches == before + 1
+    assert zf.dtype == torch.float64
+    plain = iir.lfilter(b, a, torch.from_numpy(x), zi=zi)[0]
+    assert _rel(y, plain) <= 2e-6
+    assert _rel(y, ref) <= 5e-6
+    zc, parts = None, []
+    for k in range(0, 48000, 4800):
+        yk, _, zc = iir_block.lfilter_statespace(
+            b, a, torch.from_numpy(x[:, k:k + 4800]).to(dev), zi=zi if zc is None else None,
+            zc=zc)
+        parts.append(yk)
+    assert _rel(torch.cat(parts, -1), y) <= 1e-6
+
+
+@pytest.mark.parametrize("ext", ["wav", "flac"])
+def test_signal_from_a_file_lands_on_the_card(dev, ext, tmp_path):
+    """``Signal(path)`` reads on the host and puts the samples on the
+    default device, "cuda": equal to the file's decode."""
+    from dsptoolbox_tpu_torch import io
+
+    x = (0.3 * np.random.default_rng(4).standard_normal((4800, 2)))
+    path = str(tmp_path / f"x.{ext}")
+    io.write_audio(path, x, 48000, "PCM_24")
+    sig = Signal(path)
+    assert sig.device.type == "cuda"
+    np.testing.assert_array_equal(sig.time_data.cpu().numpy(),
+                                  io.read_audio(path)[0].astype(np.float32))

@@ -48,7 +48,11 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.helpers.frequency_conversion\n"
         "import dsptoolbox_tpu_torch.tools.profile_chain, dsptoolbox_tpu_torch.plots\n"
         "import dsptoolbox_tpu_torch.tools.feature_chain, dsptoolbox_tpu_torch.transforms._backend\n"
-        "import dsptoolbox_tpu_torch.helpers.ar_estimation\n"
+        "import dsptoolbox_tpu_torch.helpers.ar_estimation, dsptoolbox_tpu_torch.helpers\n"
+        "import dsptoolbox_tpu_torch.io, dsptoolbox_tpu_torch.io.flac, dsptoolbox_tpu_torch.ops.cuda_ema\n"
+        "import dsptoolbox_tpu_torch.helpers.polyphase, dsptoolbox_tpu_torch.helpers.bytes_conversion\n"
+        "import dsptoolbox_tpu_torch.classes.calibration_data, dsptoolbox_tpu_torch.classes._plots\n"
+        "assert not any(m.startswith('dsptoolbox_tpu_torch._build') for m in sys.modules)\n"
         "assert 'matplotlib' not in sys.modules  # imported at the first plot only\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m.startswith('dsptoolbox_tpu.') or m == 'dsptoolbox_tpu']\n"
@@ -241,10 +245,11 @@ def test_kernels_off_restores_every_switch():
     try:
         with _config.kernels_off():
             assert (_config.framing_kernel(), _config.iir_kernel(),
-                    _config.das_kernel(), _config.banded_kernel()) == ("off",) * 4
+                    _config.das_kernel(), _config.banded_kernel(),
+                    _config.ema_kernel()) == ("off",) * 5
         assert (_config.framing_kernel(), _config.iir_kernel(),
-                _config.das_kernel(), _config.banded_kernel()) == (
-                    "auto", "on", "auto", "auto")
+                _config.das_kernel(), _config.banded_kernel(), _config.ema_kernel()) == (
+                    "auto", "on", "auto", "auto", "auto")
     finally:
         _config.set_iir_kernel("auto")
 
@@ -286,24 +291,24 @@ def test_default_device_is_cuda_and_numpy_follows_it():
 
 
 # the JAX package's names that wait, each beside its ROADMAP queue item:
-# `load_pkl_object` for `io` (A5); at the root also the classes, namespaces
-# and modules not ported yet (`tools` is the JAX package's `tools.py`; the
-# port's own `tools` package holds its run and measurement scripts)
-WAITING = {"load_pkl_object": "A5"}
-WAITING_ROOT = {**WAITING, "CalibrationData": "A5", "distances": "A11", "effects": "A11",
+# at the root the namespaces and modules not ported yet (`tools` is the JAX
+# package's `tools.py`; the port's own `tools` package holds its run and
+# measurement scripts)
+WAITING: dict = {}
+WAITING_ROOT = {**WAITING, "distances": "A11", "effects": "A11",
                 "audio_io": "A14", "tools": "A14"}
 # the port's own exports: the steering factors as tensors on a device; at
 # the root, the device and kernel switches of `_config`
 PORT_ONLY = {
     "beamforming": {"amp_diff_to_torch"},
     "": {"default_device", "set_default_device", "set_framing_kernel", "set_iir_kernel",
-         "set_das_kernel", "set_banded_kernel", "set_bank_kernel"},
+         "set_das_kernel", "set_banded_kernel", "set_bank_kernel", "set_ema_kernel"},
 }
 
 
 @pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming",
-                                       "transfer_functions", "transforms", "plots",
-                                       pytest.param("", id="root")])
+                                       "transfer_functions", "transforms", "plots", "helpers",
+                                       "io", pytest.param("", id="root")])
 def test_exports_match_the_jax_package(namespace):
     """Each namespace (and, for "", the package's root) exports the JAX
     package's names but those still waiting, plus the port's own (the JAX
@@ -463,3 +468,56 @@ def test_feature_chain_launches_no_kernel_on_cpu_tensors():
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
     assert cuda_iir_bank.launches == 0
+
+
+def test_session_files_path_launches_no_kernel_on_cpu_tensors(tmp_path):
+    """`tools.session_files`'s steps (WAV and FLAC written and loaded,
+    calibration, the stateful ``(b, a)`` streamed in blocks and in one
+    call, both zero phases, the SPL plot's smoothing and the attack/release
+    smoothing, the save/load round trips) on CPU tensors at a small size:
+    the plain versions, no launch; under the IIR kernel's "on" the
+    streamed filter raises, under the EMA kernel's "on" the attack/release
+    smoothing."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    from dsptoolbox_tpu_torch.classes import Filter, FilterBank
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+    from dsptoolbox_tpu_torch.tools import session_files as sf
+
+    cuda_iir.launches = 0
+    cuda_ema.launches = 0
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        s = sf.session(3, 2.0)
+        paths = sf.write_session(s, str(tmp_path))
+        wav, flac = sf.load_wav(paths["wav"]), sf.load_flac(paths["flac"])
+        assert torch.equal(wav.time_data, flac.time_data) and wav.device.type == "cpu"
+        calibrated, _ = sf.calibrate(wav, sf.write_calibrator(str(tmp_path)))
+        assert calibrated.calibrated_signal
+        b, a = sf.stream_coefficients()[1]
+        assert torch.equal(sf.stream(wav, b, a).time_data, sf.whole(wav, b, a).time_data)
+        sf.zero_phase(wav, b, a)
+        sf.zero_phase(wav, sf.fir_coefficients(), [1.0])
+        sf.spl_plot(wav)
+        smoothed = sf.attack_release(wav._x**2)
+        filt = Filter.from_ba(b, a, sf.FS)
+        back = sf.save_and_load({"session": wav, "filter": filt,
+                                 "bank": FilterBank([filt, filt]),
+                                 "spectrum": Spectrum(*wav.get_spectrum())}, str(tmp_path))
+        assert torch.equal(back["session"].time_data, wav.time_data)
+        _config.set_iir_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            sf.stream(wav, b, a)
+        _config.set_iir_kernel("auto")
+        _config.set_ema_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            sf.attack_release(wav._x**2)
+    finally:
+        _config.set_iir_kernel("auto")
+        _config.set_ema_kernel("auto")
+        _config.set_default_device(old)
+    assert smoothed.shape == wav._x.shape
+    assert cuda_iir.launches == 0
+    assert cuda_ema.launches == 0

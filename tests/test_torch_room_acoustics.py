@@ -543,8 +543,17 @@ def test_rooms_match_jax():
         assert np.max(np.abs(pp - pj)) <= 1e-5 * np.max(np.abs(pj))
         np.testing.assert_array_equal(mp, mj)
     np.testing.assert_allclose(rp.t60_s, rj.t60_s, rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        rp.get_analytical_transfer_function([1, 1, 1], [2, 2, 1], freqs)
+    # with its default generate_plot=True the call draws the JAX package's
+    # figure (ROADMAP C8, repaired)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    pp, mp, plot = rp.get_analytical_transfer_function([1, 1, 1], [2, 2, 1], freqs)
+    pj, mj, jplot = rj.get_analytical_transfer_function([1, 1, 1], [2, 2, 1], freqs)
+    assert type(plot[0]) is type(jplot[0]) and type(plot[1]) is type(jplot[1])
+    assert np.max(np.abs(pp - pj)) <= 1e-5 * np.max(np.abs(pj))
+    np.testing.assert_array_equal(mp, mj)
+    matplotlib.pyplot.close("all")
 
 
 @pytest.mark.parametrize("antiresonances", [False, True])

@@ -1028,8 +1028,17 @@ def test_harmonic_distortion_analysis_matches_jax(distorted_sweep_ir):
     for key in ("thd", "thd_n", "thd_percent"):
         assert_close(got[key].spectral_data.numpy(), np.asarray(want[key].spectral_data),
                      2e-5, f"list {key}")
-    with pytest.raises(NotImplementedError):
-        tf.harmonic_distortion_analysis(p, [20, 20000], 2.0, 3)
+    # the default generate_plot=True adds the figure (ROADMAP C8, repaired)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    got = tf.harmonic_distortion_analysis(p, [20, 20000], 2.0, 3)
+    want = jtf.harmonic_distortion_analysis(j, [20, 20000], 2.0, 3)
+    assert set(got) == set(want) and "plot" in got
+    assert [type(v) for v in got["plot"]] == [type(v) for v in want["plot"]]
+    assert_close(got["thd"].spectral_data.numpy(), np.asarray(want["thd"].spectral_data),
+                 2e-5, "thd with the plot")
+    matplotlib.pyplot.close("all")
     with pytest.raises(TypeError):
         tf.harmonic_distortion_analysis(Signal(None, _irs(1024), FS), generate_plot=False)
 
