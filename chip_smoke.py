@@ -127,6 +127,21 @@ drives the port's paths:
   float64 recursion), save/load of the session, a Filter, a FilterBank and
   a Spectrum, and the two calls whose default plot raised (C8); each step
   timed, the host-bound ones with their device idle share.
+- the filter-design and streaming path (`dsptoolbox_tpu_torch.tools.realtime_chain`)
+  on the same session and the first room IR: the `filterbanks` designs
+  against their definitions, the A-weighting and a ten-band EQ, the
+  parallel filter (32 pole pairs), the Kautz filter (order 32) and the
+  warped FIR (32 taps) through B2, counted a step and held against their
+  plain versions at full output and scipy float64 on 2 channels × 10 s;
+  the SVF (float64 `linear_recurrence`) against a float64 loop and scipy;
+  469 blocks of 1024 through an `IIRFilter` (B2 a block, against scipy)
+  and an `ExponentialAverageFilter` (`csrc/ema.cu`'s average form, a launch
+  a block, bit-equal to its plain loop over every block, each seeded with
+  the kernel's carry); the partitioned FIR of the 16 room IRs, the
+  reconstructing 1/3-octave bank (its bands' sum = the delayed input) and
+  a QMF crossover against scipy float64; the lattice, warped IIR and
+  state-space host loops on 0.1 s; each step timed with its device idle
+  share, and `ema.cu`'s average form at (1, 1024) and on one long row.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -1427,6 +1442,22 @@ def np_csm_fft(x, n: int):
     return np_assemble(np.conj(sp)[:, :, None] * sp[:, None, :])
 
 
+class AverageLaunches:
+    """The launch count of `cuda_ema`'s average form, read and set as
+    ``.launches`` like each wrapper module's own count."""
+
+    def __init__(self, module):
+        self.module = module
+
+    @property
+    def launches(self) -> int:
+        return self.module.average_launches
+
+    @launches.setter
+    def launches(self, n: int):
+        self.module.average_launches = n
+
+
 def counted_modules() -> dict:
     from dsptoolbox_tpu_torch.ops import (
         cuda_banded,
@@ -1438,7 +1469,8 @@ def counted_modules() -> dict:
     )
 
     return {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
-            "banded": cuda_banded, "iir_bank": cuda_iir_bank, "ema": cuda_ema}
+            "banded": cuda_banded, "iir_bank": cuda_iir_bank, "ema": cuda_ema,
+            "ema_carry": AverageLaunches(cuda_ema)}
 
 
 def counted_run(fn):
@@ -2853,6 +2885,449 @@ def session_files_phase(dev, card: str) -> dict:
             "times": times}
 
 
+def np_svf_bands(x, f):
+    """The state-variable filter's LP, HP, BP and AP outputs of ``x (C, T)``
+    in float64 by scipy ``lfilter``: its recursion as a state space (state
+    s[n-1], input x[n]) turned into four transfer functions."""
+    import numpy as np
+    from scipy.signal import lfilter, ss2tf
+
+    A, B = f._system()
+    g, res, iv = f.g, f.resonance, f.intermediate_value
+    c_h, d_h = np.array([-iv * (res + g), -iv]), iv
+    c_b, d_b = g * c_h + np.array([1.0, 0.0]), g * d_h
+    c_l, d_l = g * c_b + np.array([0.0, 1.0]), g * d_b
+    c_a, d_a = c_l - res * c_b + c_h, d_l - res * d_b + d_h
+    out = []
+    for c, d in ((c_l, d_l), (c_h, d_h), (c_b, d_b), (c_a, d_a)):
+        b, a = ss2tf(A, B[:, None], c[None], np.array([[d]]))
+        out.append(lfilter(b[0], a, np.asarray(x, np.float64), axis=-1))
+    return out
+
+
+def np_svf_loop(x, f):
+    """The state-variable filter's per-sample recursion in float64 numpy
+    over ``x (C, T)`` from a zero state → LP, HP, BP, AP ``(C, T)`` each."""
+    import numpy as np
+
+    g, res, iv = f.g, f.resonance, f.intermediate_value
+    x = np.asarray(x, np.float64)
+    s0, s1 = np.zeros(x.shape[0]), np.zeros(x.shape[0])
+    out = np.empty((4,) + x.shape)
+    for t in range(x.shape[1]):
+        yh = (x[:, t] - (res + g) * s0 - s1) * iv
+        yb = g * yh + s0
+        s0 = g * yh + yb
+        yl = g * yb + s1
+        s1 = g * yb + yl
+        out[:, :, t] = yl, yh, yb, yl - res * yb + yh
+    return out
+
+
+def np_kautz(x, k):
+    """The Kautz filter's chain of sections over ``x (C, T)`` in float64
+    scipy ``lfilter``, the taps weighted and summed."""
+    import numpy as np
+    from scipy.signal import lfilter
+
+    td, out = np.asarray(x, np.float64), 0.0
+    for ii, p in enumerate(k.poles_real):
+        out = out + (1 - p**2) ** 0.5 * k.coefficients_real_poles[ii] * lfilter(
+            [1.0], [1.0, -p], td, axis=-1)
+        td = lfilter([-p, 1.0], [1.0, -p], td, axis=-1)
+    q, r = -2 * np.real(k.poles_complex), np.abs(k.poles_complex) ** 2
+    for ii in range(len(k.poles_complex)):
+        a = [1.0, q[ii], r[ii]]
+        c0, c1 = k.coefficients_complex_poles[2 * ii: 2 * ii + 2]
+        out = out + ((1 - r[ii]) * (1 + r[ii] - q[ii]) / 2) ** 0.5 * c0 * lfilter(
+            [1.0, -1.0], a, td, axis=-1)
+        out = out + ((1 - r[ii]) * (1 + r[ii] + q[ii]) / 2) ** 0.5 * c1 * lfilter(
+            [1.0, 1.0], a, td, axis=-1)
+        td = lfilter([r[ii], q[ii], 1.0], a, td, axis=-1)
+    return out
+
+
+def np_warped_fir(x, b, lam):
+    """The warped FIR of ``x (C, T)`` as its float64 allpass cascade."""
+    import numpy as np
+    from scipy.signal import lfilter
+
+    stage = np.asarray(x, np.float64)
+    out = b[0] * stage
+    for k in range(1, len(b)):
+        stage = lfilter([-lam, 1.0], [1.0, -lam], stage, axis=-1)
+        out = out + b[k] * stage
+    return out
+
+
+def np_ema_average(x, carry: float, inc: float, dec: float):
+    """The exponential average of ``x (T,)`` from ``carry`` in float64."""
+    import numpy as np
+
+    y = np.empty(len(x))
+    prev = carry
+    for t, v in enumerate(np.asarray(x, np.float64)):
+        c = inc if v > prev else dec
+        prev = v * c + (1 - c) * prev
+        y[t] = prev
+    return y
+
+
+def realtime_phase(dev, card: str) -> dict:
+    """The filter-design and streaming path (`tools/realtime_chain.py`) on
+    config 2's 16 × 60 s session and the first room IR: designs (the
+    A-weighting and a ten-band EQ on the session, B2), the parallel filter
+    (32 pole pairs, B2 a section), the Kautz filter (order 32, B2 three
+    launches a pair), the warped FIR (32 taps, B2 a stage), the SVF
+    (float64 `linear_recurrence`), `N_BLOCKS` blocks of 1024 through an
+    order-4 `IIRFilter` (B2 a block) and an `ExponentialAverageFilter`
+    (`csrc/ema.cu`'s average form, a launch a block), the partitioned FIR of
+    the 16 room IRs, the reconstructing 1/3-octave bank, a QMF crossover and
+    the host loops. Counted (every count 0 just before the path, read just
+    after), each step's launches; B2's callers against their plain versions
+    at full output, the EMA kernel bit for bit against its plain loop over
+    every block (each seeded with the previous block's carry), the SVF
+    against a float64 loop; every session route against scipy float64 on 2
+    channels × 10 s; each step timed with CUDA events and its device idle
+    share. Returns the launches, errors and the EMA variant's times."""
+    import numpy as np
+    import torch
+    from scipy.signal import butter, fftconvolve, firwin, freqz, lfilter, sosfilt, sosfreqz
+
+    from dsptoolbox_tpu_torch.classes import Signal
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+    from dsptoolbox_tpu_torch.realtime import ExponentialAverageFilter
+    from dsptoolbox_tpu_torch.tools import realtime_chain as rc
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    label = "realtime"
+    t_phase = time.perf_counter()
+    fs = rc.FS
+    s = rc.session()
+    irs = rc.room_irs()
+    ir = rc.ir_signal(irs)
+    torch.cuda.synchronize()
+    C, T = s.number_of_channels, s.length_samples
+    NB, B = rc.N_BLOCKS, rc.BLOCK
+    n_host = int(rc.HOST_S * fs)
+    out, objs = {}, {}
+
+    def drive():
+        mods = counted_modules()
+        marks = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks[name] = {k: m.launches for k, m in mods.items()}
+
+        objs["designs"] = rc.designs(ir)
+        mark("designs")
+        out["weq"] = rc.weighted_eq(s, objs["designs"])
+        mark("weighting_eq")
+        objs["parallel"] = rc.parallel_filter(ir)
+        mark("parallel_fit")
+        out["parallel"] = objs["parallel"].filter_signal(s)
+        mark("parallel")
+        objs["kautz"] = rc.kautz_filter(ir)
+        mark("kautz_fit")
+        out["kautz"] = objs["kautz"].filter_signal(s)
+        mark("kautz")
+        objs["warped"] = rc.warped_fir(irs)
+        out["warped"] = objs["warped"].filter_signal(s)
+        mark("warped")
+        objs["svf"] = rc.svf()
+        out["svf"] = objs["svf"].filter_signal(s)
+        mark("svf")
+        out["stream_iir"] = rc.stream_iir(s._x[0])
+        mark("stream_iir")
+        out["stream_ema"] = rc.stream_ema(s._x[0])
+        mark("stream_ema")
+        out["stream_fir"] = rc.stream_fir(s._x, irs)
+        mark("stream_fir")
+        objs["bank"] = rc.fractional_octave_bank()
+        out["bands"], out["bands_sum"] = rc.octave_bands(s, objs["bank"])
+        mark("octave_bank")
+        objs["qmf"] = rc.qmf_crossover()
+        out["qmf"] = rc.qmf(s, objs["qmf"])
+        mark("qmf")
+        out["host"] = rc.host_loops(s._x[0, :n_host].cpu().numpy())
+        mark("host_loops")
+        return marks
+
+    t0 = time.perf_counter()
+    marks, launched = counted_run(drive)
+    print(f"{label}: the path in {time.perf_counter() - t0:.1f} s (first call, host designs "
+          f"and fits included); launches {launched}")
+    steps_l, prev = {}, {k: 0 for k in launched}
+    for name, m in marks.items():
+        steps_l[name] = {k: m[k] - prev[k] for k in m if m[k] - prev[k]}
+        prev = m
+    print(f"{label}: launches by step {steps_l}")
+    k = objs["kautz"]
+    want_l = {"weighting_eq": {"iir_lead": 1 + len(objs["designs"]["eq"])},
+              "parallel": {"iir_lead": objs["parallel"]._sos.shape[0]},
+              "kautz": {"iir_lead": 3 * len(k.poles_complex) + 2 * len(k.poles_real)},
+              "warped": {"iir_lead": rc.WARPED_TAPS - 1}, "svf": {},
+              "stream_iir": {"iir_lead": NB}, "stream_ema": {"ema_carry": NB},
+              "stream_fir": {}, "host_loops": {}}
+    for name, want in want_l.items():
+        if steps_l[name] != want:
+            fail(f"{label}: {name} launched {steps_l[name]}, not {want}")
+
+    # 1. designs: the responses that define them
+    d = objs["designs"]
+    a_1k = 20 * np.log10(abs(sosfreqz(d["a_weighting"].sos, [1000.0], fs=fs)[1][0]))
+    p_1k = 20 * np.log10(abs(sosfreqz(d["pinking"].sos, [1000.0], fs=fs)[1][0]))
+    fd = d["fractional_delay"].ba
+    gd_dc = float(np.sum(np.arange(len(fd[0])) * fd[0]) / np.sum(fd[0])
+                  - np.sum(np.arange(len(fd[1])) * fd[1]) / np.sum(fd[1]))
+    comp = d["complementary"].ba[0] + firwin(255, 4000.0, fs=fs)
+    unit = np.zeros(255)
+    unit[127] = 1.0
+    arma_ok = all(np.all(np.isfinite(np.concatenate(d[n].ba)))
+                  and np.all(np.abs(np.roots(d[n].ba[1])) < 1)
+                  for n in ("arma_yule_walker", "arma_burg"))
+    eq_db = [20 * np.log10(abs(freqz(*f.ba, [fc], fs=fs)[1][0]))
+             for f, fc in zip(d["eq"], rc.EQ_HZ)]
+    print(f"{label} designs: A-weighting at 1 kHz {a_1k:+.4f} dB (tol 0.1), pinking at 1 kHz "
+          f"{p_1k:+.2e} dB, Thiran delay at DC {gd_dc:.6f} samples (30.5), lowpass + "
+          f"complementary = unit impulse within {np.abs(comp - unit).max():.1e}, EQ gains at "
+          f"their centres {np.round(eq_db, 3).tolist()} dB, ARMA fits finite and stable: "
+          f"{arma_ok}")
+    if not (abs(a_1k) < 0.1 and abs(p_1k) < 1e-9 and abs(gd_dc - 30.5) < 1e-6
+            and np.abs(comp - unit).max() < 1e-12 and arma_ok
+            and np.allclose(np.abs(eq_db), rc.EQ_DB, atol=0.5)):
+        fail(f"{label}: a design misses its definition")
+
+    # 2. B2's callers against their plain versions at full output, and
+    # every session route against scipy float64 on 2 channels x 10 s
+    n10 = 10 * fs
+    x2 = s._x[:2, :n10].double().cpu().numpy()
+    b2_err = 0.0
+
+    def against_plain(name, got, fn):
+        nonlocal b2_err
+        want = plain(fn)
+        err = float((got - want).abs().max())
+        b2_err = max(b2_err, err)
+        sc = float(want.abs().max())
+        print(f"{label} {name}: vs its plain version max abs {err:.3e} <= 1e-5 x {sc:.3e}")
+        if not err <= 1e-5 * sc:
+            fail(f"{label}: {name} disagrees with its plain version")
+        del want
+
+    def against_scipy(name, got, want, tol):
+        got = np.asarray(got, np.float64)
+        sc = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / sc
+        print(f"{label} {name}: vs scipy float64 on {want.shape[-2] if want.ndim > 1 else 1} "
+              f"ch x {want.shape[-1]} samples {err:.3e} of {sc:.3e} (tol {tol:g})")
+        if not err <= tol:
+            fail(f"{label}: {name} disagrees with scipy float64")
+        return err
+
+    against_plain("A-weighting + EQ (B2)", out["weq"]._x,
+                  lambda: rc.weighted_eq(s, d)._x)
+    w_ref = sosfilt(d["a_weighting"].sos, x2, axis=-1)
+    for f in d["eq"]:
+        w_ref = lfilter(*f.ba, w_ref, axis=-1)
+    against_scipy("A-weighting + EQ (B2)", out["weq"]._x[:2, :n10].cpu(), w_ref, 1e-5)
+    del w_ref
+
+    pf = objs["parallel"]
+    sections = [sosfilt(pf._sos[n][None], x2, axis=-1) for n in range(pf._sos.shape[0])]
+    largest = max(float(np.abs(v).max()) for v in sections)
+    p_ref = sum(sections) + pf._fir_coefficients[0] * x2
+    del sections
+    p_peak = float(np.abs(p_ref).max())
+    print(f"{label} parallel filter: fitted numerators up to "
+          f"{np.abs(pf._sos[:, :3]).max():.3e}; largest section output {largest:.3e} against "
+          f"an output of {p_peak:.3e} (no more than 10 times it: the sections do not cancel)")
+    if not largest <= 10 * p_peak:
+        fail(f"{label}: the parallel filter's sections cancel")
+    against_plain("parallel filter (B2 a section, float64 sum)", out["parallel"]._x,
+                  lambda: pf.filter_signal(s)._x)
+    against_scipy("parallel filter", out["parallel"]._x[:2, :n10].cpu(), p_ref, 1e-5)
+    del p_ref
+
+    against_plain("Kautz filter (B2)", out["kautz"]._x, lambda: k.filter_signal(s)._x)
+    against_scipy("Kautz filter", out["kautz"]._x[:2, :n10].cpu(), np_kautz(x2, k), 1e-5)
+    wf = objs["warped"]
+    against_plain("warped FIR (B2 a stage)", out["warped"]._x, lambda: wf.filter_signal(s)._x)
+    against_scipy(f"warped FIR (lambda {wf.warp:.4f})", out["warped"]._x[:2, :n10].cpu(),
+                  np_warped_fir(x2, wf.b, wf.warp), 1e-5)
+
+    svf_bands = torch.stack([b._x for b in out["svf"].bands])
+    loop = np_svf_loop(x2[:, : 2 * fs], objs["svf"])
+    against_scipy("SVF bands vs a float64 loop of its recursion",
+                  svf_bands[:, :2, : 2 * fs].cpu(), loop, 1e-6)
+    against_scipy("SVF bands", svf_bands[:, :2, :n10].cpu(),
+                  np.stack(np_svf_bands(x2, objs["svf"])), 1e-6)
+    del svf_bands, loop
+
+    x0 = s._x[0, : NB * B]
+    against_plain("IIRFilter stream (B2 a block)", out["stream_iir"],
+                  lambda: rc.stream_iir(s._x[0]))
+    b4, a4 = rc.stream_coefficients()
+    x0_64 = x0.double().cpu().numpy()
+    against_scipy(f"IIRFilter order 4 stream, {NB} blocks", out["stream_iir"].cpu(),
+                  lfilter(b4, a4, x0_64), 5e-6)
+
+    # 3. the EMA kernel's average form: bit for bit against its plain loop
+    # over every block, each seeded with the kernel's own carry of the
+    # block before; the stream against a float64 recursion
+    ema = out["stream_ema"]
+    blocks = x0.abs().reshape(NB, B)
+    carry = torch.cat([ema.new_zeros(1), ema.reshape(NB, B)[:-1, -1]])
+    ema_f = ExponentialAverageFilter(*rc.EMA_S, fs)
+    inc, dec = ema_f.increase_coefficient, ema_f.decrease_coefficient
+    ema_plain = cuda_ema.ema_average_plain(blocks, carry, inc, dec).reshape(-1)
+    ema_equal = torch.equal(ema_plain, ema)
+    ema_err = float((ema_plain - ema).abs().max())
+    e_ema = rel_err(ema, np_ema_average(np.abs(x0_64), 0.0, inc, dec))
+    print(f"{label} EMA average form, {NB} blocks of {B}: vs its plain loop over every block "
+          f"(seeded with the kernel's carry) bit-equal {ema_equal} (max abs {ema_err:.1e}); "
+          f"vs a float64 recursion {e_ema:.3e} (tol 1e-5)")
+    if not (ema_equal and e_ema <= 1e-5):
+        fail(f"{label}: the EMA kernel's average form disagrees")
+
+    # 4. the partitioned FIR, the reconstructing bank, the QMF crossover
+    xs = s._x[:2, : NB * B].double().cpu().numpy()
+    fir_ref = np.stack([fftconvolve(xs[c], irs[:, c])[: NB * B] for c in range(2)])
+    against_scipy("partitioned FIR of the 16 room IRs", out["stream_fir"][:, :2].T.cpu(),
+                  fir_ref, 1e-5)
+    del fir_ref, xs
+    bank = objs["bank"]
+    bands = out["bands"]
+    e_band = 0.0
+    for i, f in enumerate(bank.filters):
+        want = fftconvolve(x2, f.ba[0][None], axes=-1)[:, :n10]
+        e_band = max(e_band, float(np.abs(bands[i, :2, :n10].double().cpu().numpy() - want).max())
+                     / float(np.abs(want).max()))
+    print(f"{label} 1/3-octave reconstructing bank, {len(bank.filters)} bands of "
+          f"{tuple(bands.shape[1:])} ({bands.numel() * 4 / 1e9:.2f} GB): worst band vs scipy "
+          f"float64 {e_band:.3e} of its peak (tol 1e-5)")
+    delay = len(bank.filters[0].ba[0]) // 2
+    rec_err = float((out["bands_sum"][:, delay:] - s._x[:, :-delay]).abs().max())
+    print(f"{label} the bands' sum vs the input delayed by {delay}: max abs {rec_err:.3e} "
+          "(tol 2e-4)")
+    if not (e_band <= 1e-5 and rec_err <= 2e-4):
+        fail(f"{label}: the reconstructing bank disagrees")
+    del bands, out["bands"], out["bands_sum"]
+    lo, hi, rec = out["qmf"]
+    h = firwin(63, 0.5)
+    hh = h.copy()
+    hh[1::2] *= -1
+    lo_ref = fftconvolve(x2, h[None], axes=-1)[:, 30::2][:, : n10 // 2]
+    hi_ref = fftconvolve(x2, hh[None], axes=-1)[:, 30::2][:, : n10 // 2]
+
+    def up(y, taps):
+        z = np.zeros((y.shape[0], 2 * y.shape[1]))
+        z[:, ::2] = 2 * y
+        return fftconvolve(z, taps[None], axes=-1)[:, 31: 31 + z.shape[1]]
+
+    rec_ref = up(lo_ref, h) + up(hi_ref, -hh)
+    for name, got, want in (("QMF low band", lo, lo_ref), ("QMF high band", hi, hi_ref),
+                            ("QMF reconstruction", rec, rec_ref)):
+        n = want.shape[-1] - 256  # the oracles' ends lack the samples past 10 s
+        against_scipy(name, got[:2, :n].cpu(), want[:, :n], 1e-5)
+
+    # 5. host loops on 0.1 s: the lattice and state-space filters against
+    # scipy float64, the warped IIR finite
+    hf = rc.host_filters()
+    x_h = s._x[0, :n_host].cpu().numpy().astype(np.float64)
+    b2_, a2_ = butter(2, rc.STREAM_FC, fs=fs)
+    e_lat = rel_err(out["host"]["lattice"], lfilter(b4, a4, x_h))
+    e_ss = rel_err(torch.as_tensor(out["host"]["state_space"]), lfilter(b2_, a2_, x_h))
+    fin = bool(torch.isfinite(torch.as_tensor(out["host"]["warped_iir"])).all())
+    print(f"{label} host loops on {n_host} samples: lattice/ladder vs scipy f64 {e_lat:.3e} "
+          f"(tol 1e-5), state space {e_ss:.3e} (tol 1e-9), warped IIR finite {fin}")
+    if not (e_lat <= 1e-5 and e_ss <= 1e-9 and fin):
+        fail(f"{label}: a host loop disagrees")
+
+    # 6. times: each step with CUDA events (in turns with the plain paths
+    # where a kernel runs) and its device idle share from one profiled call
+    times = {}
+    steps = {
+        "A-weighting + EQ": (lambda: rc.weighted_eq(s, d), True),
+        "parallel filter": (lambda: pf.filter_signal(s), True),
+        "Kautz filter": (lambda: k.filter_signal(s), True),
+        "warped FIR": (lambda: wf.filter_signal(s), True),
+        "SVF": (lambda: objs["svf"].filter_signal(s), False),
+        "IIRFilter stream": (lambda: rc.stream_iir(s._x[0]), True),
+        "EMA stream": (lambda: rc.stream_ema(s._x[0]), False),
+        "partitioned FIR stream": (lambda: rc.stream_fir(s._x, irs), False),
+        "1/3-octave bank": (lambda: rc.octave_bands(s, bank), False),
+        "QMF": (lambda: rc.qmf(s, objs["qmf"]), False),
+    }
+    for name, (fn, with_plain) in steps.items():
+        ms = time_pair(fn, lambda: plain(fn), n=2, warm=1) if with_plain else \
+            time_pair(fn, n=2, warm=1)
+        r = profile_call(f"{label}: {name}", fn, runs=1, host_calls=1, event_calls=1, warm=0)
+        times[name] = {"ms": ms[0], "plain_ms": ms[1] if with_plain else None,
+                       "idle": r["idle"]}
+        if name in ("IIRFilter stream", "EMA stream", "partitioned FIR stream"):
+            times[name]["per_block_ms"] = ms[0] / NB
+        extra = f", plain {ms[1]:.4f} ms" if with_plain else ""
+        print(f"time {label} {name}: {ms[0]:.4f} ms{extra}; device idle share "
+              f"{r['idle']:.4f} [{card}]")
+        torch.cuda.empty_cache()
+    x_h32 = Signal(None, x_h[:, None].astype(np.float32), fs)
+    for name, fn in (("lattice/ladder", lambda: hf["lattice"].filter_signal(x_h32)),
+                     ("warped IIR", lambda: hf["warped_iir"].filter_signal(x_h32)),
+                     ("state space, process_sample",
+                      lambda: [hf["state_space"].process_sample(v, 0) for v in x_h])):
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        times[name] = {"host_ms": host_s * 1e3, "us_per_sample": host_s / n_host * 1e6}
+        print(f"time {label} host loop {name}: {host_s * 1e3:.1f} ms for {n_host} samples "
+              f"({host_s / n_host * 1e6:.2f} us a sample, host clock) [{card}]")
+
+    # 7. the EMA kernel's average form: at the stream's (1, 1024) a launch
+    # against its plain loop, and at one long row (the channel, T samples;
+    # the plain loop at a cut); its bound: the bytes, or the row's steps of
+    # its dependent chain (compare, select, multiply, add: four operations
+    # at 4 cycles each) at the card's maximum SM clock
+    blk, c0 = blocks[:1].contiguous(), carry[:1].contiguous()
+    k_blk, p_blk = time_pair(lambda: cuda_ema.ema_average_cuda(blk, c0, inc, dec),
+                             lambda: cuda_ema.ema_average_plain(blk, c0, inc, dec),
+                             n=3, warm=1)
+    row = s._x[:1].abs().contiguous()
+    k_row = time_pair(lambda: cuda_ema.ema_average_cuda(row, c0, inc, dec), n=3,
+                      warm=1)[0]
+    cut = 12000
+    row_cut = row[:, :cut].contiguous()
+    k_cut, p_cut = time_pair(lambda: cuda_ema.ema_average_cuda(row_cut, c0, inc, dec),
+                             lambda: cuda_ema.ema_average_plain(row_cut, c0, inc, dec),
+                             n=2, warm=1)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60).stdout.split()[0]
+
+    def ema_bound(n):
+        chain = n * 16 / (float(clock) * 1e6) * 1e3
+        by_bytes = 8.0 * n / HBM_BYTES_S * 1e3
+        return max(chain, by_bytes), ("operations" if chain >= by_bytes else "bytes")
+
+    blk_bound, blk_by = ema_bound(B)
+    row_bound, row_by = ema_bound(T)
+    print(f"time {label} EMA average kernel (1, {B}): {k_blk:.4f} ms a launch (x {NB} = "
+          f"{k_blk * NB:.3f} ms), plain loop {p_blk:.4f} ms; bound {blk_bound:.5f} ms "
+          f"({blk_by}); one row of {T}: kernel {k_row:.4f} ms, bound {row_bound:.4f} ms "
+          f"({row_by}); at (1, {cut}): kernel {k_cut:.4f} ms, plain loop {p_cut:.4f} ms "
+          f"[{card}]")
+    print(f"{label} phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"iir_lead": launched["iir_lead"], "iir_lead_err": b2_err,
+            "ema_carry": launched["ema_carry"], "ema_carry_err": ema_err,
+            "ema_carry_ms": k_blk, "ema_carry_plain_ms": p_blk, "ema_carry_shape": [1, B],
+            "ema_carry_bound_ms": blk_bound, "ema_carry_bound_by": blk_by,
+            "ema_carry_long_row": {"shape": [1, T], "ms": k_row, "bound_ms": row_bound,
+                                   "bound_by": row_by, "plain_shape": [1, cut],
+                                   "ms_at_plain_shape": k_cut, "plain_ms": p_cut},
+            "launches": launched, "launches_by_step": steps_l, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -3321,6 +3796,13 @@ def main() -> int:
     sess = session_files_phase(dev, card)
     torch.cuda.empty_cache()
 
+    # 46-52. the filter-design and streaming path on the session: the
+    # parallel, Kautz and warped FIR filters, the A-weighting and EQ and the
+    # IIRFilter stream (B2), the EMA stream (ema.cu's average form), the SVF,
+    # the partitioned FIR, the reconstructing bank, QMF, the host loops
+    rt = realtime_phase(dev, card)
+    torch.cuda.empty_cache()
+
     # 26. the chains through `pipeline`, each captured into one CUDA graph:
     # config 2 (B1), the TF path (B4), config 3 (B3), the crossover bands (B2)
     pl = pipeline_phase(dev, card)
@@ -3377,18 +3859,19 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
                       + pl_launches["iir_lead"] + tfa["iir_lead"] + feat["iir_lead"]
-                      + sess["iir_lead"]),
+                      + sess["iir_lead"] + rt["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
                               "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"],
                               "tf_analysis": tfa["iir_lead"], "transforms": feat["iir_lead"],
-                              "session_files": sess["iir_lead"]},
+                              "session_files": sess["iir_lead"], "realtime": rt["iir_lead"]},
          "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"],
-                            feat["iir_lead_err"], sess["iir_lead_err"]),
+                            feat["iir_lead_err"], sess["iir_lead_err"], rt["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
                                  "standard": std["iir_lead_err"],
                                  "transforms": feat["iir_lead_err"],
-                                 "session_files": sess["iir_lead_err"]},
-         "session_files_times": sess["times"],
+                                 "session_files": sess["iir_lead_err"],
+                                 "realtime": rt["iir_lead_err"]},
+         "session_files_times": sess["times"], "realtime_times": rt["times"],
          "transforms_device_kernels": feat.get("device_kernels"),
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
@@ -3414,6 +3897,14 @@ def main() -> int:
          "ms_at_plain_shape": sess["ema_at_plain_shape_ms"],
          "bound_ms": sess["ema_bound_ms"], "bound_by": sess["ema_bound_by"],
          "library_ms": None},
+        {"name": "ema_average_carry", "route": "cuda",
+         "source": "dsptoolbox_tpu_torch/csrc/ema.cu",
+         "replaces": "dsptoolbox_tpu/realtime/misc.py:71 (lax.scan, no Pallas kernel)",
+         "launches": rt["ema_carry"], "launches_by_path": {"realtime": rt["ema_carry"]},
+         "max_abs_err": rt["ema_carry_err"], "shape": rt["ema_carry_shape"],
+         "ms": rt["ema_carry_ms"], "plain_ms": rt["ema_carry_plain_ms"],
+         "bound_ms": rt["ema_carry_bound_ms"], "bound_by": rt["ema_carry_bound_by"],
+         "library_ms": None, "long_row": rt["ema_carry_long_row"]},
     ]}
     # each kernel's captured chains: eager and replay ms, idle shares, pool
     by_kernel = {"windowed_frames": "framing", "sosfilt_lead": "iir_lead",

@@ -16,7 +16,7 @@ import torch
 
 from ..ops.fft_conv import fft_convolve
 from ..ops.cuda_iir import MAX_STATES
-from ..ops.iir_block import ba_cascade, lfilter_statespace
+from ..ops.iir_block import lfilter_handover
 from ..ops.iir import _odd_ext, filtfilt_ba, lfilter, lfilter_zi, sosfilt, sosfilt_zero_state, sosfiltfilt
 from .._enums import BiquadEqType
 
@@ -205,7 +205,7 @@ def _zi_update(zi, channels: np.ndarray, run):
 def _cascade_update(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, channels: np.ndarray,
                     kept):
     """A stateful IIR ``(b, a)`` of order 3 to `cuda_iir.MAX_STATES` through
-    `iir_block.lfilter_statespace` with the per-channel states ``zi``.
+    `iir_block.lfilter_handover` with the per-channel states ``zi``.
     ``kept`` (one entry a channel of ``zi``, or None) holds, for each
     channel filtered before, the TDF2 state it was handed and the cascade
     state that state came from: a channel whose ``zi`` is still the one
@@ -214,12 +214,14 @@ def _cascade_update(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, channels:
     updated ``kept``."""
     zi_all = np.stack([np.asarray(z, np.float64) for z in zi], axis=0)
     kept = list(kept) if kept is not None and len(kept) == len(zi) else [None] * len(zi)
-    _, to_cascade, _ = ba_cascade(b, a)
-    zc = zi_all[channels] @ to_cascade.T
-    for i, c in enumerate(channels):
-        if kept[c] is not None and np.array_equal(kept[c][0], zi_all[c]):
-            zc[i] = kept[c][1]
-    y, zf, zc_end = lfilter_statespace(b, a, x, zc=zc)
+    rows = [kept[c] for c in channels]
+    prior = None
+    if any(r is not None for r in rows):
+        n_c = next(r[1].shape[0] for r in rows if r is not None)
+        nan, zero = np.full(zi_all.shape[1], np.nan), np.zeros(n_c)
+        prior = (np.stack([nan if r is None else r[0] for r in rows]),
+                 np.stack([zero if r is None else r[1] for r in rows]))
+    y, _, (zf, zc_end) = lfilter_handover(b, a, x, zi_all[channels], prior)
     states = torch.cat([zf, zc_end], dim=-1).cpu().numpy()  # one host fetch
     zf, zc_end = states[:, : zi_all.shape[1]], states[:, zi_all.shape[1]:]
     zi_all[channels] = zf

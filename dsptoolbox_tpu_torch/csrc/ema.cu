@@ -1,10 +1,16 @@
-// Attack/release exponential moving average over time for Hopper (sm_90a):
+// Attack/release exponential moving average over time for Hopper (sm_90a), in
+// two forms, per row of x (C, T), float32 or float64:
 //
-//   y[0] = x[0];   a = x[t] > y[t-1] ? alpha : beta;   y[t] = y[t-1] + a*(x[t] - y[t-1])
+//   smoothing:  y[0] = x[0];      a = x[t] > y[t-1] ? alpha : beta;
+//               y[t] = y[t-1] + a*(x[t] - y[t-1])
+//   average:    y[-1] = carry[row]; c = x[t] > y[t-1] ? inc : dec;
+//               y[t] = x[t]*c + (1 - c)*y[t-1]
 //
-// per row of x (C, T), float32 or float64. No Pallas kernel: the JAX package runs
-// this recursion as a `lax.scan` (dsptoolbox_tpu/helpers/smoothing.py:
-// 164-175), a loop on the device. Its coefficient depends on the state, so
+// No Pallas kernel: the JAX package runs both recursions as a `lax.scan`
+// (smoothing: dsptoolbox_tpu/helpers/smoothing.py:164-175; average: the
+// streaming ExponentialAverageFilter, dsptoolbox_tpu/realtime/misc.py:
+// 62-77, which starts each block from the channel's state), a loop on the
+// device. Its coefficient depends on the state, so
 // no associative scan computes it in log depth, and a loop of torch ops
 // would launch several kernels per sample.
 //
@@ -13,7 +19,8 @@
 // operations; the row's T steps are serial. The operations are the scan's
 // in its order, each rounded on its own (__fsub_rn, __fmul_rn, __fadd_rn
 // and their double twins: no contraction into an FMA), so the kernel
-// equals the plain torch loop bit for bit in either type.
+// equals the plain torch loop bit for bit in either type. The average form
+// takes 1 - c rounded once per coefficient, as the loop's `1 - c` does.
 //
 // Design: one warp per row. The warp's lanes stage the row in chunks of
 // kChunk samples in shared memory with element-wide cp.async, one chunk ahead
@@ -45,14 +52,30 @@ __device__ __forceinline__ double ema_step(double carry, double a, double v) {
     return __dadd_rn(carry, __dmul_rn(a, __dsub_rn(v, carry)));
 }
 
+// x*c + (1 - c)*carry, with one_minus_c = 1 - c rounded on its own
+__device__ __forceinline__ float average_step(float carry, float c, float one_minus_c, float v) {
+    return __fadd_rn(__fmul_rn(v, c), __fmul_rn(one_minus_c, carry));
+}
+
+__device__ __forceinline__ double average_step(double carry, double c, double one_minus_c,
+                                               double v) {
+    return __dadd_rn(__dmul_rn(v, c), __dmul_rn(one_minus_c, carry));
+}
+
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-template <typename F>
+// kAverage false: the smoothing form (alpha, beta; carry0 unused); true: the
+// average form from carry0[row] (alpha = inc, beta = dec)
+template <bool kAverage, typename F>
 __global__ void __launch_bounds__(32)
-ema_attack_release_kernel(const F* __restrict__ x, F* __restrict__ y, long long T,
-                          long long ldx, long long ldy, F alpha, F beta) {
+ema_kernel(const F* __restrict__ x, const F* __restrict__ carry0, F* __restrict__ y,
+           long long T, long long ldx, long long ldy, F alpha, F beta) {
     __shared__ F buf[2][kChunk];
     const int lane = threadIdx.x;
     const F* xr = x + (long long)blockIdx.x * ldx;
@@ -71,6 +94,8 @@ ema_attack_release_kernel(const F* __restrict__ x, F* __restrict__ y, long long 
 
     stage(0);
     F carry = 0;
+    const F alpha1 = sub_rn(F(1), alpha), beta1 = sub_rn(F(1), beta);
+    if constexpr (kAverage) carry = carry0[blockIdx.x];
     for (long long k = 0; k < n_chunks; ++k) {
         stage(k + 1);
         cp_wait_one();  // chunk k has landed (this lane's copies)
@@ -80,14 +105,19 @@ ema_attack_release_kernel(const F* __restrict__ x, F* __restrict__ y, long long 
         const int n = (int)(T - base < kChunk ? T - base : kChunk);
         if (lane == 0) {
             int j = 0;
-            if (k == 0) {
+            if (!kAverage && k == 0) {
                 carry = cur[0];
                 j = 1;
             }
 #pragma unroll 8
             for (; j < n; ++j) {
                 const F v = cur[j];
-                carry = ema_step(carry, v > carry ? alpha : beta, v);
+                if constexpr (kAverage) {
+                    const bool up = v > carry;
+                    carry = average_step(carry, up ? alpha : beta, up ? alpha1 : beta1, v);
+                } else {
+                    carry = ema_step(carry, v > carry ? alpha : beta, v);
+                }
                 cur[j] = carry;
             }
         }
@@ -97,13 +127,14 @@ ema_attack_release_kernel(const F* __restrict__ x, F* __restrict__ y, long long 
     }
 }
 
-template <typename F>
-int launch(const F* x, F* y, long long C, long long T, long long ldx, long long ldy, F alpha,
-           F beta, void* stream) {
-    if (C <= 0 || T <= 0 || C > 2147483647LL || ldx < T || ldy < T)
+template <bool kAverage, typename F>
+int launch(const F* x, const F* carry0, F* y, long long C, long long T, long long ldx,
+           long long ldy, F alpha, F beta, void* stream) {
+    if (C <= 0 || T <= 0 || C > 2147483647LL || ldx < T || ldy < T ||
+        (kAverage && carry0 == nullptr))
         return (int)cudaErrorInvalidValue;
-    ema_attack_release_kernel<F><<<(unsigned)C, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, y, T, ldx, ldy, alpha, beta);
+    ema_kernel<kAverage, F><<<(unsigned)C, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, carry0, y, T, ldx, ldy, alpha, beta);
     return (int)cudaGetLastError();
 }
 
@@ -112,11 +143,24 @@ int launch(const F* x, F* y, long long C, long long T, long long ldx, long long 
 extern "C" int dsptb_ema_attack_release_f32(const float* x, float* y, long long C, long long T,
                                             long long ldx, long long ldy, float alpha,
                                             float beta, void* stream) {
-    return launch(x, y, C, T, ldx, ldy, alpha, beta, stream);
+    return launch<false, float>(x, nullptr, y, C, T, ldx, ldy, alpha, beta, stream);
 }
 
 extern "C" int dsptb_ema_attack_release_f64(const double* x, double* y, long long C, long long T,
                                             long long ldx, long long ldy, double alpha,
                                             double beta, void* stream) {
-    return launch(x, y, C, T, ldx, ldy, alpha, beta, stream);
+    return launch<false, double>(x, nullptr, y, C, T, ldx, ldy, alpha, beta, stream);
+}
+
+// the average form: carry (C,) is each row's state before its first sample
+extern "C" int dsptb_ema_average_f32(const float* x, const float* carry, float* y, long long C,
+                                     long long T, long long ldx, long long ldy, float inc,
+                                     float dec, void* stream) {
+    return launch<true, float>(x, carry, y, C, T, ldx, ldy, inc, dec, stream);
+}
+
+extern "C" int dsptb_ema_average_f64(const double* x, const double* carry, double* y,
+                                     long long C, long long T, long long ldx, long long ldy,
+                                     double inc, double dec, void* stream) {
+    return launch<true, double>(x, carry, y, C, T, ldx, ldy, inc, dec, stream);
 }

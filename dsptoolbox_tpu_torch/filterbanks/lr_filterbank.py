@@ -6,8 +6,9 @@ channels on the signal's device. Zero-state splits whose decay margin
 allows it go through the composite band responses (one rfft, one batched
 irfft: exact frequency sampling, `ops.iir_freq`); the others through the
 `sosfilt` chain (the blocked IIR, kernel B2). The per-channel ``zi`` path
-keeps scipy's state conventions. Not ported: ``get_ir``, plots, saving
-and copies.
+keeps scipy's state conventions. The impulse responses and their plots
+(magnitude, phase, group delay) are drawn from the bands on the host. Not
+ported: saving and copies.
 """
 
 from __future__ import annotations
@@ -238,3 +239,56 @@ class LRFilterBank:
             outs.append(band)
         outs.append(x)
         return torch.stack(outs)
+
+    # ======== getters / plots ===============================================
+    def get_ir(self, length_samples: int, mode: FilterBankMode = FilterBankMode.Parallel,
+               zero_phase: bool = False):
+        """The bank's response to a dirac (`dsptoolbox_tpu/filterbanks/
+        lr_filterbank.py:375`)."""
+        from ..generators import dirac
+
+        d = dirac(length_samples=length_samples, number_of_channels=1,
+                  sampling_rate_hz=self.sampling_rate_hz)
+        return self.filter_signal(d, mode=mode, zero_phase=zero_phase, activate_zi=False)
+
+    def _band_irs(self, length_samples: int, zero_phase: bool = False) -> np.ndarray:
+        """Each band's IR ``(length, bands)`` on the host."""
+        ir = self.get_ir(length_samples, FilterBankMode.Parallel, zero_phase=zero_phase)
+        return torch.stack([b.time_data[:, 0] for b in ir.bands], dim=1).cpu().numpy()
+
+    def plot_magnitude(self, length_samples: int = 2048,
+                       mode: FilterBankMode = FilterBankMode.Parallel, range_hz=[20.0, 20e3],
+                       zero_phase: bool = False):
+        """Magnitude of each band, or of their sum in Summed mode
+        (`dsptoolbox_tpu/filterbanks/lr_filterbank.py:392`)."""
+        from ..helpers.gain_and_level import to_db
+        from ..plots import general_plot
+
+        irs = self._band_irs(length_samples, zero_phase)
+        f = np.fft.rfftfreq(length_samples, 1 / self.sampling_rate_hz)
+        if mode == FilterBankMode.Summed:
+            irs = np.sum(irs, axis=1, keepdims=True)
+        mat = np.asarray(to_db(np.abs(np.fft.rfft(irs, axis=0)), True))
+        return general_plot(f, mat, range_hz, ylabel="Magnitude / dB",
+                            labels=[f"Band {n}" for n in range(mat.shape[1])])
+
+    def plot_phase(self, length_samples: int = 2048, range_hz=[20.0, 20e3]):
+        """Phase of each band (`dsptoolbox_tpu/filterbanks/lr_filterbank.py:433`)."""
+        from ..plots import general_plot
+
+        f = np.fft.rfftfreq(length_samples, 1 / self.sampling_rate_hz)
+        mat = np.angle(np.fft.rfft(self._band_irs(length_samples), axis=0))
+        return general_plot(f, mat, range_hz, ylabel="Phase / rad",
+                            labels=[f"Band {n}" for n in range(mat.shape[1])])
+
+    def plot_group_delay(self, length_samples: int = 2048, range_hz=[20.0, 20e3]):
+        """Group delay of each band in ms (`dsptoolbox_tpu/filterbanks/
+        lr_filterbank.py:453`)."""
+        from ..plots import general_plot
+        from ..standard.backend import group_delay_direct
+
+        f = np.fft.rfftfreq(length_samples, 1 / self.sampling_rate_hz)
+        ph = np.angle(np.fft.rfft(self._band_irs(length_samples), axis=0))
+        gd = group_delay_direct(torch.as_tensor(ph), f[1] - f[0]).numpy() * 1e3
+        return general_plot(f, gd, range_hz, ylabel="Group delay / ms",
+                            labels=[f"Band {n}" for n in range(gd.shape[1])])

@@ -370,10 +370,9 @@ def _ba_cascade(ba_key: tuple):
     return sos, to_cascade, to_tdf2
 
 
-def ba_cascade(b: np.ndarray, a: np.ndarray):
-    """``(sos, to_cascade (2S, N), to_tdf2 (N, 2S))`` of the IIR direct
-    form ``(b, a)`` (`_ba_cascade`), its trailing zeros trimmed and ``a``
-    normalized."""
+def _ba_key(b: np.ndarray, a: np.ndarray) -> tuple:
+    """The key of `_ba_cascade`: ``(b, a)`` with trailing zeros trimmed
+    and ``a`` normalized, as tuples."""
     b = np.trim_zeros(np.atleast_1d(np.asarray(b, dtype=np.float64)), "b")
     a = np.trim_zeros(np.atleast_1d(np.asarray(a, dtype=np.float64)), "b")
     if len(a) < 2:
@@ -382,7 +381,29 @@ def ba_cascade(b: np.ndarray, a: np.ndarray):
     N = max(len(a), len(b)) - 1
     if N > MAX_STATES:
         raise ValueError(f"the blocked lead holds at most {MAX_STATES} states, got N={N}")
-    return _ba_cascade((tuple(b.tolist()), tuple(a.tolist())))
+    return tuple(b.tolist()), tuple(a.tolist())
+
+
+def ba_cascade(b: np.ndarray, a: np.ndarray):
+    """``(sos, to_cascade (2S, N), to_tdf2 (N, 2S))`` of the IIR direct
+    form ``(b, a)`` (`_ba_cascade`), its trailing zeros trimmed and ``a``
+    normalized."""
+    return _ba_cascade(_ba_key(b, a))
+
+
+@_config.device_cache(64)
+def _device_cascade_maps(ba_key: tuple, dtype: torch.dtype, device) -> tuple:
+    """``(to_cascade.T (N, 2S), to_tdf2.T (2S, N))`` of `_ba_cascade` on
+    ``device``, cached: a stream of blocks uploads them once."""
+    _, to_cascade, to_tdf2 = _ba_cascade(ba_key)
+    return (torch.as_tensor(to_cascade.T, dtype=dtype, device=device),
+            torch.as_tensor(to_tdf2.T, dtype=dtype, device=device))
+
+
+def cascade_maps(b: np.ndarray, a: np.ndarray, dtype: torch.dtype, device) -> tuple:
+    """The state maps of `ba_cascade` as row-vector operators on
+    ``device``: ``zi @ to_cascade``, ``zc @ to_tdf2`` (cached)."""
+    return _device_cascade_maps(_ba_key(b, a), dtype, torch.device(device))
 
 
 def lfilter_statespace(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi=None,
@@ -406,16 +427,36 @@ def lfilter_statespace(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi=None,
     A^128 has entries of 2.3e8 and in float64 a spectral radius of 6.0, so
     the blocked recursion diverges; at L = 8 it is still 1.3e-3 off scipy).
     """
-    sos, to_cascade, to_tdf2 = ba_cascade(b, a)
+    sos = ba_cascade(b, a)[0]
     batch = x.shape[:-1]
     sdt = state_dtype(x.dtype)
+    to_cascade, to_tdf2 = cascade_maps(b, a, sdt, x.device)
     if zc is None:
-        s0 = torch.as_tensor(zi, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[1],))
-        zc = s0 @ torch.as_tensor(to_cascade.T, dtype=sdt, device=x.device)
-    zc = torch.as_tensor(zc, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[0],))
+        s0 = torch.as_tensor(zi, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[0],))
+        zc = s0 @ to_cascade
+    zc = torch.as_tensor(zc, dtype=sdt, device=x.device).expand(batch + (to_cascade.shape[1],))
     y, zc_end = sosfilt_block(sos, x, zi=zc.reshape(batch + (-1, 2)), block_size=block_size)
     zc_end = zc_end.reshape(batch + (-1,))
-    return y, zc_end @ torch.as_tensor(to_tdf2.T, dtype=sdt, device=x.device), zc_end
+    return y, zc_end @ to_tdf2, zc_end
+
+
+def lfilter_handover(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, kept=None):
+    """`lfilter_statespace` of ``x (..., T)`` from the TDF2 states ``zi
+    (..., N)``, continuing a stream: ``kept`` (None, or ``(handed (...,
+    N), zc (..., 2S))`` as the last call returned it) holds the state that
+    call handed out and the exact cascade state behind it. Each row whose
+    ``zi`` is still the one handed out starts from its cascade state, any
+    other (a row of ``handed`` that is NaN, or a state set by hand) from
+    ``zi`` mapped into the cascade; the choice is made on the device, so a
+    stream never waits on the host. Returns ``(y, zf, (zf, zc_end))``."""
+    sdt = state_dtype(x.dtype)
+    zi = torch.as_tensor(zi, dtype=sdt, device=x.device)
+    zc = zi @ cascade_maps(b, a, sdt, x.device)[0]
+    if kept is not None:
+        handed, zc_kept = (torch.as_tensor(v, dtype=sdt, device=x.device) for v in kept)
+        zc = torch.where(torch.all(zi == handed, dim=-1, keepdim=True), zc_kept, zc)
+    y, zf, zc_end = lfilter_statespace(b, a, x, zc=zc)
+    return y, zf, (zf, zc_end)
 
 
 def stack_sos_bank(cascades) -> np.ndarray | None:

@@ -1203,3 +1203,63 @@ def test_signal_from_a_file_lands_on_the_card(dev, ext, tmp_path):
     assert sig.device.type == "cuda"
     np.testing.assert_array_equal(sig.time_data.cpu().numpy(),
                                   io.read_audio(path)[0].astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(469, 1024), (16, 48000), (3, 2049), (1, 4097), (2, 1)])
+def test_ema_average_kernel_matches_plain_loop(dev, dtype, shape):
+    """`csrc/ema.cu`'s average form (the streaming exponential average from
+    a start carry per row) against its plain loop: the same operations in
+    the same order, so equal bit for bit in float32 and float64; one launch
+    a call, rows across chunk edges (2048) and a single sample."""
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(np.abs(rng.standard_normal(shape))).to(dev, dtype)
+    carry = torch.from_numpy(rng.uniform(0, 1, shape[0])).to(dev, dtype)
+    before = cuda_ema.average_launches
+    got = cuda_ema.ema_average(x, carry, 0.0125, 2.5e-4)
+    torch.cuda.synchronize()
+    assert cuda_ema.average_launches == before + 1 and got.dtype == dtype
+    want = cuda_ema.ema_average_plain(x.cpu(), carry.cpu(), 0.0125, 2.5e-4)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_realtime_filters_launch_their_kernels_and_match_plain(dev):
+    """On the card: the warped FIR launches B2 once a stage and the Kautz
+    filter three times a pole pair and twice a real pole, an `IIRFilter`
+    stream once a block and an `ExponentialAverageFilter` stream the EMA
+    kernel once a block; each within 1e-5 x peak of its plain version (the
+    EMA bit for bit), the IIR stream within 5e-6 of scipy's float64
+    lfilter."""
+    from scipy.signal import lfilter
+
+    from dsptoolbox_tpu_torch import realtime as rt
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((2, 48000)).astype(np.float32) * 0.3).to(dev)
+    s = Signal(None, x.T, 48000)
+    warped = rt.WarpedFIR(np.hanning(34)[17:] * rng.standard_normal(17), 0.766, 48000)
+    kautz = rt.KautzFilter(np.array([0.9 * np.exp(0.1j), 0.95 * np.exp(0.4j), 0.5]), 48000)
+    for f, n in ((warped, 16), (kautz, 3 * 2 + 2)):
+        before = cuda_iir.launches
+        got = f.filter_signal(s)._x
+        torch.cuda.synchronize()
+        assert cuda_iir.launches == before + n
+        with _config.kernels_off():
+            want = f.filter_signal(s)._x
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    b, a = butter(4, 1000.0, fs=48000)
+    iir, ema = rt.IIRFilter(b, a), rt.ExponentialAverageFilter(0.01, 0.05, 48000)
+    before, before_ema = cuda_iir.launches, cuda_ema.average_launches
+    y = torch.cat([iir.process_block(x[0, i:i + 1024], 0) for i in range(0, 46080, 1024)])
+    e = torch.cat([ema.process_block(x[0, i:i + 1024].abs(), 0) for i in range(0, 46080, 1024)])
+    torch.cuda.synchronize()
+    assert cuda_iir.launches == before + 45 and cuda_ema.average_launches == before_ema + 45
+    ref = lfilter(b, a, x[0, :46080].double().cpu().numpy())
+    assert _rel(y, ref) <= 5e-6
+    blocks = x[0, :46080].abs().reshape(45, 1024)
+    carry = torch.cat([e.new_zeros(1), e.reshape(45, 1024)[:-1, -1]])
+    assert torch.equal(cuda_ema.ema_average_plain(blocks, carry, ema.increase_coefficient,
+                                                  ema.decrease_coefficient).reshape(-1), e)

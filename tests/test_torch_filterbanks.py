@@ -11,6 +11,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+import scipy.signal as sig
 from scipy.signal import butter, resample_poly, sosfilt, sosfiltfilt, upfirdn
 
 import jax.numpy as jnp
@@ -520,3 +521,146 @@ def test_low_band_zero_phase_and_streamed_filter_meet_scipy_f64(band):
     zi = np.stack([sosfilt_zi(sos)] * 2, axis=1)
     want = sosfilt(sos, x64, axis=-1, zi=zi)[0]
     assert _rel(np.concatenate(parts).T, want) < 5e-6
+
+
+# ======== the rest of filterbanks/: designs, the reconstructing bank, QMF ===
+def _both(fn):
+    """``fn`` on the port's and the JAX package's modules."""
+    import dsptoolbox_tpu_torch as dtt
+
+    return fn(dtt), fn(jdsp)
+
+
+_DESIGNS = {
+    "weighting_a": lambda m: m.filterbanks.weighting_filter(True, sampling_rate_hz=48000),
+    "weighting_c": lambda m: m.filterbanks.weighting_filter(False, sampling_rate_hz=48000),
+    "pinking": lambda m: m.filterbanks.pinking_filter(500, FS),
+    "gaussian": lambda m: m.filterbanks.gaussian_kernel(0.01, sampling_rate_hz=FS),
+    "fractional_delay": lambda m: m.filterbanks.fractional_delay(0.4, 30, sampling_rate_hz=FS),
+    "complementary_odd": lambda m: m.filterbanks.complementary_fir_filter(
+        m.Filter.from_ba(np.hanning(65) / 32, [1.0], FS)),
+    "complementary_even": lambda m: m.filterbanks.complementary_fir_filter(
+        m.Filter.fir_filter(64, 1000, m.FilterPassType.Lowpass, FS)),
+    **{f"matched_{t}": (lambda t: lambda m: m.filterbanks.matched_biquad(
+        getattr(m.BiquadEqType, t), 1000.0, 5.0, 0.9, FS))(t)
+       for t in ("Peaking", "Lowpass", "Highpass", "BandpassPeak", "BandpassSkirt",
+                 "Lowshelf", "Highshelf")},
+}
+
+
+@pytest.mark.parametrize("name", list(_DESIGNS))
+def test_filter_designs_of_filterbanks_match_jax(name):
+    """Host designs at the JAX tests' bounds (`tests/test_filterbanks.py`:
+    coefficients within 1e-10 relative, 1e-7 for the complementary FIR)
+    and their impulse responses on the device within float32 rounding."""
+    mine, ref = _both(_DESIGNS[name])
+    assert mine.has_sos == ref.has_sos
+    for got, want in zip([mine.sos] if mine.has_sos else mine.ba,
+                         [ref.sos] if ref.has_sos else ref.ba):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-10,
+                                   atol=1e-7 if name.startswith("complementary") else 1e-12)
+    ir_m = mine.get_ir(1024).time_data.numpy()
+    ir_r = np.asarray(ref.get_ir(1024).time_data)
+    assert _rel(ir_m, ir_r) <= 5e-4
+
+
+@pytest.mark.parametrize("method,order_b", [("yule-walker", 0), ("burg", 0),
+                                            ("yule-walker", 8), ("burg", 8)])
+def test_arma_matches_jax(method, order_b):
+    """AR by Yule-Walker or Burg in float64 (on the IR's device), MA by
+    host least squares: the JAX package's coefficients within 1e-10."""
+    rng = np.random.default_rng(21)
+    t = np.arange(2048) / FS
+    ir = (rng.standard_normal(2048) * np.exp(-t / 0.01)).astype(np.float32)
+    ir[5] = 1.0
+    mine, ref = _both(lambda m: m.filterbanks.arma(
+        m.ImpulseResponse(None, ir[:, None], FS), 12, order_b, method))
+    for got, want in zip(mine.ba, ref.ba):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-10, atol=1e-10)
+
+
+def test_reconstructing_bank_matches_jax_and_reconstructs():
+    """The linear-phase FIR bank: every band within 1e-5 x peak of the JAX
+    package's, and the summed bands equal to the input delayed by half the
+    FIR length within 2e-4 (`tests/test_filterbanks.py:102`)."""
+    x = (0.3 * np.random.default_rng(22).standard_normal((12000, 2))).astype(np.float32)
+    kw = dict(octave_fraction=3, n_samples=2**11, sampling_rate_hz=FS)
+    mine, ref = _both(lambda m: m.filterbanks.reconstructing_fractional_octave_bands(**kw))
+    assert mine.number_of_filters == ref.number_of_filters
+    mb_m = mine.filter_signal(Signal(None, x, FS), FilterBankMode.Parallel)
+    mb_r = ref.filter_signal(jdsp.Signal(None, x, FS), JMode.Parallel)
+    for bm, br in zip(mb_m.bands, mb_r.bands):
+        assert _rel(bm.time_data.numpy(), np.asarray(br.time_data)) <= 1e-5
+    summed = mine.filter_signal(Signal(None, x, FS), FilterBankMode.Summed).time_data.numpy()
+    delay = len(mine.filters[0].ba[0]) // 2
+    np.testing.assert_allclose(summed[delay:], x[:-delay], atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", ["fir", "iir"])
+def test_qmf_crossover_matches_jax(kind):
+    """Analysis with downsampling (Parallel, Summed) and the reconstruction
+    with upsampling: 1e-5 x peak of the JAX package's; Sequential with
+    downsampling refuses its second, decimated stage in both packages."""
+    x = (0.3 * np.random.default_rng(23).standard_normal((6000, 2))).astype(np.float32)
+
+    def lowpass(m):
+        if kind == "fir":
+            return m.Filter.from_ba(sig.firwin(63, 0.5), [1.0], FS)
+        return m.Filter.iir_filter(order=5, frequency_hz=FS / 4,
+                                   type_of_pass=m.FilterPassType.Lowpass,
+                                   filter_design_method=m.IirDesignMethod.Butterworth,
+                                   sampling_rate_hz=FS)
+
+    mine, ref = _both(lambda m: m.filterbanks.qmf_crossover(lowpass(m)))
+    s_m, s_r = Signal(None, x, FS), jdsp.Signal(None, x, FS)
+    for f, sg, mode in ((mine, s_m, FilterBankMode.Sequential), (ref, s_r, JMode.Sequential)):
+        with pytest.raises(AssertionError, match="Sampling rates"):
+            f.filter_signal(sg, mode, downsample=True)
+    for mode, jmode in ((FilterBankMode.Parallel, JMode.Parallel),
+                        (FilterBankMode.Summed, JMode.Summed)):
+        got = mine.filter_signal(s_m, mode, downsample=True)
+        want = ref.filter_signal(s_r, jmode, downsample=True)
+        pairs = zip(got.bands, want.bands) if mode == FilterBankMode.Parallel else \
+            [(got, want)]
+        for g, w in pairs:
+            assert g.sampling_rate_hz == w.sampling_rate_hz == FS // 2
+            assert _rel(g.time_data.numpy(), np.asarray(w.time_data)) <= 1e-5
+    bands_m = mine.filter_signal(s_m, FilterBankMode.Parallel, downsample=True)
+    bands_r = ref.filter_signal(s_r, JMode.Parallel, downsample=True)
+    rec_m = mine.reconstruct_signal(bands_m, upsample=True)
+    rec_r = ref.reconstruct_signal(bands_r, upsample=True)
+    assert rec_m.sampling_rate_hz == FS
+    assert _rel(rec_m.time_data.numpy(), np.asarray(rec_r.time_data)) <= 1e-5
+
+
+def test_filterbank_plots_draw():
+    """The LR bank's three plots from the dirac's bands: the magnitudes
+    those of the JAX package within 1e-6 of the unit peak as amplitudes
+    (float32 rounding of the bands), the phase and group delay finite with
+    one line a band; the crossover's downsampled magnitude plot in each
+    mode that runs."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    lr = filterbanks.linkwitz_riley_crossovers([500, 2000], 4, FS)
+    jlr = jdsp.filterbanks.linkwitz_riley_crossovers([500, 2000], 4, FS)
+    for name, args in (("plot_magnitude", (1024,)), ("plot_phase", (1024,)),
+                       ("plot_group_delay", (1024,))):
+        fig, ax = getattr(lr, name)(*args)
+        jfig, jax_ax = getattr(jlr, name)(*args)
+        assert len(ax.get_lines()) == len(jax_ax.get_lines()) == 3
+        for line, jline in zip(ax.get_lines(), jax_ax.get_lines()):
+            got, want = np.asarray(line.get_ydata()), np.asarray(jline.get_ydata())
+            assert np.all(np.isfinite(got[1:]))
+            if name == "plot_magnitude":
+                np.testing.assert_allclose(10 ** (got / 20), 10 ** (want / 20), atol=1e-6)
+        plt.close(fig)
+        plt.close(jfig)
+    fig, _ = lr.plot_magnitude(1024, FilterBankMode.Summed)
+    plt.close(fig)
+    qmf = filterbanks.qmf_crossover(Filter.from_ba(sig.firwin(63, 0.5), [1.0], FS))
+    for mode in (FilterBankMode.Parallel, FilterBankMode.Summed):
+        fig, _ = qmf.plot_magnitude(512, mode)
+        plt.close(fig)

@@ -52,6 +52,9 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.io, dsptoolbox_tpu_torch.io.flac, dsptoolbox_tpu_torch.ops.cuda_ema\n"
         "import dsptoolbox_tpu_torch.helpers.polyphase, dsptoolbox_tpu_torch.helpers.bytes_conversion\n"
         "import dsptoolbox_tpu_torch.classes.calibration_data, dsptoolbox_tpu_torch.classes._plots\n"
+        "import dsptoolbox_tpu_torch.realtime, dsptoolbox_tpu_torch.realtime.designers\n"
+        "import dsptoolbox_tpu_torch.classes.lattice_ladder_filter\n"
+        "import dsptoolbox_tpu_torch.filterbanks.crossovers, dsptoolbox_tpu_torch.tools.realtime_chain\n"
         "assert not any(m.startswith('dsptoolbox_tpu_torch._build') for m in sys.modules)\n"
         "assert 'matplotlib' not in sys.modules  # imported at the first plot only\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -68,7 +71,8 @@ def test_import_leaves_jax_out_and_needs_no_triton():
 
 
 @pytest.mark.parametrize(
-    "first", ["classes", "filterbanks", "standard", "generators", "transforms", "plots"])
+    "first", ["classes", "filterbanks", "standard", "generators", "transforms", "plots",
+              "realtime"])
 def test_each_layer_imports_first(first):
     """No import cycle: the layers below `standard` take the enums from the
     leaf module `_enums`, so any of them may be the first import."""
@@ -308,7 +312,8 @@ PORT_ONLY = {
 
 @pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming",
                                        "transfer_functions", "transforms", "plots", "helpers",
-                                       "io", pytest.param("", id="root")])
+                                       "io", "filterbanks", "realtime",
+                                       pytest.param("", id="root")])
 def test_exports_match_the_jax_package(namespace):
     """Each namespace (and, for "", the package's root) exports the JAX
     package's names but those still waiting, plus the port's own (the JAX
@@ -521,3 +526,32 @@ def test_session_files_path_launches_no_kernel_on_cpu_tensors(tmp_path):
     assert smoothed.shape == wav._x.shape
     assert cuda_iir.launches == 0
     assert cuda_ema.launches == 0
+
+
+def test_realtime_chain_launches_no_kernel_on_cpu_tensors():
+    """The filter-design and streaming path (`tools.realtime_chain`) on CPU
+    tensors takes the plain versions: B2 and the EMA kernel's average form
+    count no launch."""
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+    from dsptoolbox_tpu_torch.tools import realtime_chain as rc
+
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        cuda_iir.launches = 0
+        cuda_ema.average_launches = 0
+        rng = np.random.default_rng(0)
+        s = Signal(None, rng.standard_normal((24000, 2)).astype(np.float32) * 0.1, rc.FS)
+        irs = rng.standard_normal((2048, 2)) * np.exp(-np.arange(2048) / 200.0)[:, None]
+        ir = rc.ir_signal(irs)
+        rc.weighted_eq(s, rc.designs(ir))
+        rc.warped_fir(irs).filter_signal(s)
+        rc.svf().filter_signal(s)
+        blocks = s._x[0, : 8 * rc.BLOCK]
+        for f in (rc.realtime.IIRFilter(*rc.stream_coefficients()),
+                  rc.realtime.ExponentialAverageFilter(*rc.EMA_S, rc.FS)):
+            for i in range(8):
+                f.process_block(blocks[i * rc.BLOCK:(i + 1) * rc.BLOCK], 0)
+        assert cuda_iir.launches == 0 and cuda_ema.average_launches == 0
+    finally:
+        _config.set_default_device(old)
