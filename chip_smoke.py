@@ -142,6 +142,18 @@ drives the port's paths:
   a QMF crossover against scipy float64; the lattice, warped IIR and
   state-space host loops on 0.1 s; each step timed with its device idle
   share, and `ema.cu`'s average form at (1, 1024) and on one long row.
+- the denoise → compress → evaluate path (`dsptoolbox_tpu_torch.tools.effects_chain`)
+  on the session gated into bursts and the same with white noise: the
+  adaptive and offline spectral subtractors (B1), the compressor (one
+  launch of `ema.cu`'s average form, its gain bit-equal to the plain loop
+  on six windows of the rows, each from the kernel's carry), the effects
+  rack, SNR, SI-SDR (against float64 numpy), the log-spectral and
+  Itakura-Saito distances (B1) and fwSNRseg (the gammatone bank, B3, twice,
+  then B1) of the denoised and compressed session, and the EQ fitted by
+  gradient descent through `Filter` (B2, against scipy float64) and
+  `sosfilt_diff`; B1 and B3 against their plain versions at the path's
+  shapes; each step timed with its device idle share and the phase's peak
+  device memory.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -3328,6 +3340,373 @@ def realtime_phase(dev, card: str) -> dict:
             "launches": launched, "launches_by_step": steps_l, "times": times}
 
 
+def np_snr(clean, processed):
+    """SNR of ``clean`` over ``processed − clean`` per row, float64 numpy."""
+    import numpy as np
+
+    c = np.asarray(clean, np.float64)
+    return 20 * np.log10(c.std(axis=-1) / (np.asarray(processed, np.float64) - c).std(axis=-1))
+
+
+def np_si_sdr(clean, processed):
+    """Scale-invariant SDR per row, float64 numpy."""
+    import numpy as np
+
+    s, shat = np.asarray(clean, np.float64), np.asarray(processed, np.float64)
+    alpha = (s * shat).sum(-1, keepdims=True) / (s * s).sum(-1, keepdims=True)
+    return 10 * np.log10(((alpha * s) ** 2).sum(-1) / ((alpha * s - shat) ** 2).sum(-1))
+
+
+def np_welch64(x, L=1024):
+    """The Welch PSD of each row of ``x`` as the spectral distances take it
+    (Hann, 50 %, each frame's mean removed after the window, the frames'
+    mean of ``|rFFT|²``, the end zero-padded to whole frames), float64
+    numpy."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+    from scipy.signal import get_window
+
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    w, step = get_window("hann", L, fftbins=True), L // 2
+    xp = np.concatenate([x, np.zeros((x.shape[0], L - x.shape[-1] % step))], axis=-1)
+    frames = sliding_window_view(xp, L, axis=-1)[:, ::step] * w
+    frames = frames - frames.mean(-1, keepdims=True)
+    return (np.abs(np.fft.rfft(frames, axis=-1)) ** 2).mean(1)
+
+
+def np_spectral_distances(f, psd_x, psd_y):
+    """``(log-spectral, Itakura-Saito)`` per column of the PSDs ``(F, C)``
+    at ``f``, each energy-normalized, float64 numpy with the Simpson
+    weights of the distances module (the reference's ``log10`` in the
+    Itakura-Saito measure)."""
+    import numpy as np
+
+    from dsptoolbox_tpu_torch.distances.distances import _simpson_weights
+
+    w = _simpson_weights(np.asarray(f, np.float64))
+    x, y = np.asarray(psd_x, np.float64), np.asarray(psd_y, np.float64)
+    r = (x / x.sum(0)) / (y / y.sum(0))
+    return np.sqrt(w @ (10 * np.log10(r)) ** 2), w @ (r - np.log10(r) - 1)
+
+
+def fwsnrseg64(xb, xhb, fs, gamma=0.2, snr_range_db=(-10, 35)):
+    """fwSNRseg (Hu & Loizou) of one channel's gammatone bands ``(bands, T)``
+    of the reference and the processed signal, in float64 on their device:
+    75 ms periodic Hamming frames at 50 %, the end zero-padded to
+    ``ceil(T/step)`` frames, the magnitudes normalized per frame and band,
+    weighted by ``X^gamma``, each frame's SNR clipped to ``snr_range_db``."""
+    import torch
+    from scipy.signal.windows import hamming
+
+    L = int(75e-3 * fs)
+    L += L % 2
+    step, T = L // 2, xb.shape[-1]
+    K = -(-T // step)
+    w = torch.as_tensor(hamming(L, sym=False), dtype=torch.float64, device=xb.device)
+
+    def spectra(b):
+        b = torch.nn.functional.pad(b.double(), (0, (K - 1) * step + L - T))
+        return torch.fft.rfft(b.unfold(-1, L, step) * w, dim=-1).abs()
+
+    X, Xh = spectra(xb), spectra(xhb)
+    W = X**gamma
+    Xn, Xhn = X / X.sum(-1, keepdim=True), Xh / Xh.sum(-1, keepdim=True)
+    del X, Xh
+    eps = 1e-30
+    d = 2 * (torch.log10(Xn + eps) - torch.log10((Xn - Xhn).abs() + eps))
+    frame = (10 * (d * W).sum(0) / W.sum(0)).mean(-1)
+    return float(frame.clamp(*snr_range_db).mean())
+
+
+def effects_phase(dev, card: str) -> dict:
+    """The denoise → compress → evaluate path (`tools/effects_chain.py`) on
+    config 2's 16 × 60 s session: the adaptive spectral subtractor (B1), the
+    offline one (16 activity detections and Welch noise PSDs, B1), the
+    compressor (`csrc/ema.cu`'s average form, one launch), the rack
+    (distortion, tremolo, chorus, delay), the scores of the denoised and the
+    compressed session against the clean one (SNR, SI-SDR, log-spectral and
+    Itakura-Saito on Welch PSDs (B1), fwSNRseg: the gammatone bank (B3)
+    twice, then B1), the EQ fit (200 Adam steps) applied through `Filter`
+    (B2) and `sosfilt_diff` with a gradient, driven by `effects_chain.run`.
+    Counted (every count 0 just before the path, read just after), each
+    step's launches; the compressor's gain (the path's launch, kept by the
+    effect) bit for bit against the EMA kernel's plain loop on six windows
+    of the rows, each started from the kernel's carry; B3's output on all
+    channels against the plain bank four channels at a time, B1 on the
+    subtractor's frames and on fwSNRseg's chunk of channels; the subtractors
+    and the EQ against their plain paths (2e-5 of the peak); SNR and SI-SDR
+    against float64 numpy (1e-5 relative); the Welch PSDs against float64
+    numpy (1e-5 of the peak) and the log-spectral and Itakura-Saito
+    distances against float64 numpy on the card's PSDs (1e-4 relative);
+    fwSNRseg on 2 channels against float64 from the bank's bands (1e-3
+    relative); the EQ against scipy's float64 sosfilt on 2 channels × 10 s
+    (5e-6 of the peak) and `sosfilt_diff` on 1 s (1e-3); the phase's peak
+    device memory under 60 GB; each step timed with CUDA events (median of
+    3 after a warm-up, in turns with the plain paths where they take
+    seconds and fit beside the path's outputs) and its device idle share
+    from one profiled call."""
+    import numpy as np
+    import torch
+    from scipy.signal import sosfilt
+
+    from dsptoolbox_tpu_torch._enums import FilterBankMode, SpectrumMethod
+    from dsptoolbox_tpu_torch.distances.distances import _prepare_psd
+    from dsptoolbox_tpu_torch.effects import _backend as fx
+    from dsptoolbox_tpu_torch.filterbanks import auditory_filters_gammatone
+    from dsptoolbox_tpu_torch.ops import cuda_ema, cuda_framing
+    from dsptoolbox_tpu_torch.tools import effects_chain as ec
+    from dsptoolbox_tpu_torch.tools.profile_chain import profile_call
+
+    label = "effects"
+    t_phase = time.perf_counter()
+    clean, noisy = ec.inputs()
+    torch.cuda.synchronize()
+    C, T = clean.number_of_channels, clean.length_samples
+    fs = clean.sampling_rate_hz
+    print(f"{label}: clean and noisy session {C} x {T} at {fs} Hz made in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    out = {}
+
+    def drive():
+        mods = counted_modules()
+        marks = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks[name] = {k: m.launches for k, m in mods.items()}
+
+        out.update(ec.run(clean, noisy, on_step=mark))
+        return marks
+
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    marks, launched = counted_run(drive)
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"{label}: the path in {time.perf_counter() - t0:.1f} s (first call); launches "
+          f"{launched}; peak device memory above the inputs {peak_gb:.2f} GB (limit 60)")
+    if not peak_gb < 60:
+        fail(f"{label}: the path held {peak_gb:.1f} GB")
+    steps_l, prev = {}, {k: 0 for k in launched}
+    for name, m in marks.items():
+        steps_l[name] = {k: m[k] - prev[k] for k in m if m[k] - prev[k]}
+        prev = m
+    print(f"{label}: launches by step {steps_l}")
+    need = {"adaptive subtractor": ("framing",), "offline subtractor": ("framing",),
+            "compressor": ("ema_carry",), "scores, denoised": ("framing", "iir_bank"),
+            "scores, compressed": ("framing", "iir_bank"), "eq match": ("iir_lead",)}
+    for name, kernels in need.items():
+        if not all(steps_l[name].get(k, 0) > 0 for k in kernels):
+            fail(f"{label}: {name} launched {steps_l[name]}, not all of {kernels}")
+    if steps_l["compressor"] != {"ema_carry": 1}:
+        fail(f"{label}: the compressor launched {steps_l['compressor']}, not one EMA")
+
+    # 1. the compressor's gain (ema.cu's average form, the path's own
+    # launch, kept by the effect): bit for bit against its plain loop on six
+    # windows of the rows, each from the kernel's carry
+    comp = out["compressor"]
+    request, gain = comp._last_gain_request, comp._last_gain
+    a, r = fx.smoothing_coefficients(int(comp.attack_time_ms * 1e-3 * fs),
+                                     int(comp.release_time_ms * 1e-3 * fs))
+    W = 4096
+    ema_err, ema_equal = 0.0, True
+    for s0 in np.linspace(0, T - W, 6).astype(int):
+        carry = gain.new_ones(C) if s0 == 0 else gain[:, s0 - 1]
+        want = cuda_ema.ema_average_plain(request[:, s0:s0 + W], carry, a, r)
+        ema_equal &= torch.equal(want, gain[:, s0:s0 + W])
+        ema_err = max(ema_err, float((want - gain[:, s0:s0 + W]).abs().max()))
+    print(f"{label} compressor: the path's gain, ema.cu's average form on {tuple(gain.shape)}, "
+          f"vs its plain loop on six windows of {W} (each from the kernel's carry) bit-equal "
+          f"{ema_equal} (max abs {ema_err:.1e})")
+    if not ema_equal:
+        fail(f"{label}: the compressor's gain disagrees")
+    ones = gain.new_ones(C)
+    ema_ms = time_pair(lambda: cuda_ema.ema_average_cuda(request, ones, a, r), n=3, warm=1)[0]
+    print(f"time {label} ema.cu average form alone on ({C}, {T}): {ema_ms:.4f} ms [{card}]")
+    del request, gain, comp._last_gain_request, comp._last_gain
+
+    # 2. B1 and B3 against their plain versions at the path's shapes; the
+    # subtractors and the EQ (B2) against their plain paths
+    errs = {}
+
+    def against_plain(name, kernel, got, fn, tol=2e-5):
+        want = plain(fn)
+        err = float((got - want).abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        sc = float(want.abs().max())
+        print(f"{label} {name}: vs its plain version max abs {err:.3e} <= {tol:g} x {sc:.3e}")
+        if not err <= tol * sc:
+            fail(f"{label}: {name} disagrees with its plain version")
+
+    sub = ec.effects.SpectralSubtractor()
+    sub._compute_window(fs)
+    L, step = len(sub.window), sub.step_size
+    xp = torch.nn.functional.pad(noisy._x, (L, L))
+    win = torch.as_tensor(sub.window, dtype=torch.float32, device=dev)
+    against_plain(f"B1 subtractor frames {tuple(xp.shape)} L {L}", "framing",
+                  cuda_framing.windowed_frames_cuda(xp, win, step, False),
+                  lambda: cuda_framing.windowed_frames_plain(xp, win, step, False), 1e-6)
+    del xp
+    fb = auditory_filters_gammatone(ec.FW_RANGE_HZ, 1, fs)
+    nb = len(fb.filters)
+
+    def bands(sig):
+        """The bank's bands of ``sig``, ``(bands, channels, T)``."""
+        return torch.stack([b._x for b in fb.filter_signal(sig, FilterBankMode.Parallel).bands])
+
+    # the bank filters each channel on its own: the kernel's output on all
+    # channels (as fwSNRseg runs it) against the plain bank four channels
+    # at a time
+    b3 = bands(clean)
+    for c0 in range(0, C, 4):
+        idx = list(range(c0, min(c0 + 4, C)))
+        against_plain(f"B3 gammatone bank ({nb} bands x {C} ch x {T}), channels {idx[0]}-"
+                      f"{idx[-1]}", "iir_bank", b3[:, idx[0]:idx[-1] + 1],
+                      lambda: bands(clean.get_channels(idx)), 1e-5)
+        torch.cuda.empty_cache()
+    Lw = int(75e-3 * fs) + int(75e-3 * fs) % 2
+    from scipy.signal.windows import hamming
+
+    from dsptoolbox_tpu_torch.distances.distances import FW_CHUNK_BYTES
+
+    # fwSNRseg frames (channels, bands, T) chunks of FW_CHUNK_BYTES of frames
+    chunk = max(1, FW_CHUNK_BYTES // (nb * -(-T // (Lw // 2)) * Lw * 4))
+    xb = b3[:, :chunk].transpose(0, 1).contiguous()
+    w_fw = torch.as_tensor(hamming(Lw, sym=False), dtype=torch.float32, device=dev)
+    against_plain(f"B1 fwSNRseg frames {tuple(xb.shape)} L {Lw}", "framing",
+                  cuda_framing.windowed_frames_cuda(xb, w_fw, Lw // 2, False),
+                  lambda: cuda_framing.windowed_frames_plain(xb, w_fw, Lw // 2, False), 1e-6)
+    # fwSNRseg on 2 channels against float64 from the bank's bands (B3)
+    ref2 = b3[:, :2].clone()
+    del xb, b3
+    torch.cuda.empty_cache()
+    for what, sig in (("denoised", out["adaptive"]), ("compressed", out["compressed"])):
+        hb = bands(sig.get_channels([0, 1]))
+        want = np.array([fwsnrseg64(ref2[:, ch], hb[:, ch], fs) for ch in range(2)])
+        got = out[f"scores_{what}"]["fw_snr_seg"][:2]
+        e_fw = float(np.max(np.abs(got / want - 1)))
+        print(f"{label} fwSNRseg, {what}, channels 0-1: {got.tolist()} dB vs float64 from the "
+              f"bank's bands {want.tolist()} dB: {e_fw:.2e} relative (tol 1e-3)")
+        if not e_fw <= 1e-3:
+            fail(f"{label}: fwSNRseg of the {what} session disagrees with float64")
+        del hb
+        torch.cuda.empty_cache()
+    del ref2
+    against_plain("adaptive subtractor (B1)", "path", out["adaptive"]._x,
+                  lambda: ec.denoise(noisy)._x)
+    against_plain("offline subtractor (B1)", "path", out["offline"]._x,
+                  lambda: ec.denoise(noisy, False)._x)
+    eq = out["eq"]
+    against_plain("fitted EQ through Filter (B2)", "iir_lead", eq["equalized"]._x,
+                  lambda: eq["filter"].filter_signal(out["adaptive"])._x)
+
+    # 3. scores against float64 numpy; the EQ against scipy float64
+    c64 = clean._x.double().cpu().numpy()
+    for what, sig in (("denoised", out["adaptive"]), ("compressed", out["compressed"])):
+        sc = out[f"scores_{what}"]
+        p64 = sig._x.double().cpu().numpy()
+        e_snr = float(np.max(np.abs(sc["snr"] / np_snr(c64, p64) - 1)))
+        e_sdr = float(np.max(np.abs(sc["si_sdr"] / np_si_sdr(c64, p64) - 1)))
+        print(f"{label} scores, {what}: SNR {np.round(sc['snr'], 3).tolist()} dB (vs float64 "
+              f"numpy {e_snr:.1e}, tol 1e-5), SI-SDR {np.round(sc['si_sdr'], 3).tolist()} dB "
+              f"({e_sdr:.1e}), log-spectral {np.round(sc['log_spectral'], 4).tolist()}, "
+              f"Itakura-Saito {np.round(sc['itakura_saito'], 4).tolist()}, fwSNRseg "
+              f"{np.round(sc['fw_snr_seg'], 3).tolist()} dB")
+        finite = all(np.isfinite(v).all() and v.shape == (C,) for v in sc.values())
+        if not (e_snr <= 1e-5 and e_sdr <= 1e-5 and finite):
+            fail(f"{label}: the {what} scores disagree with float64 numpy")
+        # log-spectral and Itakura-Saito: the card's Welch PSDs (B1) against
+        # float64 numpy's (1e-5 of the peak, each energy-normalized), and the
+        # distances against float64 numpy from the card's PSDs (1e-4
+        # relative). At 48 kHz the range [20, 20000] takes the DC bin,
+        # where a detrended PSD is rounding noise: the distances follow the
+        # PSDs' precision there, so they are held on the same PSDs
+        f, px, py = _prepare_psd(clean, sig, SpectrumMethod.WelchPeriodogram,
+                                 ec.spectral_range(fs), None)
+        f, px, py = np.asarray(f), px.cpu().numpy(), py.cpu().numpy()
+        i0 = int(np.argmin(np.abs(np.fft.rfftfreq(1024, 1 / fs) - f[0])))
+        e_psd = 0.0
+        for a64, p in ((c64, px), (p64, py)):
+            w64 = np_welch64(a64).T[i0:i0 + len(f)]
+            e_psd = max(e_psd, rel_err(p / p.sum(0), w64 / w64.sum(0)))
+        l64, i64 = np_spectral_distances(f, px, py)
+        e_lsd = float(np.max(np.abs(sc["log_spectral"] - l64)) / np.max(np.abs(l64)))
+        e_isd = float(np.max(np.abs(sc["itakura_saito"] - i64)) / np.max(np.abs(i64)))
+        print(f"{label} scores, {what}: Welch PSDs vs float64 numpy {e_psd:.2e} of the peak (tol "
+              f"1e-5); log-spectral {e_lsd:.2e}, Itakura-Saito {e_isd:.2e} vs float64 from the "
+              f"same PSDs (tol 1e-4)")
+        if not (e_psd <= 1e-5 and e_lsd <= 1e-4 and e_isd <= 1e-4):
+            fail(f"{label}: the {what} spectral distances disagree with float64 numpy")
+        del p64, px, py
+    del c64
+    n10 = 10 * fs
+    sos64 = eq["sos"].double().cpu().numpy()
+    x2 = out["adaptive"]._x[:2, :n10].double().cpu().numpy()
+    e_eq = rel_err(eq["equalized"]._x[:2, :n10], sosfilt(sos64, x2, axis=-1))
+    x0 = x2[0, : int(ec.SOSFILT_S * fs)]
+    e_diff = rel_err(eq["sosfilt_diff"], sosfilt(sos64, x0))
+    losses = eq["losses"].cpu().numpy()
+    # sosfilt_diff's float32 doubling squares A 16 times: a fitted section's
+    # pole near the unit circle costs a few 1e-4 of the output's peak
+    print(f"{label} EQ fit: {ec.EQ_SECTIONS} peaking sections, loss {losses[0]:.3e} -> "
+          f"{losses[-1]:.3e} dB^2 in {len(losses)} steps; through Filter (B2) vs scipy float64 "
+          f"on 2 ch x 10 s {e_eq:.3e} of the peak (tol 5e-6); sosfilt_diff on "
+          f"{ec.SOSFILT_S} s vs scipy float64 {e_diff:.3e} of the peak (tol 1e-3), gradient "
+          f"finite {bool(torch.isfinite(eq['grad']).all())}")
+    if not (e_eq <= 5e-6 and e_diff <= 1e-3 and torch.isfinite(eq["grad"]).all()
+            and losses[-1] <= losses[0]):
+        fail(f"{label}: the EQ match disagrees")
+    rack_ok = all(torch.isfinite(s._x).all() for s in out["rack"])
+    print(f"{label} rack: outputs {[tuple(s._x.shape) for s in out['rack']]} finite {rack_ok}")
+    if not rack_ok:
+        fail(f"{label}: the rack's output is not finite")
+
+    # 4. times: each step with CUDA events (in turns with the plain paths
+    # where they take seconds) and its device idle share from one profiled
+    # call
+    fx_rack = ec.rack()
+    den_sig, comp_sig = out["adaptive"], out["compressed"]
+    calls = ec.score_calls(clean, den_sig)
+    steps = {
+        "adaptive subtractor": (lambda: ec.denoise(noisy), True),
+        "offline subtractor": (lambda: ec.denoise(noisy, False), True),
+        "compressor": (lambda: ec.compress(den_sig), False),
+        "distortion": (lambda: fx_rack[0].apply(comp_sig), False),
+        "tremolo": (lambda: fx_rack[1].apply(comp_sig), False),
+        "chorus": (lambda: fx_rack[2].apply(comp_sig), False),
+        "digital delay": (lambda: fx_rack[3].apply(comp_sig), False),
+        "snr": (calls["snr"], False),
+        "si_sdr": (calls["si_sdr"], False),
+        "log_spectral": (calls["log_spectral"], True),
+        "itakura_saito": (calls["itakura_saito"], True),
+        # the plain bank on all 16 channels at once needs a 23 GB temporary
+        # beside the path's outputs: no plain time (it is checked above in
+        # slices of four channels)
+        "fw_snr_seg": (calls["fw_snr_seg"], False),
+        "eq fit (200 Adam steps)": (lambda: ec.eq_match(clean, den_sig), False),
+        "eq through Filter (B2)": (lambda: eq["filter"].filter_signal(den_sig), True),
+    }
+    times = {}
+    for name, (fn, with_plain) in steps.items():
+        ms = time_pair(fn, lambda: plain(fn), n=3, warm=1) if with_plain else \
+            time_pair(fn, n=3, warm=1)
+        r = profile_call(f"{label}: {name}", fn, runs=1, host_calls=1, event_calls=1, warm=0)
+        times[name] = {"ms": ms[0], "plain_ms": ms[1] if with_plain else None,
+                       "idle": r["idle"]}
+        extra = f", plain {ms[1]:.4f} ms" if with_plain else ""
+        print(f"time {label} {name}: {ms[0]:.4f} ms{extra}; device idle share "
+              f"{r['idle']:.4f} [{card}]")
+        torch.cuda.empty_cache()
+    print(f"{label} phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"framing": launched["framing"], "framing_err": errs["framing"],
+            "iir_lead": launched["iir_lead"], "iir_lead_err": errs["iir_lead"],
+            "iir_bank": launched["iir_bank"], "iir_bank_err": errs["iir_bank"],
+            "ema_carry": launched["ema_carry"], "ema_carry_err": ema_err,
+            "ema_carry_ms": ema_ms, "ema_carry_shape": [C, T],
+            "launches": launched, "launches_by_step": steps_l, "times": times,
+            "peak_gb": peak_gb}
+
+
 def main() -> int:
     import torch
 
@@ -3803,6 +4182,12 @@ def main() -> int:
     rt = realtime_phase(dev, card)
     torch.cuda.empty_cache()
 
+    # 53-58. the denoise -> compress -> evaluate path on the session: the
+    # subtractors (B1), the compressor (ema.cu's average form), the rack,
+    # the scores (B1, fwSNRseg's gammatone bank on B3), the EQ fit (B2)
+    fxp = effects_phase(dev, card)
+    torch.cuda.empty_cache()
+
     # 26. the chains through `pipeline`, each captured into one CUDA graph:
     # config 2 (B1), the TF path (B4), config 3 (B3), the crossover bands (B2)
     pl = pipeline_phase(dev, card)
@@ -3811,6 +4196,10 @@ def main() -> int:
     b4["launches"] += pl_launches["banded"]
     b3["launches_by_path"]["pipeline"] = pl_launches["iir_bank"]
     b3["launches"] += pl_launches["iir_bank"]
+    b3["launches_by_path"]["effects"] = fxp["iir_bank"]
+    b3["launches"] += fxp["iir_bank"]
+    b3["max_abs_err_by_path"]["effects"] = fxp["iir_bank_err"]
+    b3["max_abs_err"] = max(b3["max_abs_err"], fxp["iir_bank_err"])
 
     # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
     # band: x·H in fp32, H lower-triangular
@@ -3840,16 +4229,18 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
          "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
                       + c2["framing"] + pl_launches["framing"] + tfa["framing"]
-                      + feat["framing"]),
+                      + feat["framing"] + fxp["framing"]),
          "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
                               "config5": c5["framing"], "config2": c2["framing"],
                               "pipeline": pl_launches["framing"],
-                              "tf_analysis": tfa["framing"], "transforms": feat["framing"]},
+                              "tf_analysis": tfa["framing"], "transforms": feat["framing"],
+                              "effects": fxp["framing"]},
          "max_abs_err": max(b1_err, c2["framing_err"], tfa["framing_err"],
-                            feat["framing_err"]),
+                            feat["framing_err"], fxp["framing_err"]),
          "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"],
                                  "tf_analysis": tfa["framing_err"],
-                                 "transforms": feat["framing_err"]},
+                                 "transforms": feat["framing_err"],
+                                 "effects": fxp["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "by_path_shape": b1_shapes, "config2_times": c2["times"],
@@ -3859,19 +4250,23 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
          "launches": (launches["iir_lead"] + room["iir_lead"] + std["iir_lead"]
                       + pl_launches["iir_lead"] + tfa["iir_lead"] + feat["iir_lead"]
-                      + sess["iir_lead"] + rt["iir_lead"]),
+                      + sess["iir_lead"] + rt["iir_lead"] + fxp["iir_lead"]),
          "launches_by_path": {"chain": launches["iir_lead"], "room": room["iir_lead"],
                               "standard": std["iir_lead"], "pipeline": pl_launches["iir_lead"],
                               "tf_analysis": tfa["iir_lead"], "transforms": feat["iir_lead"],
-                              "session_files": sess["iir_lead"], "realtime": rt["iir_lead"]},
+                              "session_files": sess["iir_lead"], "realtime": rt["iir_lead"],
+                              "effects": fxp["iir_lead"]},
          "max_abs_err": max(b2_err, room["iir_lead_err"], std["iir_lead_err"],
-                            feat["iir_lead_err"], sess["iir_lead_err"], rt["iir_lead_err"]),
+                            feat["iir_lead_err"], sess["iir_lead_err"], rt["iir_lead_err"],
+                            fxp["iir_lead_err"]),
          "max_abs_err_by_path": {"chain": b2_err, "room": room["iir_lead_err"],
                                  "standard": std["iir_lead_err"],
                                  "transforms": feat["iir_lead_err"],
                                  "session_files": sess["iir_lead_err"],
-                                 "realtime": rt["iir_lead_err"]},
+                                 "realtime": rt["iir_lead_err"],
+                                 "effects": fxp["iir_lead_err"]},
          "session_files_times": sess["times"], "realtime_times": rt["times"],
+         "effects_times": fxp["times"],
          "transforms_device_kernels": feat.get("device_kernels"),
          "ms": b2_ms, "plain_ms": b2_plain,
          "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None},
@@ -3900,11 +4295,17 @@ def main() -> int:
         {"name": "ema_average_carry", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/ema.cu",
          "replaces": "dsptoolbox_tpu/realtime/misc.py:71 (lax.scan, no Pallas kernel)",
-         "launches": rt["ema_carry"], "launches_by_path": {"realtime": rt["ema_carry"]},
-         "max_abs_err": rt["ema_carry_err"], "shape": rt["ema_carry_shape"],
+         "launches": rt["ema_carry"] + fxp["ema_carry"],
+         "launches_by_path": {"realtime": rt["ema_carry"], "effects": fxp["ema_carry"]},
+         "max_abs_err": max(rt["ema_carry_err"], fxp["ema_carry_err"]),
+         "max_abs_err_by_path": {"realtime": rt["ema_carry_err"],
+                                 "effects": fxp["ema_carry_err"]},
+         "shape": rt["ema_carry_shape"],
          "ms": rt["ema_carry_ms"], "plain_ms": rt["ema_carry_plain_ms"],
          "bound_ms": rt["ema_carry_bound_ms"], "bound_by": rt["ema_carry_bound_by"],
-         "library_ms": None, "long_row": rt["ema_carry_long_row"]},
+         "library_ms": None, "long_row": rt["ema_carry_long_row"],
+         "effects_compressor": {"shape": fxp["ema_carry_shape"], "ms": fxp["ema_carry_ms"]},
+         "effects_times": fxp["times"], "effects_peak_gb": fxp["peak_gb"]},
     ]}
     # each kernel's captured chains: eager and replay ms, idle shares, pool
     by_kernel = {"windowed_frames": "framing", "sosfilt_lead": "iir_lead",

@@ -17,10 +17,9 @@ a GPU.
 
 The root mirrors the JAX package's (`dsptoolbox_tpu/__init__.py:16-83`):
 the standard functions and enums, the classes, the ported namespaces,
-`pipeline` (a chain of calls as one CUDA graph) and `compute_all`. Not
-ported yet, so not exported: the namespaces ``distances`` and ``effects``
-(A11), ``audio_io`` and ``tools`` (A14; the port's own `tools` package holds
-its run and measurement scripts).
+`pipeline` (a chain of calls as one CUDA graph) and `compute_all`. The
+`tools` namespace is the JAX package's public tools; its submodules hold the
+port's run and measurement scripts and are imported only by name.
 """
 
 from ._config import (
@@ -90,11 +89,15 @@ from .classes import (
     Spectrum,
 )
 
+from . import audio_io
 from . import beamforming
+from . import distances
+from . import effects
 from . import filterbanks
 from . import generators
 from . import plots
 from . import room_acoustics
+from . import tools
 from . import transfer_functions
 from . import transforms
 from .pipeline import pipeline
@@ -158,6 +161,10 @@ __all__ = [
     "transforms",
     "beamforming",
     "plots",
+    "distances",
+    "effects",
+    "audio_io",
+    "tools",
     "default_complex",
     "default_device",
     "default_float",

@@ -20,7 +20,9 @@ package. `BeamformerDASTime` delays and sums in the frequency domain, in
 grid chunks. `MonopoleSource` projects a source onto an array with one
 batched fractional-delay FFT program.
 
-Not ported: the plots and the mesh-parallel map.
+The plots (`BasePoints.plot_points`, the grids' `plot_map`,
+`BaseBeamformer.plot_setting`) draw on `plots` with matplotlib, a map
+fetched to the host once. Not ported: the mesh-parallel map.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from .._config import clean_sc_on_device, default_complex, default_float, device_cache
 from ..classes import Signal
+from ..helpers.gain_and_level import to_db
 from ..helpers.other import (
     find_nearest_points_index_in_vector,
     fractional_octave_bandwidth,
@@ -42,6 +45,13 @@ from ..ops.spectral import _device_window
 from .enums import SteeringVectorType
 
 nxs = np.newaxis
+
+
+def _host_map(map) -> np.ndarray:
+    """A beamformer map as host float64 numpy: one fetch of a tensor."""
+    if torch.is_tensor(map):
+        map = map.detach().cpu()
+    return np.asarray(map, np.float64)
 
 
 class BasePoints:
@@ -112,6 +122,47 @@ class BasePoints:
         )
         return np.sqrt(np.clip(sq, 0.0, None)).squeeze()
 
+    def plot_points(self, projection: str | None = None):
+        """Scatter plot of the points (`beamforming.py:109`): 3D for a
+        3D cloud or ``projection="3d"``, else on its two (or one) varying
+        coordinates."""
+        from ..plots.plots import _plt
+
+        plt = _plt()
+        if projection is not None:
+            projection = projection.lower()
+        if self.ndim == 3 or projection == "3d":
+            projection = "3d"
+            threed = True
+        elif projection in (None, "2d"):
+            threed = False
+            projection = None
+        else:
+            raise ValueError("projection must be 2d, 3d or None")
+        fig, ax = plt.subplots(
+            1, 1, figsize=(7, 5), subplot_kw={"projection": projection}
+        )
+        if threed:
+            ax.scatter(
+                xs=self.coordinates[:, 0],
+                ys=self.coordinates[:, 1],
+                zs=self.coordinates[:, 2],
+            )
+            ax.set_xlabel("$x$ / m")
+            ax.set_ylabel("$y$ / m")
+            ax.set_zlabel("$z$ / m")
+        else:
+            helper = dict(x=0, y=1, z=2)
+            dim1 = helper[self.dim[0]]
+            dim2 = dim1 - 1 if self.ndim == 1 else helper[self.dim[1]]
+            ax.scatter(
+                x=self.coordinates[:, dim1], y=self.coordinates[:, dim2]
+            )
+            ax.set_xlabel(f"${self.dim[0]}$ / m")
+            ax.set_ylabel(f"${['x', 'y', 'z'][dim2]}$ / m")
+        fig.tight_layout()
+        return fig, ax
+
     def find_nearest_point(self, point):
         point = np.asarray(point).squeeze()
         assert point.ndim == 1, (
@@ -159,6 +210,28 @@ class Regular2DGrid(Grid):
         )
         return map_vector.reshape(self.original_lengths)
 
+    def plot_map(self, map, range_db: float = 20):
+        """The map in dB over the grid's plane (`beamforming.py:194`):
+        ``map`` a tensor or numpy, flat or in the grid's shape."""
+        from ..plots import general_matrix_plot
+
+        map = _host_map(map)
+        if map.ndim == 1:
+            map = self.reconstruct_map_shape(map)
+        ex = self.extent
+        return general_matrix_plot(
+            to_db(map, False, 500),
+            range_x=ex[self.dimensions_grid[1]],
+            range_y=ex[self.dimensions_grid[0]],
+            range_z=range_db,
+            xlabel=self.dimensions_grid[1] + " / m",
+            ylabel=self.dimensions_grid[0] + " / m",
+            zlabel="dBFS",
+            colorbar=True,
+            lower_origin=True,
+        )
+
+
 class Regular3DGrid(Grid):
     """Regular 3D grid (`beamforming.py:218-366`)."""
 
@@ -188,6 +261,52 @@ class Regular3DGrid(Grid):
             "Length of passed vector does not match the number of points"
         )
         return map_vector.reshape(self.original_lengths)
+
+    def plot_map(
+        self,
+        map,
+        third_dimension: str,
+        value_third_dimension: float,
+        range_db: float = 20,
+    ):
+        """The map in dB on the grid's slice nearest
+        ``value_third_dimension`` along ``third_dimension``
+        (`beamforming.py:243`)."""
+        from ..plots import general_matrix_plot
+
+        map = _host_map(map)
+        if map.ndim == 1 and len(map) == self.number_of_points:
+            map = self.reconstruct_map_shape(map)
+        assert map.shape == self.original_lengths, (
+            "Map shape does not match grid shape"
+        )
+        if third_dimension == "x":
+            ind = np.argmin(np.abs(value_third_dimension - self.lines[0]))
+            map = map[ind, :, :]
+            extent_dimensions = ["y", "z"]
+        elif third_dimension == "y":
+            ind = np.argmin(np.abs(value_third_dimension - self.lines[1]))
+            map = map[:, ind, :]
+            extent_dimensions = ["x", "z"]
+        elif third_dimension == "z":
+            ind = np.argmin(np.abs(value_third_dimension - self.lines[2]))
+            map = map[:, :, ind]
+            extent_dimensions = ["x", "y"]
+        else:
+            raise ValueError(f"{third_dimension} is not a valid dimension")
+        ex = self.extent
+        return general_matrix_plot(
+            to_db(map, False, 500),
+            range_x=ex[extent_dimensions[1]],
+            range_y=ex[extent_dimensions[0]],
+            range_z=range_db,
+            xlabel=extent_dimensions[1] + " / m",
+            ylabel=extent_dimensions[0] + " / m",
+            zlabel="dBFS",
+            colorbar=True,
+            lower_origin=True,
+        )
+
 
 class LineGrid(Grid):
     """Line grid along a coordinate (`beamforming.py:368-424`)."""
@@ -476,6 +595,38 @@ class BaseBeamformer:
         self.mics = mic_array
         self.c = c
         self.beamformer_type = "Base"
+
+    def plot_setting(self):
+        """The microphones, the grid (where there is one) and the
+        array's centre microphone in 3D (`beamforming.py:582`)."""
+        from ..plots.plots import _plt
+
+        plt = _plt()
+        fig, ax = plt.subplots(
+            1, 1, figsize=(8, 5), subplot_kw={"projection": "3d"}
+        )
+        ax.scatter(
+            self.mics.coordinates[:, 0],
+            self.mics.coordinates[:, 1],
+            self.mics.coordinates[:, 2],
+        )
+        if getattr(self, "grid", None) is not None:
+            ax.scatter(
+                self.grid.coordinates[:, 0],
+                self.grid.coordinates[:, 1],
+                self.grid.coordinates[:, 2],
+            )
+        ax.scatter(
+            self.mics.array_center_coordinates[0],
+            self.mics.array_center_coordinates[1],
+            self.mics.array_center_coordinates[2],
+            c="xkcd:dark green",
+        )
+        ax.set_xlabel("$x$ / m")
+        ax.set_ylabel("$y$ / m")
+        ax.set_zlabel("$z$ / m")
+        ax.legend(["Mic Array", "Grid", "Center Mic"])
+        return fig, ax
 
     def get_frequency_range_from_he(self, range_he=[4, 10]) -> list:
         assert len(range_he) == 2, "Range in He should have length two"

@@ -1263,3 +1263,37 @@ def test_realtime_filters_launch_their_kernels_and_match_plain(dev):
     carry = torch.cat([e.new_zeros(1), e.reshape(45, 1024)[:-1, -1]])
     assert torch.equal(cuda_ema.ema_average_plain(blocks, carry, ema.increase_coefficient,
                                                   ema.decrease_coefficient).reshape(-1), e)
+
+
+def test_compressor_gain_is_the_ema_kernel_average(dev):
+    """The compressor's gain smoother on the card: `gain_request`, then
+    `csrc/ema.cu`'s average form from a gain of 1 (one launch), equal bit
+    for bit to its plain loop on the same requests; the compressed rows are
+    the rows times that gain; the effect launches the kernel once and
+    matches its plain path (2e-5 of the peak)."""
+    from dsptoolbox_tpu_torch import effects
+    from dsptoolbox_tpu_torch.effects import _backend as fx
+    from dsptoolbox_tpu_torch.ops import cuda_ema
+
+    rng = np.random.default_rng(15)
+    env = np.repeat(rng.uniform(0.01, 1.0, (2, 24)), 1000, axis=1)
+    rows = torch.from_numpy((rng.standard_normal((2, 24000)) * env).astype(np.float32)).to(dev)
+    a, r = fx.smoothing_coefficients(240, 2400)
+    request = fx.gain_request(rows, -20, 4, 6, True)
+    before = cuda_ema.average_launches
+    gain = cuda_ema.ema_average(request, rows.new_ones(2), a, r)
+    y = fx.compressor_core(rows.T, -20, 4, 6, 240, 2400, 1.0, True)
+    torch.cuda.synchronize()
+    assert cuda_ema.average_launches == before + 2
+    want = cuda_ema.ema_average_plain(request.cpu(), torch.ones(2), a, r)
+    assert torch.equal(gain.cpu(), want)
+    assert torch.equal(y.T, rows * gain)
+    s = Signal(None, rows.T, 48000)
+    comp = effects.Compressor(-20, 5, 50, 4)
+    before = cuda_ema.average_launches
+    got = comp.apply(s)._x
+    torch.cuda.synchronize()
+    assert cuda_ema.average_launches == before + 1
+    with _config.kernels_off():
+        plain = comp.apply(s)._x
+    assert _rel(got, plain) <= 2e-5

@@ -55,6 +55,11 @@ def test_import_leaves_jax_out_and_needs_no_triton():
         "import dsptoolbox_tpu_torch.realtime, dsptoolbox_tpu_torch.realtime.designers\n"
         "import dsptoolbox_tpu_torch.classes.lattice_ladder_filter\n"
         "import dsptoolbox_tpu_torch.filterbanks.crossovers, dsptoolbox_tpu_torch.tools.realtime_chain\n"
+        "import dsptoolbox_tpu_torch.effects, dsptoolbox_tpu_torch.distances\n"
+        "import dsptoolbox_tpu_torch.audio_io, dsptoolbox_tpu_torch.ops.differentiable\n"
+        "import dsptoolbox_tpu_torch.ops.prefix, dsptoolbox_tpu_torch.tools.public\n"
+        "import dsptoolbox_tpu_torch.tools.effects_chain\n"
+        "assert 'sounddevice' not in sys.modules  # imported at the first audio call only\n"
         "assert not any(m.startswith('dsptoolbox_tpu_torch._build') for m in sys.modules)\n"
         "assert 'matplotlib' not in sys.modules  # imported at the first plot only\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -72,7 +77,7 @@ def test_import_leaves_jax_out_and_needs_no_triton():
 
 @pytest.mark.parametrize(
     "first", ["classes", "filterbanks", "standard", "generators", "transforms", "plots",
-              "realtime"])
+              "realtime", "effects", "distances", "audio_io", "tools", "ops"])
 def test_each_layer_imports_first(first):
     """No import cycle: the layers below `standard` take the enums from the
     leaf module `_enums`, so any of them may be the first import."""
@@ -294,13 +299,10 @@ def test_default_device_is_cuda_and_numpy_follows_it():
             Signal(None, x, 48000)
 
 
-# the JAX package's names that wait, each beside its ROADMAP queue item:
-# at the root the namespaces and modules not ported yet (`tools` is the JAX
-# package's `tools.py`; the port's own `tools` package holds its run and
-# measurement scripts)
+# the JAX package's names that wait, each beside its ROADMAP queue item: in
+# a namespace, and at the root the namespaces and modules not ported yet
 WAITING: dict = {}
-WAITING_ROOT = {**WAITING, "distances": "A11", "effects": "A11",
-                "audio_io": "A14", "tools": "A14"}
+WAITING_ROOT: dict = {**WAITING}
 # the port's own exports: the steering factors as tensors on a device; at
 # the root, the device and kernel switches of `_config`
 PORT_ONLY = {
@@ -312,7 +314,8 @@ PORT_ONLY = {
 
 @pytest.mark.parametrize("namespace", ["standard", "generators", "beamforming",
                                        "transfer_functions", "transforms", "plots", "helpers",
-                                       "io", "filterbanks", "realtime",
+                                       "io", "filterbanks", "realtime", "effects",
+                                       "distances", "audio_io", "tools", "ops",
                                        pytest.param("", id="root")])
 def test_exports_match_the_jax_package(namespace):
     """Each namespace (and, for "", the package's root) exports the JAX
@@ -554,4 +557,44 @@ def test_realtime_chain_launches_no_kernel_on_cpu_tensors():
                 f.process_block(blocks[i * rc.BLOCK:(i + 1) * rc.BLOCK], 0)
         assert cuda_iir.launches == 0 and cuda_ema.average_launches == 0
     finally:
+        _config.set_default_device(old)
+
+
+def test_effects_chain_launches_no_kernel_on_cpu_tensors():
+    """The effects path (`tools.effects_chain`: both subtractor modes, the
+    compressor, the rack, the scores with fwSNRseg's gammatone bank, the EQ
+    fit through `Filter` and `sosfilt_diff`) on CPU tensors takes the plain
+    versions: B1, B2, B3 and the EMA kernel's average form count no launch;
+    under the EMA kernel's "on" the compressor raises, under the bank's
+    "on" fwSNRseg."""
+    from dsptoolbox_tpu_torch import distances
+    from dsptoolbox_tpu_torch.ops import cuda_ema, cuda_iir_bank
+    from dsptoolbox_tpu_torch.tools import effects_chain as ec
+
+    old = _config.default_device()
+    _config.set_default_device("cpu")
+    try:
+        for m in (cuda_framing, cuda_iir, cuda_iir_bank):
+            m.launches = 0
+        cuda_ema.average_launches = 0
+        clean, noisy = ec.inputs(2, 0.5, fs=16000)
+        steps = []
+        out = ec.run(clean, noisy, (100.0, 4000.0), on_step=steps.append)
+        assert steps == ["adaptive subtractor", "offline subtractor", "compressor", "rack",
+                         "scores, denoised", "scores, compressed", "eq match"]
+        assert out["compressor"]._last_gain.shape == clean._x.shape
+        assert out["eq"]["equalized"].device.type == "cpu"
+        assert all(r.device.type == "cpu" for r in out["rack"])
+        assert (cuda_framing.launches, cuda_iir.launches, cuda_iir_bank.launches,
+                cuda_ema.average_launches) == (0, 0, 0, 0)
+        _config.set_ema_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            ec.compress(out["adaptive"])
+        _config.set_ema_kernel("auto")
+        _config.set_bank_kernel("on")
+        with pytest.raises(ValueError, match="CUDA"):
+            distances.fw_snr_seg(clean, out["adaptive"], f_range_hz=[100, 4000])
+    finally:
+        _config.set_ema_kernel("auto")
+        _config.set_bank_kernel("auto")
         _config.set_default_device(old)

@@ -81,3 +81,33 @@ def test_transforms_plot_by_default():
     assert ax.name == "3d" and len(ax.collections) == 1
     with pytest.raises(AssertionError):
         transforms.plot_waterfall(s, dynamic_range_db=0)
+
+
+def test_beamformer_plots():
+    """The beamformers' four plots (`beamforming.py:109,194,243,582` of the
+    JAX package): the array's points in 2D and 3D, a 2D grid's map from a
+    tensor map (flat and shaped), a 3D grid's slices and the setting of a
+    DAS beamformer on a small grid."""
+    from dsptoolbox_tpu_torch.beamforming import LineGrid, Regular2DGrid, Regular3DGrid
+    from dsptoolbox_tpu_torch.tools import camera
+
+    mics = camera.planar_array()
+    line = np.linspace(-0.3, 0.3, 5)
+    g = Regular2DGrid(line, line, ["x", "y"], value3=0.5)
+    sig = camera.array_signal(0.05, 16000, "cpu", g)
+    beam = camera.beamformer(sig, g)
+    m = beam.get_beamformer_map(2000, 3)
+    assert torch.is_tensor(m) and m.shape == (5, 5)
+    figs = [mics.plot_points()[0], mics.plot_points("3d")[0],
+            LineGrid(line, "x", 0.0, 0.5).plot_points()[0],
+            g.plot_map(m)[0], g.plot_map(m.reshape(-1).numpy(), range_db=10)[0],
+            beam.plot_setting()[0]]
+    g3 = Regular3DGrid(line, line[:3], line[:4])
+    m3 = torch.rand(g3.number_of_points, dtype=torch.float64)
+    figs += [g3.plot_map(m3, d, 0.1)[0] for d in ("x", "y", "z")]
+    figs.append(g3.plot_points()[0])
+    assert len(figs) == 10 and all(f.axes for f in figs)
+    with pytest.raises(ValueError):
+        g3.plot_map(m3, "w", 0.0)
+    with pytest.raises(ValueError):
+        mics.plot_points("4d")
