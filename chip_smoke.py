@@ -154,6 +154,17 @@ drives the port's paths:
   `sosfilt_diff`; B1 and B3 against their plain versions at the path's
   shapes; each step timed with its device idle share and the phase's peak
   device memory.
+- the parallel layer and every ``mesh=`` keyword (`dsptoolbox_tpu_torch.parallel`)
+  on a mesh of four shards of the one card and on `device_mesh()`: the
+  session's CSM, Welch, STFT, time-parallel Welch, FIR and energy (B1 a
+  shard), the 31-band 1/3-octave bank in Parallel and Summed mode (B3 a
+  shard), config 5's map with and without the diagonal removal and the
+  513-bin DAS sweep (B5 a shard), config 4's fleet and config 2 (a) through
+  `pipeline(mesh=)`, each against the single-device call (and the bank
+  against scipy float64), counted, timed sharded and single, with the
+  phase's peak device memory; float64 mode's `Filter` against scipy (bit for
+  bit, no B2) and the session's lazy spectrogram through `istft` without a
+  host copy.
 
 Kernels and paths are timed with CUDA events. Prints a JSON line of
 per-kernel results (with each kernel's bound: the larger of its bytes over
@@ -195,6 +206,10 @@ DAS_RAGGED = ((13, 9, 20), (5, 25, 130))
 DAS_ANY_CSM = ((10, 64, 900), (30, 64, 900), (2, 1, 5), (3, 160, 70), (30, 160, 900))
 # B5 timed against its plain version at M = 160
 DAS_M160 = ((3, 160, 70), (30, 160, 900))
+# the mesh phase: shards on the one card, and the session cut for the
+# time-parallel STFT (each shard a whole number of hops of 512)
+MESH_SHARDS = 4
+MESH_STFT_T = 4 * 703 * 1024
 # config 5's maps (`tools/camera.map_calls`): B5 launches a map, and the
 # bound of each against its float64 oracle and the plain paths (scale-
 # relative; Orthogonal against the float64 maps of its own picks)
@@ -457,7 +472,7 @@ def measurement_phase(dev, rng) -> tuple:
     # (the sum's relative error over that floor)
     build_plan(6)
     u32 = 2.0**-24
-    sp = win.get_spectrum()[1]
+    sp = win.get_spectrum(return_device=True)[1]
     phi = unwrap(sp.angle(), dim=0)
     R = float(phi.abs().max())
     phi64 = np.unwrap(np.angle(sp64), axis=0)
@@ -1570,8 +1585,9 @@ def config2_phase(dev, card: str) -> dict:
             fail(f"{label}: the Welch CSM disagrees with float64 numpy")
         two = append_signals([sig.get_channels(sub), y.get_channels(sub)])
         two.set_spectrum_parameters(method=SpectrumMethod.FFT)
-        fft_csm = two.get_csm()[1]
-        err_p = rel_err(fft_csm, plain(lambda: two.get_csm(force_computation=True)[1]))
+        fft_csm = two.get_csm(return_device=True)[1].complex_device()
+        err_p = rel_err(fft_csm, plain(lambda: two.get_csm(
+            force_computation=True, return_device=True)[1].complex_device()))
         err_64 = rel_err(fft_csm, np_csm_fft(both64, next_fast_len(T, True)))
         print(f"{label} FFT-method CSM ({len(idx)} channels, {fft_csm.shape[0]} bins): vs "
               f"plain paths scale-rel {err_p:.3e} (tol 2e-5), vs float64 numpy {err_64:.3e} "
@@ -3707,6 +3723,321 @@ def effects_phase(dev, card: str) -> dict:
             "peak_gb": peak_gb}
 
 
+def device_rel_err(got, want) -> float:
+    """`rel_err` on the tensors' device, in float64 (complex128): no host
+    copy of large outputs."""
+    import torch
+
+    dt = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    scale = float(want.abs().max()) or 1.0
+    return float((got.to(dt) - want.to(dt)).abs().max()) / scale
+
+
+def mesh_phase(dev, card: str) -> dict:
+    """The ``parallel`` layer and every ``mesh=`` keyword at full width, on
+    `MESH_SHARDS` shards of the one card (`Mesh([dev] × 4)`: each shard's
+    work issued in turn, the collectives as tensor moves on the card) and
+    on `device_mesh()` (one device: the single-device path): config 2's 16
+    × 60 s session through `get_csm(mesh=)` and `parallel_welch` (4
+    channels a shard, B1), `parallel_stft` and `parallel_welch_time` (STFT
+    1024/50 %, the session cut to `MESH_STFT_T` samples: each shard must
+    hold whole hops), `parallel_fir_filter` with a room IR and
+    `sharded_map_reduce`'s energy; the 31-band 1/3-octave bank (order 8)
+    through `FilterBank.filter_signal(mesh=)`, Parallel and Summed (padded
+    to 32 bands, B3 a shard); config 5's map (64 mics, 30 × 30 points, 2 kHz
+    third octave) through `get_beamformer_map(mesh=)` with and without the
+    diagonal removal and `parallel_das_map` on the (513, 64, 900) sweep (B5
+    a shard); config 4's 1000 × 8000 fleet through
+    `parallel_batch_descriptors`; config 2 (a) through `pipeline(mesh=)`.
+    Each path against the port's single-device call (2e-5 scale-relative;
+    the maps' argmax equal; bit-equality printed) and, where it runs a
+    kernel, against that call on the plain versions (`plain`, the same
+    tolerance; its max abs error joins the kernel's), the bank also against
+    scipy's float64 sosfilt on channel 0 (5e-6), counted (every count 0 just
+    before the mesh call, read just after: B1, B3 and B5 at least once a
+    shard), timed sharded and single (CUDA events, median, in turns: the
+    sharding's cost on one card, not a speed-up), with the phase's peak
+    device memory. Also once on the card: float64 mode's `Filter` on a card
+    signal stays on the card on the torch float64 path (scipy's route is for
+    CPU signals only, `classes.filter_helpers._oracle_exact_f64`) and meets
+    scipy's float64 sosfilt at 5e-6 scale-relative with no B2 launch, and
+    the session's lazy spectrogram through `transforms.istft` without a
+    host copy."""
+    import numpy as np
+    import torch
+    from scipy.signal import sosfilt
+
+    from dsptoolbox_tpu_torch import _config, parallel, pipeline
+    from dsptoolbox_tpu_torch._enums import FilterBankMode, FilterPassType
+    from dsptoolbox_tpu_torch.classes import Filter, FilterBank, Signal
+    from dsptoolbox_tpu_torch.ops import cuda_das
+    from dsptoolbox_tpu_torch.ops.fft_conv import fft_convolve
+    from dsptoolbox_tpu_torch.ops.spectral import stft, welch
+    from dsptoolbox_tpu_torch.room_acoustics.batch import batch_descriptors
+    from dsptoolbox_tpu_torch.tools import camera, feature_chain as fc
+    from dsptoolbox_tpu_torch.tools import measurement as ms
+    from dsptoolbox_tpu_torch.tools import room_measurement as rm
+    from dsptoolbox_tpu_torch.tools import speech_chain as sc
+    from dsptoolbox_tpu_torch.transforms import istft
+
+    label = "mesh"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    devs = np.empty(MESH_SHARDS, dtype=object)
+    devs[:] = [dev] * MESH_SHARDS
+    mesh = parallel.Mesh(devs, ("dp",))
+    one = parallel.device_mesh()
+    print(f"{label}: {mesh}; device_mesh() = {one}")
+    if one.devices.size != torch.cuda.device_count():
+        fail("device_mesh() does not hold every card")
+    launched, errs, times, bit_equal, plain_errs = {}, {}, {}, {}, {}
+    K = ("framing", "iir_bank", "das_map")
+    shards = MESH_SHARDS
+
+    def pairs_of(got, want):
+        if isinstance(got, dict):
+            return list(zip(got.values(), want.values()))
+        return [(got, want)]
+
+    def check(name, got, want, kernel=None, tol=2e-5, plain_want=None):
+        """The mesh call's outputs ``got`` against the single-device call's
+        ``want`` (tensors, or dicts of them), and, for a path through
+        ``kernel``, against ``plain_want``, the single-device call with
+        every kernel switched off (`plain`), both at ``tol`` scale-relative
+        (each tensor to its own peak); counted launches of ``kernel`` at
+        least once a shard. The max abs error against the plain call joins
+        the kernel's ``max_abs_err``."""
+        pairs = pairs_of(got, want)
+        err = max(device_rel_err(g, w) for g, w in pairs)
+        same = all(torch.equal(g, w) for g, w in pairs)
+        errs[name], bit_equal[name] = err, same
+        n = launched[name].get(kernel, 0) if kernel else None
+        print(f"{label} {name}: scale-rel err vs single device {err:.3e} (tol {tol:.0e}); "
+              f"bit-equal {same}; launches {launched[name]}")
+        if not err <= tol:
+            fail(f"{label} {name}: disagrees with the single-device call")
+        if kernel:
+            pairs = pairs_of(got, plain_want)
+            p_err = max(device_rel_err(g, w) for g, w in pairs)
+            plain_errs[name] = max(float((g - w).abs().max()) for g, w in pairs)
+            print(f"{label} {name}: vs the plain single-device call scale-rel {p_err:.3e} "
+                  f"(tol {tol:.0e}), max abs {plain_errs[name]:.3e}")
+            if not p_err <= tol:
+                fail(f"{label} {name}: disagrees with the plain single-device call")
+            if n < shards:
+                fail(f"{label} {name}: {kernel} launched {n} times, fewer than {shards} shards")
+
+    def timed(name, sharded, single, n=5):
+        ms_, ss_ = time_pair(sharded, single, n=n, warm=1)
+        times[name] = {"sharded_ms": ms_, "single_ms": ss_}
+        print(f"time {label} {name}: sharded ({shards} shards, one card) {ms_:.4f} ms, "
+              f"single device {ss_:.4f} ms [{card}]")
+        torch.cuda.empty_cache()
+
+    # 1. config 2's session: channel-parallel CSM and Welch, time-parallel
+    # STFT and Welch, the FIR with a room IR, the energy by map-reduce
+    sig = sc.signal(*sc.MINUTE)
+    x = sig._x
+    C, T = x.shape
+    fs = sig.sampling_rate_hz
+    csm_p = plain(sig._csm)[1]
+    sig._cache.pop("csm")
+    f_s, csm_s = sig._csm()
+    got, launched["csm"] = counted_run(lambda: sig.get_csm(mesh=mesh, return_device=False))
+    check("csm", got[1].device_tensor(), csm_s, "framing", plain_want=csm_p)
+    timed("csm", lambda: sig.get_csm(mesh=mesh), lambda: sig.get_csm(force_computation=True))
+    one_csm = sig.get_csm(mesh=one, return_device=False)[1].device_tensor()
+    if not torch.equal(one_csm, sig._csm()[1]):
+        fail(f"{label}: get_csm on device_mesh() differs from no mesh")
+    del got, csm_s, csm_p, one_csm
+    welch_kw = dict(sampling_rate_hz=fs, window_length_samples=sc.WINDOW)
+    got, launched["welch"] = counted_run(lambda: parallel.parallel_welch(x, mesh, **welch_kw))
+    check("welch", got, welch(x, **welch_kw), "framing",
+          plain_want=plain(lambda: welch(x, **welch_kw)))
+    timed("welch", lambda: parallel.parallel_welch(x, mesh, **welch_kw),
+          lambda: welch(x, **welch_kw))
+    xt = x[:, :MESH_STFT_T]
+    print(f"{label}: STFT and time-parallel Welch on {tuple(xt.shape)}: the session cut "
+          f"from {T} to {MESH_STFT_T} samples ({shards} x {MESH_STFT_T // shards // 1024} x "
+          "1024: whole hops a shard)")
+    got, launched["stft"] = counted_run(lambda: parallel.parallel_stft(xt, mesh, **welch_kw)[2])
+    want = stft(xt, padding=False, **welch_kw)[2]
+    want_p = plain(lambda: stft(xt, padding=False, **welch_kw)[2])
+    check("stft", got, want, "framing", plain_want=want_p)
+    del got, want, want_p
+    timed("stft", lambda: parallel.parallel_stft(xt, mesh, **welch_kw),
+          lambda: stft(xt, padding=False, **welch_kw))
+    got, launched["welch_time"] = counted_run(
+        lambda: parallel.parallel_welch_time(xt, mesh, **welch_kw))
+    check("welch_time", got, welch(xt, **welch_kw), "framing",
+          plain_want=plain(lambda: welch(xt, **welch_kw)))
+    timed("welch_time", lambda: parallel.parallel_welch_time(xt, mesh, **welch_kw),
+          lambda: welch(xt, **welch_kw))
+    h = ms.room_irs(0)[0][:, 0]
+    hd = torch.as_tensor(h, dtype=torch.float32, device=dev)
+    got, launched["fir"] = counted_run(lambda: parallel.parallel_fir_filter(h, x, mesh))
+    check("fir", got, fft_convolve(x, hd)[..., :T])
+    timed("fir", lambda: parallel.parallel_fir_filter(h, x, mesh),
+          lambda: fft_convolve(x, hd)[..., :T])
+    del got
+
+    def energy(row):
+        return torch.sum(row.double() ** 2)
+
+    got, launched["energy"] = counted_run(
+        lambda: parallel.sharded_map_reduce(energy, x, mesh, reduce="sum"))
+    check("energy", got, torch.sum(x.double() ** 2))
+    timed("energy", lambda: parallel.sharded_map_reduce(energy, x, mesh, reduce="sum"),
+          lambda: torch.sum(x.double() ** 2))
+
+    # 2. the 31-band 1/3-octave bank (order 8), Parallel and Summed, padded
+    # to 32 bands on 4 shards
+    factor = 2 ** (1 / 6)
+    fb = FilterBank([Filter.iir_filter(fc.BANK_ORDER, [f / factor, f * factor],
+                                       FilterPassType.Bandpass, fs) for f in fc.THIRD_OCTAVES])
+    bands_s = fb.filter_signal(sig, FilterBankMode.Parallel)
+    bands_p = plain(lambda: fb.filter_signal(sig, FilterBankMode.Parallel))
+    bands, launched["bank_parallel"] = counted_run(
+        lambda: fb.filter_signal(sig, FilterBankMode.Parallel, mesh=mesh))
+    check("bank_parallel", {i: b._x for i, b in enumerate(bands.bands)},
+          {i: b._x for i, b in enumerate(bands_s.bands)}, "iir_bank",
+          plain_want={i: b._x for i, b in enumerate(bands_p.bands)})
+    del bands_p
+    x0 = x[0].double().cpu().numpy()
+    sc_err = 0.0
+    for i in range(0, len(fb.filters), 5):
+        sc_err = max(sc_err, device_rel_err(
+            bands.bands[i]._x[0], torch.from_numpy(sosfilt(fb.filters[i].sos, x0)).to(dev)))
+    errs["bank_scipy"] = sc_err
+    print(f"{label} bank_parallel bands 0, 5, ..., 30, channel 0 vs scipy float64 sosfilt: "
+          f"scale-rel {sc_err:.3e} (tol 5e-6)")
+    if not sc_err <= 5e-6:
+        fail(f"{label}: the sharded bank disagrees with scipy")
+    del bands, bands_s
+    torch.cuda.empty_cache()
+    summed_s = fb.filter_signal(sig, FilterBankMode.Summed)._x
+    summed_p = plain(lambda: fb.filter_signal(sig, FilterBankMode.Summed)._x)
+    summed, launched["bank_summed"] = counted_run(
+        lambda: fb.filter_signal(sig, FilterBankMode.Summed, mesh=mesh)._x)
+    check("bank_summed", summed, summed_s, "iir_bank", plain_want=summed_p)
+    del summed, summed_s, summed_p
+    torch.cuda.empty_cache()
+    timed("bank_parallel", lambda: fb.filter_signal(sig, FilterBankMode.Parallel, mesh=mesh),
+          lambda: fb.filter_signal(sig, FilterBankMode.Parallel), n=3)
+    timed("bank_summed", lambda: fb.filter_signal(sig, FilterBankMode.Summed, mesh=mesh),
+          lambda: fb.filter_signal(sig, FilterBankMode.Summed), n=3)
+
+    # 3. lazy getters on the card: the session's spectrogram through istft
+    # without a host copy; a spectrum read on the host equals its tensor
+    t_, f_, S = sig.get_spectrogram()
+    y = istft(S, original_signal=sig)
+    torch.cuda.synchronize()
+    rt = float((y._x - x).abs().max())
+    print(f"{label} lazy spectrogram {S.shape} {S.dtype} through istft: materialized "
+          f"{S.is_materialized}; round trip max abs {rt:.3e} (tol 1e-5)")
+    if S.is_materialized or not rt <= 1e-5:
+        fail(f"{label}: istft fetched the lazy spectrogram or missed the round trip")
+    _, sp = sig.get_spectrum()
+    if not np.array_equal(np.asarray(sp), sig.get_spectrum(return_device=True)[1].cpu().numpy()):
+        fail(f"{label}: a lazy spectrum read on the host differs from its tensor")
+    del S, y, sp, sig, x, xt
+    torch.cuda.empty_cache()
+
+    # 4. config 5's map, grid-parallel; B5 on the full sweep, sharded
+    g = camera.grid()
+    seconds, cam_fs = CAMERA_RUNS[-1]
+    beam = camera.beamformer(camera.array_signal(seconds, cam_fs, dev, g), g)
+    beam.signal.get_csm()  # the single-device CSM, shared by both maps
+    for rd in (True, False):
+        name = f"das_map remove_diag={rd}"
+        want = beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION,
+                                       remove_csm_diagonal=rd)
+        want_p = plain(lambda: beam.get_beamformer_map(
+            camera.CENTER_HZ, camera.OCTAVE_FRACTION, remove_csm_diagonal=rd))
+        got, launched[name] = counted_run(lambda: beam.get_beamformer_map(
+            camera.CENTER_HZ, camera.OCTAVE_FRACTION, remove_csm_diagonal=rd, mesh=mesh))
+        check(name, got, want, "das_map", plain_want=want_p)
+        am, am_s = int(torch.argmax(got)), int(torch.argmax(want))
+        print(f"{label} {name}: argmax {am}, single device {am_s}")
+        if am != am_s:
+            fail(f"{label} {name}: the map's peak moved")
+        if not torch.equal(beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION,
+                                                   remove_csm_diagonal=rd, mesh=one), want):
+            fail(f"{label}: the map on device_mesh() differs from no mesh")
+        timed(name, lambda: beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION,
+                                                    remove_csm_diagonal=rd, mesh=mesh),
+              lambda: beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION,
+                                              remove_csm_diagonal=rd), n=10)
+    F, M, G = DAS_SWEEP
+    gen = np.random.default_rng(19)
+    Cm = gen.standard_normal((F, M, M)) + 1j * gen.standard_normal((F, M, M))
+    Cm = torch.as_tensor((Cm + np.conj(np.swapaxes(Cm, -1, -2))) / 2, dtype=torch.complex64,
+                         device=dev)
+    amp = torch.as_tensor(gen.uniform(0.5, 1.0, (M, G)), dtype=torch.float32, device=dev)
+    diff = torch.as_tensor(gen.uniform(-0.3, 0.3, (M, G)), dtype=torch.float32, device=dev)
+    k = torch.as_tensor(np.arange(F) * (48000 / 1024) * 2 * np.pi / 343, dtype=torch.float32,
+                        device=dev)
+    cre, cim = Cm.real.contiguous(), Cm.imag.contiguous()
+    want = cuda_das.das_map(amp, diff, k, cre, cim)
+    got, launched["das_sweep"] = counted_run(
+        lambda: parallel.parallel_das_map(amp, diff, k, Cm, mesh))
+    check("das_sweep", got, want, "das_map", tol=5e-5,
+          plain_want=cuda_das.das_map_plain(amp, diff, k, cre, cim))
+    timed("das_sweep", lambda: parallel.parallel_das_map(amp, diff, k, Cm, mesh),
+          lambda: cuda_das.das_map(amp, diff, k, cre, cim), n=10)
+    del beam, Cm, cre, cim, amp, diff, got, want
+
+    # 5. config 4's fleet, batch-parallel
+    rirs = torch.from_numpy(rm.battery_rirs()).to(dev)
+    got, launched["descriptors"] = counted_run(
+        lambda: parallel.parallel_batch_descriptors(rirs, rm.BATTERY_FS, mesh))
+    check("descriptors", got, batch_descriptors(rirs, rm.BATTERY_FS))
+    timed("descriptors", lambda: parallel.parallel_batch_descriptors(rirs, rm.BATTERY_FS, mesh),
+          lambda: batch_descriptors(rirs, rm.BATTERY_FS), n=10)
+
+    # 6. config 2 (a) captured through pipeline(mesh=): the chain on the
+    # mesh's first device, against the same chain without a mesh
+    speech = sc.signal(*sc.SPEECH)
+    run_mesh, run_one = pipeline(sc.run, mesh=mesh), pipeline(sc.run)
+    got, launched["pipeline"] = counted_run(lambda: run_mesh(speech))
+    want = run_one(speech)
+    check("pipeline", {"y": got[0]._x, "welch": got[1], "csm": got[2]},
+          {"y": want[0]._x, "welch": want[1], "csm": want[2]})
+    timed("pipeline", lambda: run_mesh(speech), lambda: run_one(speech), n=10)
+
+    # 7. float64 mode on the card: `Filter` on the torch float64 path on the
+    # card (B2 takes float32 only), against scipy's float64 sosfilt
+    x64 = np.random.default_rng(23).standard_normal((10 * fs, 2))
+    filt = Filter.iir_filter(6, 200.0, FilterPassType.Lowpass, fs)
+    _config.set_default_float("float64")
+    try:
+        y64, launched["float64_filter"] = counted_run(
+            lambda: filt.filter_signal(Signal(None, x64, fs, device=dev)))
+    finally:
+        _config.set_default_float("float32")
+    on_card = y64._x.device.type == torch.device(dev).type and y64._x.dtype == torch.float64
+    want64 = sosfilt(filt.sos, x64, axis=0)
+    err64 = float(np.abs(y64.time_data.cpu().numpy() - want64).max() / np.abs(want64).max())
+    print(f"{label} float64 mode Filter (order 6, 200 Hz) on 2 x 10 s: on the card in float64 "
+          f"{on_card}; vs scipy float64 sosfilt scale-rel {err64:.3e} (tol 5e-6); launches "
+          f"{launched['float64_filter']}")
+    if not on_card or not err64 <= 5e-6 or launched["float64_filter"]["iir_lead"]:
+        fail(f"{label}: float64 mode's Filter left the card, missed scipy or launched B2")
+
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    totals = {k_: sum(v.get(k_, 0) for v in launched.values()) for k_ in K}
+    print(f"{label} launches by path: "
+          f"{ {n: {k_: v[k_] for k_ in K if v.get(k_)} for n, v in launched.items()} }")
+    print(f"{label}: launches {totals}; peak device memory {peak_gb:.2f} GB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": totals, "launches_by_path": launched, "errors": errs,
+            "bit_equal": bit_equal, "times": times, "peak_gb": peak_gb,
+            "plain_errors": plain_errs,
+            "framing_err": max(plain_errs[n] for n in ("csm", "welch", "stft", "welch_time")),
+            "iir_bank_err": max(plain_errs["bank_parallel"], plain_errs["bank_summed"]),
+            "das_map_err": max(v for n, v in plain_errs.items() if n.startswith("das"))}
+
+
 def main() -> int:
     import torch
 
@@ -4201,6 +4532,19 @@ def main() -> int:
     b3["max_abs_err_by_path"]["effects"] = fxp["iir_bank_err"]
     b3["max_abs_err"] = max(b3["max_abs_err"], fxp["iir_bank_err"])
 
+    # 59-65. the parallel layer and every mesh= keyword on 4 shards of the
+    # card: the session's CSM, Welch, STFT, FIR and energy (B1), the
+    # 1/3-octave bank (B3), config 5's map and the DAS sweep (B5), config
+    # 4's fleet, config 2 (a) through pipeline(mesh=); float64 mode's Filter
+    # and the lazy getters
+    msh = mesh_phase(dev, card)
+    torch.cuda.empty_cache()
+    b3["launches_by_path"]["mesh"] = msh["launches"]["iir_bank"]
+    b3["launches"] += msh["launches"]["iir_bank"]
+    b3["max_abs_err_by_path"]["mesh"] = msh["iir_bank_err"]
+    b3["max_abs_err"] = max(b3["max_abs_err"], msh["iir_bank_err"])
+    b3["mesh_times"] = {k: v for k, v in msh["times"].items() if k.startswith("bank")}
+
     # bounds at the timed shapes. B1 at the chain's STFT (step 6). B2, per
     # band: x·H in fp32, H lower-triangular
     # Toeplitz, so L·(L+1)/2 FMAs per block (for FFMA or 3×TF32 on the
@@ -4229,22 +4573,24 @@ def main() -> int:
          "replaces": "dsptoolbox_tpu/ops/pallas_framing.py:45",
          "launches": (launches["framing"] + das_launches["framing"] + c5["framing"]
                       + c2["framing"] + pl_launches["framing"] + tfa["framing"]
-                      + feat["framing"] + fxp["framing"]),
+                      + feat["framing"] + fxp["framing"] + msh["launches"]["framing"]),
          "launches_by_path": {"chain": launches["framing"], "das": das_launches["framing"],
                               "config5": c5["framing"], "config2": c2["framing"],
                               "pipeline": pl_launches["framing"],
                               "tf_analysis": tfa["framing"], "transforms": feat["framing"],
-                              "effects": fxp["framing"]},
+                              "effects": fxp["framing"], "mesh": msh["launches"]["framing"]},
          "max_abs_err": max(b1_err, c2["framing_err"], tfa["framing_err"],
-                            feat["framing_err"], fxp["framing_err"]),
+                            feat["framing_err"], fxp["framing_err"], msh["framing_err"]),
          "max_abs_err_by_path": {"chain_das": b1_err, "config2": c2["framing_err"],
                                  "tf_analysis": tfa["framing_err"],
                                  "transforms": feat["framing_err"],
-                                 "effects": fxp["framing_err"]},
+                                 "effects": fxp["framing_err"], "mesh": msh["framing_err"]},
          "ms": b1_ms, "plain_ms": b1_plain,
          "bound_ms": b1_bound, "bound_by": b1_by, "library_ms": None,
          "by_path_shape": b1_shapes, "config2_times": c2["times"],
-         "tf_analysis_times": tfa["times"]},
+         "tf_analysis_times": tfa["times"],
+         "mesh_times": {k: v for k, v in msh["times"].items()
+                        if k in ("csm", "welch", "stft", "welch_time")}},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",
@@ -4274,14 +4620,17 @@ def main() -> int:
         {"name": "das_map", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/das_map.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_das.py:104",
-         "launches": das_launches["das_map"] + c5["das_map"],
-         "launches_by_path": {"das": das_launches["das_map"], "config5": c5["das_map"]},
-         "max_abs_err": max(b5_err, c5["das_map_err"]),
-         "max_abs_err_by_path": {"das": b5_err, "config5": c5["das_map_err"]},
+         "launches": das_launches["das_map"] + c5["das_map"] + msh["launches"]["das_map"],
+         "launches_by_path": {"das": das_launches["das_map"], "config5": c5["das_map"],
+                              "mesh": msh["launches"]["das_map"]},
+         "max_abs_err": max(b5_err, c5["das_map_err"], msh["das_map_err"]),
+         "max_abs_err_by_path": {"das": b5_err, "config5": c5["das_map_err"],
+                                 "mesh": msh["das_map_err"]},
          "ms": b5_ms, "plain_ms": b5_plain,
          "bound_ms": b5_bound, "bound_by": b5_by, "library_ms": b5_lib,
          "library": "packed_quadratic_from_hp: GEMM part only, steering pre-built",
-         "by_path_shape": b5_paths, "at_m160": b5_m160, "config5_times": c5["times"]},
+         "by_path_shape": b5_paths, "at_m160": b5_m160, "config5_times": c5["times"],
+         "mesh_times": {k: v for k, v in msh["times"].items() if k.startswith("das")}},
         b4,
         {"name": "ema_smoothing", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/ema.cu",

@@ -3,7 +3,12 @@
 Default dtypes are float32 / complex64, as in the JAX package; float64 mode
 (``set_default_float("float64")``) is for tight oracle comparisons and
 takes the plain PyTorch paths, since the CUDA kernels are fp32 only; on a
-CUDA tensor the filter bank raises for it unless its switch is "off".
+CUDA tensor the filter bank raises for it unless its switch is "off". In
+float64 mode `Filter` runs its real IIR and zero-phase filters on a CPU
+signal through scipy, as the JAX package does (`classes.filter_helpers.
+_oracle_exact_f64`, off with ``DSPTB_F64_DEVICE_IIR=1``); a signal on a
+card stays on the torch float64 paths there. The getters
+return plain numpy (`lazy_host_returns`).
 
 Default device: ``"cuda"``. A class built from numpy data (`Signal`,
 `ImpulseResponse`, `Spectrum`, the generators' signals) puts it on the
@@ -56,6 +61,26 @@ def default_float() -> torch.dtype:
 def default_complex() -> torch.dtype:
     """Package-wide complex floating dtype."""
     return _COMPLEX
+
+
+_LAZY_HOST: bool | None = None  # None: lazy in float32 mode, eager in float64
+
+
+def set_lazy_host_returns(enabled: bool | None) -> None:
+    """Override lazy host returns of the getters (`Signal.get_spectrum`,
+    `get_csm`, `get_spectrogram`). ``True``/``False`` force them; ``None``
+    restores the default: lazy in float32 mode (a
+    `classes.lazy_array.LazyHostArray` over the device tensor, fetched at the
+    first host access), plain numpy in float64 mode."""
+    global _LAZY_HOST
+    _LAZY_HOST = enabled
+
+
+def lazy_host_returns() -> bool:
+    """Whether the getters return lazy device-backed host arrays."""
+    if _LAZY_HOST is not None:
+        return _LAZY_HOST
+    return _FLOAT == torch.float32
 
 
 _DEVICE = "cuda"

@@ -22,7 +22,8 @@ batched fractional-delay FFT program.
 
 The plots (`BasePoints.plot_points`, the grids' `plot_map`,
 `BaseBeamformer.plot_setting`) draw on `plots` with matplotlib, a map
-fetched to the host once. Not ported: the mesh-parallel map.
+fetched to the host once. `BeamformerDASFrequency.get_beamformer_map(mesh=)`
+splits the grid over a device mesh (`parallel.parallel_das_map`).
 """
 
 from __future__ import annotations
@@ -753,7 +754,7 @@ class BeamformerGridded(BaseBeamformer):
     def _csm_slice(self, center_frequency_hz, octave_fraction):
         """Frequency vector (host) and complex CSM (device) of the analysis
         band only."""
-        f, csm = self.signal.get_csm()
+        f, csm = self.signal._csm()
         id1, id2 = self._band_ids(center_frequency_hz, octave_fraction, f)
         return f[id1:id2], csm[id1:id2]
 
@@ -784,11 +785,12 @@ class BeamformerDASFrequency(BeamformerGridded):
         ``center_frequency_hz``, integrated over the band (Simpson), in the
         grid's shape, as a tensor on the signal's device. With
         ``remove_csm_diagonal`` the CSM's diagonal is zeroed (scaled by
-        ``n/(n-1)``) and negative map values are clipped."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-parallel DAS map is not ported yet"
-            )
+        ``n/(n-1)``) and negative map values are clipped. ``mesh``: a
+        `parallel.Mesh` of more than one device splits the grid points over
+        its first axis (`parallel.parallel_das_map`: B5 a shard, the band's
+        CSM on every device), the grid padded with unit-amplitude,
+        zero-delay points to a count the mesh divides
+        (`dsptoolbox_tpu/beamforming/beamforming.py:870-905`)."""
         f_all, cre_full, cim_full = self.signal._get_csm_device()
         id1, id2 = self._band_ids(center_frequency_hz, octave_fraction, f_all)
         f = f_all[id1:id2]
@@ -801,7 +803,18 @@ class BeamformerDASFrequency(BeamformerGridded):
             off = (1.0 - eye) * (n_ch / (n_ch - 1))
             cre = cre * off
             cim = cim * off
-        map_gf = cuda_das.das_map(amp, diff, self._wave_numbers(f), cre, cim)
+        if mesh is not None and mesh.devices.size > 1:
+            from ..parallel import parallel_das_map
+
+            G = amp.shape[1]
+            pad = (-G) % int(mesh.shape[mesh.axis_names[0]])
+            if pad:
+                amp = torch.cat([amp, amp.new_ones((amp.shape[0], pad))], dim=1)
+                diff = torch.cat([diff, diff.new_zeros((diff.shape[0], pad))], dim=1)
+            map_gf = parallel_das_map(amp, diff, self._wave_numbers(f),
+                                      torch.complex(cre, cim), mesh)[:G].to(cre.device)
+        else:
+            map_gf = cuda_das.das_map(amp, diff, self._wave_numbers(f), cre, cim)
         return self._finish_map(map_gf, f, bool(remove_csm_diagonal))
 
 

@@ -83,7 +83,7 @@ class CalibrationData:
     def _get_rms_from_spectrum(self) -> torch.Tensor:
         self.calibration_signal.set_spectrum_parameters(
             method=SpectrumMethod.FFT, scaling=SpectrumScaling.AmplitudeSpectrum)
-        f, sp = self.calibration_signal.get_spectrum()
+        f, sp = self.calibration_signal.get_spectrum(return_device=True)
         ind1k = int(np.argmin(np.abs(f - 1e3)))
         return sp[ind1k, :].abs().to(torch.float64)
 

@@ -2,18 +2,23 @@
 
 Coefficients stay host numpy; the data runs through `ops.iir` (the blocked
 IIR, kernel B2 on a CUDA tensor) and `ops.fft_conv`, channels-first, on the
-signal's device. Not ported: the float64 host-scipy routing of the JAX
-package's ``_oracle_exact_f64`` (float64 mode runs the same torch paths in
-float64). The RBJ biquad coefficients are host float64 numpy, copied.
+signal's device. In float64 mode a real filter on a CPU signal
+(`_oracle_exact_f64`) runs scipy's ``sosfilt``, ``sosfiltfilt``,
+``lfilter``, ``filtfilt`` and ``oaconvolve`` in float64, as the JAX package
+does; a signal on a card stays there on the torch float64 paths. The RBJ biquad coefficients are
+host float64 numpy, copied.
 """
 
 from __future__ import annotations
 
+import os
 from warnings import warn
 
 import numpy as np
+import scipy.signal as ssig
 import torch
 
+from .._config import default_float
 from ..ops.fft_conv import fft_convolve
 from ..ops.cuda_iir import MAX_STATES
 from ..ops.iir_block import lfilter_handover
@@ -230,6 +235,40 @@ def _cascade_update(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, channels:
     return y, [zi_all[c] for c in range(zi_all.shape[0])], kept
 
 
+def _oracle_exact_f64(device) -> bool:
+    """True in float64 mode for data on the CPU: a real IIR or zero-phase
+    filter then runs the literal scipy recursions on the host, so a float64
+    result is scipy's bit for bit (`dsptoolbox_tpu/classes/filter_helpers.py:204-222`;
+    the reference's tests hold it at ``rtol=1e-7, atol=0``, which no
+    reassociated recursion meets on near-zero samples). Data on a card stays
+    there on the torch float64 paths; the float32 paths are unaffected.
+    ``DSPTB_F64_DEVICE_IIR=1`` keeps the torch paths in float64 mode on the
+    CPU too, as in the JAX package."""
+    if os.environ.get("DSPTB_F64_DEVICE_IIR") == "1":
+        return False
+    return default_float() == torch.float64 and torch.device(device).type == "cpu"
+
+
+def _host_rows(signal, channels: np.ndarray) -> np.ndarray:
+    """The selected channels of the real part as host float64 ``(C_sel,
+    T)``."""
+    return _select(signal, channels).detach().cpu().numpy().astype(np.float64)
+
+
+def _to_signal_device(signal, y: np.ndarray) -> torch.Tensor:
+    """Host ``y (C_sel, T)`` as a ``(T, C_sel)`` tensor on the signal's
+    device."""
+    return torch.from_numpy(np.ascontiguousarray(y.T)).to(signal.device)
+
+
+def _host_zi_update(zi, channels: np.ndarray, run):
+    """`_zi_update` on the host: ``run(zi_sel)`` → ``(y, zf)`` in numpy."""
+    zi_all = np.stack([np.asarray(z, np.float64) for z in zi], axis=0)
+    y, zf = run(zi_all[channels])
+    zi_all[channels] = zf
+    return y, [zi_all[c] for c in range(zi_all.shape[0])]
+
+
 def filter_on_signal(
     signal,
     sos: np.ndarray,
@@ -243,8 +282,22 @@ def filter_on_signal(
     ``zi_new`` is the per-channel list of final states when ``zi`` (one
     ``(S, 2)`` state per channel of the signal) is given, else None."""
     channels = _channels(signal, channels)
-    x = _select(signal, channels)  # (C_sel, T)
     zi_new = None
+    if _oracle_exact_f64(signal.device) and not np.iscomplexobj(sos):
+        xh = _host_rows(signal, channels)
+        if zi is not None:
+            def run(z):  # per channel (S, 2); scipy's layout (S, C_sel, 2)
+                y, zf = ssig.sosfilt(sos, xh, axis=-1, zi=np.transpose(z, (1, 0, 2)))
+                return y, np.transpose(zf, (1, 0, 2))
+
+            y, zi_new = _host_zi_update(zi, channels, run)
+        elif zero_phase:
+            y = ssig.sosfiltfilt(sos, xh, axis=-1)
+        else:
+            y = ssig.sosfilt(sos, xh, axis=-1)
+        return _replace_channels(signal, _to_signal_device(signal, y), channels,
+                                 warning_on_complex_output), zi_new
+    x = _select(signal, channels)  # (C_sel, T)
     if zi is not None:
         y, zi_new = _zi_update(zi, channels, lambda z: sosfilt(sos, x, zi=z))
     elif zero_phase:
@@ -297,8 +350,22 @@ def filter_on_signal_ba(
     ``kept`` (`_cascade_update`). Returns ``(new_signal, zi_new, kept)``."""
     b, a = np.atleast_1d(ba[0]), np.atleast_1d(ba[1])
     channels = _channels(signal, channels)
-    x = _select(signal, channels)
     zi_new = None
+    if _oracle_exact_f64(signal.device) and not np.iscomplexobj(b) and not np.iscomplexobj(a):
+        xh = _host_rows(signal, channels)
+        if zi is not None:
+            y, zi_new = _host_zi_update(
+                zi, channels, lambda z: ssig.lfilter(b, a, xh, axis=-1, zi=z))
+        elif zero_phase:
+            y = ssig.filtfilt(b, a, xh, axis=-1)
+        elif is_fir:
+            y = ssig.oaconvolve(xh, b[None, :], mode="full", axes=-1)[..., : xh.shape[-1]]
+        else:
+            y = ssig.lfilter(b, a, xh, axis=-1)
+        # the exact cascade states of the torch route do not carry over
+        return _replace_channels(signal, _to_signal_device(signal, y), channels,
+                                 warning_on_complex_output), zi_new, None
+    x = _select(signal, channels)
     order = max(len(a), len(b)) - 1
     if zi is not None and len(np.trim_zeros(a, "b")) > 1 and 2 < order <= MAX_STATES:
         y, zi_new, kept = _cascade_update(b, a, x, zi, channels, kept)

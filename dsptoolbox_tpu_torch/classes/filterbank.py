@@ -6,10 +6,12 @@ into one ``(B, S, 6)`` bank and applied in one call of
 `ops.iir_block.sosfilt_bank_apply_planes` (the filter-bank kernel B3 on a
 float32 CUDA tensor); its operators are built once per (bank, length,
 dtype, device) and kept on the device. The bands stay on the device as
-views of the bank's output planes. `filter_multiband_signal` filters each
-band with its own filter; the plots draw the bank's IRs' spectra on
-`plots`; `save_filterbank` pickles. Not ported: ``mesh=`` (band-parallel
-banks over several devices) and the frequency-sampling bank path.
+views of the bank's output planes. With a ``mesh`` of more than one
+device such a bank runs band-parallel (`parallel.parallel_filterbank`),
+padded with silent sections to a band count the mesh divides.
+`filter_multiband_signal` filters each band with its own filter; the plots
+draw the bank's IRs' spectra on `plots`; `save_filterbank` pickles. Not
+ported: the frequency-sampling bank path.
 """
 
 from __future__ import annotations
@@ -40,8 +42,27 @@ def _sos_bank_or_none(filters: list) -> np.ndarray | None:
     return stack_sos_bank([f.sos for f in filters])
 
 
-def _banked_filter_apply(signal: Signal, bank: np.ndarray, summed: bool = False):
-    """All bands of ``bank`` on the signal's real part in one bank call.
+def _banked_planes_mesh(signal: Signal, bank: np.ndarray, mesh) -> tuple:
+    """The bank's ``(real, imag)`` planes ``(B, C, T)`` over a device mesh
+    (`dsptoolbox_tpu/classes/filterbank.py:74-141`): the bands split over
+    the mesh's first axis, padded to a count it divides with silent
+    sections (zero numerator, ``a0 = 1``), which Parallel drops and Summed
+    adds as zeros; on the mesh's first device."""
+    from ..parallel import parallel_filterbank
+
+    B = bank.shape[0]
+    pad = (-B) % int(mesh.shape[mesh.axis_names[0]])
+    if pad:
+        silent = np.zeros((pad, bank.shape[1], 6), bank.dtype)
+        silent[:, :, 3] = 1.0
+        bank = np.concatenate([bank, silent], axis=0)
+    y = parallel_filterbank(bank, signal._x, mesh)[:B]
+    return (y.real, y.imag) if y.is_complex() else (y, None)
+
+
+def _banked_filter_apply(signal: Signal, bank: np.ndarray, summed: bool = False, mesh=None):
+    """All bands of ``bank`` on the signal's real part in one bank call
+    (band-parallel over ``mesh`` when it has more than one device).
 
     Returns per band ``(real (T, C), imag (T, C) | None, peak)`` (one such
     triple when ``summed``); ``peak`` is ``max(|real|, |imag|)`` when the
@@ -50,8 +71,11 @@ def _banked_filter_apply(signal: Signal, bank: np.ndarray, summed: bool = False)
     tensors on the device), else None.
     """
     x = signal._x  # (C, T)
-    ops = bank_device_operators(bank, x.shape[-1], x.dtype, x.device)
-    re, im = sosfilt_bank_apply_planes(ops, x)  # (B, C, T)
+    if mesh is not None and mesh.devices.size > 1:
+        re, im = _banked_planes_mesh(signal, bank, mesh)
+    else:
+        ops = bank_device_operators(bank, x.shape[-1], x.dtype, x.device)
+        re, im = sosfilt_bank_apply_planes(ops, x)  # (B, C, T)
     if summed:
         re, im = re.sum(0, keepdim=True), (None if im is None else im.sum(0, keepdim=True))
     peaks = [None] * re.shape[0]
@@ -73,9 +97,12 @@ def filterbank_on_signal(
     activate_zi: bool = False,
     zero_phase: bool = False,
     same_sampling_rate: bool = True,
+    mesh=None,
 ):
     """Apply a list of filters in the selected mode
-    (`classes/filterbank.py:246`)."""
+    (`classes/filterbank.py:246`). ``mesh``: a stackable bank (all SOS, no
+    state, no zero phase) runs band-parallel over it; otherwise the hint is
+    ignored."""
     n_filt = len(filters)
     bankable = not activate_zi and not zero_phase and same_sampling_rate and n_filt > 1
     bank = _sos_bank_or_none(filters) if bankable else None
@@ -85,7 +112,7 @@ def filterbank_on_signal(
             bands = [
                 _replace_channels(signal, DeviceTimeData(*t), channels,
                                   filters[b].warning_if_complex)
-                for b, t in enumerate(_banked_filter_apply(signal, bank))
+                for b, t in enumerate(_banked_filter_apply(signal, bank, mesh=mesh))
             ]
         else:
             bands = [f.filter_signal(signal, activate_zi=activate_zi, zero_phase=zero_phase)
@@ -99,7 +126,7 @@ def filterbank_on_signal(
     if mode == FilterBankMode.Summed:
         if bank is not None:
             return signal.copy_with_new_time_data(
-                DeviceTimeData(*_banked_filter_apply(signal, bank, summed=True))
+                DeviceTimeData(*_banked_filter_apply(signal, bank, summed=True, mesh=mesh))
             )
         # parity: the filters' real parts are summed, as in the JAX package
         total = None
@@ -269,13 +296,17 @@ class FilterBank:
         mode: FilterBankMode,
         activate_zi: bool = False,
         zero_phase: bool = False,
+        mesh=None,
     ):
         """Apply the bank (`classes/filterbank.py:475`): Parallel →
-        MultiBandSignal, Sequential and Summed → Signal."""
+        MultiBandSignal, Sequential and Summed → Signal. ``mesh``: a
+        `parallel.Mesh` for band-parallel execution (Parallel and Summed SOS
+        banks without zi or zero phase); ignored where the bank cannot be
+        split."""
         if isinstance(signal, MultiBandSignal):
             raise TypeError(
-                "This method only supports Signal objects. Multirate filtering of a "
-                "MultiBandSignal is not ported yet"
+                "This method only supports Signal objects. Use "
+                "filter_multiband_signal() for multirate parallel filtering"
             )
         if mode in (FilterBankMode.Sequential, FilterBankMode.Summed):
             assert self.same_sampling_rate, (
@@ -295,7 +326,7 @@ class FilterBank:
             self.initialize_zi(signal.number_of_channels)
         return filterbank_on_signal(
             signal, self.filters, mode=mode, activate_zi=activate_zi,
-            zero_phase=zero_phase, same_sampling_rate=self.same_sampling_rate,
+            zero_phase=zero_phase, same_sampling_rate=self.same_sampling_rate, mesh=mesh,
         )
 
     def filter_multiband_signal(self, mbsignal: MultiBandSignal, activate_zi: bool = False,

@@ -118,7 +118,7 @@ class ImpulseResponse(Signal):
         prior = self.spectrum_smoothing
         self.spectrum_smoothing = smoothing
         try:
-            f, sp = self.get_spectrum()
+            f, sp = self.get_spectrum(return_device=True)
         finally:
             self.spectrum_smoothing = prior
         sp = sp.cpu().numpy()

@@ -28,8 +28,14 @@ samples go to the device once, as numpy data does. `save_signal` writes
 WAV, FLAC or a pickle; the plots (`plot_*`) draw on `plots` with the data
 brought to numpy at the plot.
 
-Not ported yet: the lazy/deferred host returns and the device-spectrum
-caches of a tunnelled backend, and the mesh-parallel CSM.
+The getters `get_spectrum`, `get_csm` and `get_spectrogram` hand out what
+the JAX package's do: in float32 mode a `LazyHostArray` over the device
+tensor (numpy at the first host access), in float64 mode plain numpy, and
+with ``return_device=True`` the tensor itself (the CSM as a
+`DeviceSpectralData` pair). Inside a `pipeline` they return the tensors.
+``get_csm(mesh=)`` runs the Welch CSM channel-parallel over a device mesh
+(`parallel.parallel_csm`). Not ported: the deferred device-spectrum caches
+of a tunnelled backend.
 """
 
 from __future__ import annotations
@@ -43,7 +49,13 @@ from warnings import warn
 import numpy as np
 import torch
 
-from .._config import default_complex, default_device, default_float, in_pipeline
+from .._config import (
+    default_complex,
+    default_device,
+    default_float,
+    in_pipeline,
+    lazy_host_returns,
+)
 from ..helpers.other import check_format_in_path, unwrap
 from ..helpers.smoothing import fractional_octave_smoothing
 from ..helpers.spectrum_utilities import scale_spectrum
@@ -51,6 +63,7 @@ from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import csm_from_spectrum, csm_welch, stft, welch
 from .._enums import MagnitudeNormalization, SpectrumMethod, SpectrumScaling, Window
+from .lazy_array import LazyHostArray
 
 
 class DeviceTimeData(NamedTuple):
@@ -65,6 +78,50 @@ class DeviceTimeData(NamedTuple):
     real: torch.Tensor
     imag: torch.Tensor | None = None
     peak: float | torch.Tensor | None = None
+
+
+class DeviceSpectralData(NamedTuple):
+    """A complex spectral matrix on its device as a ``(real, imag)`` pair of
+    tensors: `Signal.get_csm(return_device=True)`."""
+
+    real: torch.Tensor
+    imag: torch.Tensor
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.real.shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.complex128 if self.real.dtype == torch.float64 else torch.complex64
+
+    @property
+    def ndim(self) -> int:
+        return self.real.ndim
+
+    def complex_device(self) -> torch.Tensor:
+        """The matrix as one complex tensor on its device."""
+        return torch.complex(self.real, self.imag)
+
+    def to_numpy(self) -> np.ndarray:
+        """The matrix as host complex numpy (one packed copy)."""
+        return LazyHostArray(self.real, self.imag).numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.to_numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+def _host_return(value: torch.Tensor, return_device: bool):
+    """What a getter hands out for its tensor ``value``: the tensor with
+    ``return_device`` or inside a `pipeline` (a lazy wrapper cannot be a
+    graph's output), else a `LazyHostArray` in lazy mode
+    (`_config.lazy_host_returns`) or a numpy copy."""
+    if return_device or in_pipeline():
+        return value
+    if lazy_host_returns():
+        return LazyHostArray(value)
+    return value.detach().cpu().numpy().copy()
 
 
 @lru_cache(maxsize=32)
@@ -138,8 +195,9 @@ class Signal:
     def time_data(self) -> torch.Tensor:
         """Time data ``(T, C)``: a transposed view of the channels-first
         tensor. Assign to ``time_data`` to change it (numpy data goes to
-        the signal's device); writing into the view bypasses the CSM
-        cache."""
+        the signal's device); writing into the view changes the signal too,
+        and the cached CSM and spectrogram are computed anew (they are kept
+        with the data's version counters)."""
         return self._x.T
 
     @staticmethod
@@ -551,17 +609,19 @@ class Signal:
             sp = sp.T
         return rfft_freqs(n, self.sampling_rate_hz), sp
 
-    def get_spectrum(self, force_computation: bool = False):
+    def get_spectrum(self, force_computation: bool = False, return_device: bool = False):
         """``(freqs, spectrum)`` per the spectrum parameters
-        (`classes/signal.py:865-947`), on the data's device: the FFT method
-        gives a complex ``(F, C)`` spectrum; Welch a real one, ``(F,)`` for
-        a mono signal (parity: the reference's ``_welch`` squeezes its
-        input, `classes/signal.py:928-932`). Not cached, so
-        ``force_computation`` (the reference's cache switch) changes
-        nothing."""
+        (`classes/signal.py:865-947`): the FFT method gives a complex ``(F,
+        C)`` spectrum; Welch a real one, ``(F,)`` for a mono signal (parity:
+        the reference's ``_welch`` squeezes its input,
+        `classes/signal.py:928-932`; here also with ``return_device``).
+        Computed on the data's device and handed out as `_host_return` says:
+        a `LazyHostArray` in float32 mode, numpy in float64 mode, the tensor
+        with ``return_device``. Not cached, so ``force_computation`` (the
+        reference's cache switch) changes nothing."""
         if self.spectrum_method == SpectrumMethod.FFT:
             f, sp = self._spectrum_fft()
-            return f.copy(), sp.T
+            return f.copy(), _host_return(sp.T, return_device)
         p = self._spectrum_parameters
         sp = welch(
             self._x,
@@ -575,29 +635,86 @@ class Signal:
         ).T
         if self.number_of_channels == 1:
             sp = sp[:, 0]
-        return rfft_freqs(p["window_length_samples"], self.sampling_rate_hz).copy(), sp
+        f = rfft_freqs(p["window_length_samples"], self.sampling_rate_hz).copy()
+        return f, _host_return(sp, return_device)
+
+    def _data_versions(self) -> tuple:
+        """The version counters of the data's planes: writing into
+        `time_data` (a view) changes them."""
+        im = self._x_imag
+        return (self._x._version, None if im is None else im._version)
 
     def _spectrum_param_key(self) -> tuple:
-        """Cache key of the CSM: the spectrum parameters (the cache is
-        cleared whenever the time data or sampling rate change)."""
-        return tuple(sorted((k, str(v)) for k, v in self._spectrum_parameters.items()))
+        """Cache key of the CSM: the spectrum parameters and the data's
+        version counters (the cache is also cleared whenever the time data
+        or sampling rate are set)."""
+        return (tuple(sorted((k, str(v)) for k, v in self._spectrum_parameters.items())),
+                self._data_versions())
 
     # ======== Cross-spectral matrix =========================================
-    def get_csm(self, force_computation: bool = False):
-        """``(freqs, csm (F, C, C))``: the Welch cross-spectral matrix as a
-        complex tensor on the signal's device (`classes/signal.py:1030-1126`).
-        Cached on the spectrum parameters; the returned tensor is the cached
-        one."""
+    def get_csm(self, force_computation: bool = False, mesh=None, return_device: bool = False):
+        """``(freqs, csm (F, C, C))``: the cross-spectral matrix
+        (`classes/signal.py:1030-1126`), computed on the signal's device and
+        cached on the spectrum parameters and the data's versions; handed out
+        as `_host_return` says (a `LazyHostArray` in float32 mode, numpy in
+        float64 mode), with ``return_device`` as a `DeviceSpectralData` pair
+        of views of the cached tensor.
+
+        ``mesh``: a `parallel.Mesh` of more than one device runs the Welch CSM
+        channel-parallel over its first axis (`parallel.parallel_csm`), the
+        channels padded with zero channels to a count the mesh divides; mean
+        averaging only; the cache is bypassed."""
         assert self.number_of_channels > 1, (
             "Cross spectral matrix can only be computed when at least two "
             "channels are available"
         )
         if force_computation:
             self._cache.pop("csm", None)
-        f, csm = self._csm()
-        return f.copy(), csm
+        if return_device:
+            f, csm = self._csm()
+            return f.copy(), DeviceSpectralData(csm.real, csm.imag)
+        if mesh is not None and mesh.devices.size > 1:
+            f, csm = self._csm_mesh(mesh)
+        else:
+            f, csm = self._csm()
+        return f.copy(), _host_return(csm, False)
+
+    def _csm_mesh(self, mesh):
+        """The Welch CSM over ``mesh`` (`dsptoolbox_tpu/classes/signal.py:
+        1128-1160`): the channels padded with zeros to a multiple of the
+        mesh's first axis (a zero channel gives zero rows and columns), the
+        result cut back, on the mesh's first device."""
+        from ..parallel import parallel_csm
+
+        p = self._spectrum_parameters
+        assert self.spectrum_method == SpectrumMethod.WelchPeriodogram, (
+            "mesh-parallel CSM is only available for the Welch method"
+        )
+        assert str(p["average"]).lower().endswith("mean"), (
+            "mesh-parallel CSM supports mean averaging only (median needs "
+            "every frame on every device)"
+        )
+        n = int(mesh.shape[mesh.axis_names[0]])
+        x = self._x
+        pad = (-x.shape[0]) % n
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, x.shape[1]))])
+        f, csm = parallel_csm(
+            x,
+            mesh,
+            sampling_rate_hz=self.sampling_rate_hz,
+            window_length_samples=p["window_length_samples"],
+            window_type=p["window_type"],
+            overlap_percent=p["overlap_percent"],
+            detrend=p["detrend"],
+            scaling=p["scaling"],
+        )
+        C = self.number_of_channels
+        return f, csm[:, :C, :C]
 
     def _csm(self):
+        """``(freqs, csm (F, C, C))``: the cached CSM, a complex tensor on
+        the signal's device (what the library's own callers take)."""
         key = self._spectrum_param_key()
         entry = self._cache.get("csm")
         if entry is not None and entry[0] == key:
@@ -632,18 +749,20 @@ class Signal:
         return f, csm
 
     # ======== Spectrogram ===================================================
-    def get_spectrogram(self, force_computation: bool = False):
+    def get_spectrogram(self, force_computation: bool = False, return_device: bool = False):
         """``(t, f, S (F, frames, C))``: the complex STFT per the
         spectrogram parameters (`classes/signal.py:1210`), on the signal's
         device through `ops.spectral.stft` (the framing kernel on a float32
-        CUDA tensor). ``S`` is a permuted view of the STFT's channels-first
-        ``(C, frames, F)`` tensor, which `transforms.istft` reads back
-        without a copy. Cached on the parameters; the returned tensor is the
-        cached one, and once it has been modified in place (a mask, say) the
-        cache is stale: the next call computes ``S`` anew (torch's version
-        counter of the tensor tells)."""
+        CUDA tensor), handed out as `_host_return` says: a `LazyHostArray`
+        in float32 mode (which `transforms.istft` reads on the device), numpy
+        in float64 mode. With ``return_device``, ``S`` is the cached tensor, a
+        permuted view of the STFT's channels-first ``(C, frames, F)``
+        tensor, which `transforms.istft` reads back without a copy; once it
+        has been modified in place (a mask, say) the cache is stale: the next
+        call computes ``S`` anew (torch's version counter of the tensor
+        tells). Cached on the parameters and the data's versions."""
         p = self._spectrogram_parameters
-        key = tuple(sorted((k, str(v)) for k, v in p.items()))
+        key = (tuple(sorted((k, str(v)) for k, v in p.items())), self._data_versions())
         entry = None if force_computation else self._cache.get("spectrogram")
         if entry is None or entry[0] != key or entry[3]._version != entry[4]:
             t, f, S = stft(
@@ -664,7 +783,7 @@ class Signal:
             S = S.permute(2, 1, 0)
             entry = (key, t, f, S, S._version)
             self._cache["spectrogram"] = entry
-        return entry[1].copy(), entry[2].copy(), entry[3]
+        return entry[1].copy(), entry[2].copy(), _host_return(entry[3], return_device)
 
     def _get_power_spectrogram_device(self):
         """``(t, f, P (F, frames, C))``: ``|S|²`` of the cached STFT
@@ -678,7 +797,7 @@ class Signal:
         ``fft_length_samples > window_length_samples`` has fewer bins than
         ``P`` (its mel and MFCC projections then fail on the shapes, and
         its `chroma_stft` rebuilds the grid, `transforms.py:453-461`)."""
-        t, f, S = self.get_spectrogram()
+        t, f, S = self.get_spectrogram(return_device=True)
         entry = self._cache.get("spectrogram_power")
         if entry is None or entry[0] is not S or entry[1] != S._version:
             s_cf = S.permute(2, 1, 0)  # the STFT's (C, frames, F) tensor
@@ -733,7 +852,7 @@ class Signal:
         prior = self._spectrum_parameters["smoothing"]
         self._spectrum_parameters["smoothing"] = 0
         try:
-            f, sp = self.get_spectrum()
+            f, sp = self.get_spectrum(return_device=True)
         finally:
             self._spectrum_parameters["smoothing"] = prior
         f, mag_db = get_normalized_spectrum(
@@ -819,7 +938,7 @@ class Signal:
                                      scaling=SpectrumScaling.FFTBackward,
                                      pad_to_fast_length=False)
         try:
-            f, sp = self.get_spectrum(force_computation=True)
+            f, sp = self.get_spectrum(return_device=True)
         finally:
             self._spectrum_parameters = prior
         ph = sp.angle().cpu().numpy()
@@ -838,7 +957,7 @@ class Signal:
         """Spectrogram of one channel (`classes/signal.py:1610`)."""
         from ..plots import general_matrix_plot
 
-        t, f, S = self.get_spectrogram()
+        t, f, S = self.get_spectrogram(return_device=True)
         mag = S[..., channel_number].abs().cpu().numpy()
         mag_db = 20 * np.log10(mag + np.finfo(np.float64).eps)
         return general_matrix_plot(
@@ -860,7 +979,7 @@ class Signal:
         prior = self._spectrum_parameters["smoothing"]
         self._spectrum_parameters["smoothing"] = 0
         try:
-            f, sp = self.get_spectrum()
+            f, sp = self.get_spectrum(return_device=True)
         finally:
             self._spectrum_parameters["smoothing"] = prior
         ph = sp.angle().cpu().numpy()
@@ -879,7 +998,7 @@ class Signal:
         """The CSM's lower triangle (`classes/signal.py:1714`)."""
         from ._plots import csm_plot
 
-        f, csm = self.get_csm()
+        f, csm = self._csm()
         return csm_plot(f, csm, range_hz, True, with_phase)
 
     # ======== Saving / copying ==============================================

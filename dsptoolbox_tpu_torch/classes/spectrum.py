@@ -32,6 +32,7 @@ from ..helpers.interpolation import linear_interpolate, pchip_interpolate
 from ..helpers.other import check_format_in_path, unwrap
 from ..helpers.smoothing import fractional_octave_smoothing
 from ..helpers.spectrum_utilities import apply_real_operator, warp_frequency_vector
+from .lazy_array import LazyHostArray
 from .._enums import (
     FilterBankMode,
     FrequencySpacing,
@@ -76,7 +77,7 @@ class Spectrum:
             assert sig.spectrum_scaling.outputs_complex_spectrum(
                 sig.spectrum_method
             ), "Method or scaling do not deliver a complex spectrum"
-        f, sp = sig.get_spectrum()
+        f, sp = sig.get_spectrum(return_device=True)
         if complex:
             assert sp.is_complex(), "Spectrum of signal is not complex"
             return Spectrum(f, sp)
@@ -151,7 +152,10 @@ class Spectrum:
 
     @spectral_data.setter
     def spectral_data(self, new_data):
-        if not isinstance(new_data, torch.Tensor):
+        if isinstance(new_data, LazyHostArray):
+            # a getter's lazy value: its tensor, without a host copy
+            new_data = new_data.device_tensor()
+        elif not isinstance(new_data, torch.Tensor):
             new_data = torch.as_tensor(np.asarray(new_data)).to(self._numpy_device)
         data = torch.atleast_2d(new_data)
         assert data.ndim == 2, "Spectral data must have two dimensions"

@@ -91,8 +91,8 @@ def _prepare_psd(insig1, insig2, method, f_range_hz, spectrum_parameters):
         )
     insig1.set_spectrum_parameters(method=method, **spectrum_parameters)
     insig2.set_spectrum_parameters(method=method, **spectrum_parameters)
-    f, spec1 = insig1.get_spectrum()
-    f, spec2 = insig2.get_spectrum()
+    f, spec1 = insig1.get_spectrum(return_device=True)
+    f, spec2 = insig2.get_spectrum(return_device=True)
     psd1, psd2 = spec1.abs().double(), spec2.abs().double()
     if insig1.spectrum_scaling.is_amplitude_scaling():
         psd1 = psd1**2

@@ -279,7 +279,7 @@ class SpectralSubtractor(AudioEffect):
                     window_type=self.window_type,
                     scaling=SpectrumScaling.FFTBackward,
                 )
-                _, noise_psd = noise["noise"].get_spectrum()
+                _, noise_psd = noise["noise"].get_spectrum(return_device=True)
                 noise_psd = noise_psd.abs().reshape(-1) ** (e / 2)
             else:
                 noise_psd = torch.as_tensor(

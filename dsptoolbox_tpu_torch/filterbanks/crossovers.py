@@ -171,7 +171,7 @@ class BaseCrossover(FilterBank):
         f = None
         for b in sigs:
             b.spectrum_method = SpectrumMethod.FFT
-            f_b, sp = b.get_spectrum()
+            f_b, sp = b.get_spectrum(return_device=True)
             mats.append(np.squeeze(to_db(np.abs(sp.cpu().numpy()), True)))
             if f is None:
                 f = f_b

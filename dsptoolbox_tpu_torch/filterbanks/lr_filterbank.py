@@ -127,10 +127,14 @@ class LRFilterBank:
         mode: FilterBankMode = FilterBankMode.Parallel,
         activate_zi: bool = False,
         zero_phase: bool = False,
+        mesh=None,
     ):
         """Split ``s`` into bands with allpass corrections
         (`lr_filterbank.py:160`): Parallel → MultiBandSignal, Summed (and
-        Sequential, which falls back to it with a warning) → Signal."""
+        Sequential, which falls back to it with a warning) → Signal.
+        ``mesh`` is accepted, as `FilterBank.filter_signal` takes it, and
+        ignored: each stage of the crossover tree filters the previous
+        stage's output, so the bands cannot be split over devices."""
         if mode == FilterBankMode.Sequential:
             warn("sequential mode is not supported for this filter bank. It is "
                  "automatically changed to summed")

@@ -142,7 +142,20 @@ def welch_average(
     """The Welch estimate from per-frame auto- or cross-spectra ``(..., K,
     F)``: averaged over the frames, scaled and one-sided, square-rooted for
     the amplitude scalings."""
-    csd = _average_frames(sp_frames, average)
+    return welch_scale(_average_frames(sp_frames, average), window,
+                       sampling_rate_hz=sampling_rate_hz, scaling=scaling)
+
+
+def welch_scale(
+    csd: torch.Tensor,
+    window: np.ndarray,
+    *,
+    sampling_rate_hz: int,
+    scaling: SpectrumScaling,
+) -> torch.Tensor:
+    """`welch_average`'s finish on averaged (cross-)spectra ``(..., F)``:
+    the scaling's factor, the halved DC and Nyquist bins, the square root of
+    the amplitude scalings."""
     if scaling.has_physical_units():
         # parity: the reference multiplies the *squared* data by the factor
         # returned for the scaling's own representation (linear for amplitude
@@ -206,6 +219,32 @@ def stft(
     Returns ``(time_s, freqs_hz, S)`` with ``S`` shaped ``(..., n_frames, F)``
     (channels-first). Matches `dsptoolbox/standard/_spectral_methods.py:176-282`.
     """
+    if fft_length_samples is None:
+        fft_length_samples = window_length_samples
+    window, overlap, step = stft_plan(window_length_samples, window_type, overlap_percent)
+
+    # the framing reads x in place with ``overlap`` zeros at both ends
+    pad = overlap if padding else 0
+    length_padded = x.shape[-1] + 2 * pad
+
+    frames = _windowed_frames(x, window, step, detrend, pad)
+    S = torch.fft.rfft(
+        frames, dim=-1, n=fft_length_samples, norm=scaling.fft_norm()
+    )
+
+    S = stft_scale(S, window, fft_length_samples, sampling_rate_hz, scaling)
+    n_frames = S.shape[-2]
+    time_s = np.linspace(0, length_padded / sampling_rate_hz, n_frames)
+    # parity: frequency vector always from the *window* length (:281)
+    freqs_hz = np.fft.rfftfreq(len(window), 1 / sampling_rate_hz)
+    return time_s, freqs_hz, S
+
+
+def stft_plan(
+    window_length_samples: int, window_type: Window, overlap_percent: float
+) -> tuple[np.ndarray, int, int]:
+    """``(window, overlap, step)`` of an STFT, its arguments checked (and a
+    warning where window and overlap miss the COLA constraint)."""
     if window_length_samples not in _VALID_STFT_SIZES:
         raise ValueError(
             "Window length should be a power of 2 in [2**4, 2**16], got "
@@ -213,9 +252,6 @@ def stft(
         )
     if not (0 <= overlap_percent < 100):
         raise ValueError("overlap_percent must be in [0, 100)")
-    if fft_length_samples is None:
-        fft_length_samples = window_length_samples
-
     window = get_window(window_type, window_length_samples, symmetric=False)
     # parity: STFT rounds the overlap, welch truncates (reference :246 vs :107)
     overlap = int(overlap_percent / 100 * window_length_samples + 0.5)
@@ -231,31 +267,22 @@ def stft(
             "Selected window type and overlap do not meet the constant "
             "overlap and add constraint! Results might be distorted"
         )
+    return window, overlap, step
 
-    # the framing reads x in place with ``overlap`` zeros at both ends
-    pad = overlap if padding else 0
-    length_padded = x.shape[-1] + 2 * pad
 
-    frames = _windowed_frames(x, window, step, detrend, pad)
-    S = torch.fft.rfft(
-        frames, dim=-1, n=fft_length_samples, norm=scaling.fft_norm()
-    )
-
-    if scaling.has_physical_units():
-        nyq = 1 / 2**0.5 if fft_length_samples % 2 == 0 else 1.0
-        S = S * _edge(S.shape[-1], (1 / 2**0.5, nyq), S)
-        factor = scaling.get_scaling_factor(
-            fft_length_samples, sampling_rate_hz, window
-        )
-        if not scaling.is_amplitude_scaling():
-            S = S.abs() ** 2.0
-        S = S * factor
-
-    n_frames = S.shape[-2]
-    time_s = np.linspace(0, length_padded / sampling_rate_hz, n_frames)
-    # parity: frequency vector always from the *window* length (:281)
-    freqs_hz = np.fft.rfftfreq(len(window), 1 / sampling_rate_hz)
-    return time_s, freqs_hz, S
+def stft_scale(S: torch.Tensor, window: np.ndarray, fft_length_samples: int,
+               sampling_rate_hz: int, scaling: SpectrumScaling) -> torch.Tensor:
+    """The STFT frames' spectra ``S (..., K, F)`` in ``scaling``: for the
+    physical scalings the one-sided edge bins divided by √2, the power
+    taken for the power scalings, and the scaling's factor."""
+    if not scaling.has_physical_units():
+        return S
+    nyq = 1 / 2**0.5 if fft_length_samples % 2 == 0 else 1.0
+    S = S * _edge(S.shape[-1], (1 / 2**0.5, nyq), S)
+    factor = scaling.get_scaling_factor(fft_length_samples, sampling_rate_hz, window)
+    if not scaling.is_amplitude_scaling():
+        S = S.abs() ** 2.0
+    return S * factor
 
 
 def _complex_sqrt(z: torch.Tensor) -> torch.Tensor:
@@ -297,17 +324,7 @@ def csm_welch(
     replaces the reference's O(C²) per-pair `_welch` loop
     (`_spectral_methods.py:351-369`).
     """
-    if window_length_samples not in _VALID_WELCH_SIZES:
-        raise ValueError("Window length should be a power of 2 in [2**3, 2**18]")
-    window = get_window(window_type, window_length_samples, symmetric=False)
-    overlap = int(overlap_percent / 100 * window_length_samples)
-    step = window_length_samples - overlap
-    if not check_cola(window, step):
-        warn(
-            "Selected window type and overlap do not meet the constant "
-            "overlap and add constraint! Results might be distorted"
-        )
-
+    window, step = welch_plan(window_length_samples, window_type, overlap_percent)
     norm = scaling.fft_norm()
     frames = _windowed_frames(time_data, window, step, detrend)  # (C, K, L)
     X = torch.fft.rfft(frames, dim=-1, norm=norm)  # (C, K, F)
@@ -318,12 +335,7 @@ def csm_welch(
         # Y = X as (F, C, K): one layout copy, and the batched product reads
         # Yᴴ as a conjugate-transposed view
         Y = X.permute(2, 0, 1).contiguous()
-        Q = torch.matmul(Y, Y.mH).transpose(-1, -2) / K
-        # exact-real diagonal like the reference's |X|² autospectrum branch:
-        # the product's diagonal is Σ|y|² in its real part
-        diag_real = Q.diagonal(dim1=-2, dim2=-1).real
-        eye = torch.eye(Q.shape[-1], dtype=Q.real.dtype, device=Q.device)
-        Q = Q * (1 - eye) + diag_real[..., None] * eye
+        Q = real_diagonal(torch.matmul(Y, Y.mH).transpose(-1, -2) / K)
     else:
         # median over frames needs the per-pair series; chunk over the first
         # channel axis so the peak buffer is (C, K, F), not (C, C, K, F)
@@ -336,20 +348,32 @@ def csm_welch(
             )  # (C, F)
         med = torch.stack(rows, dim=0)  # (A, B, F)
         Q = med.permute(2, 0, 1) / bias
+    return csm_finish(Q, window, sampling_rate_hz, scaling)
 
+
+def real_diagonal(Q: torch.Tensor) -> torch.Tensor:
+    """The Gram product ``Q (F, C, C)`` with an exact-real diagonal, like
+    the reference's |X|² autospectrum branch: the product's diagonal is
+    Σ|y|² in its real part."""
+    eye = torch.eye(Q.shape[-1], dtype=Q.real.dtype, device=Q.device)
+    return Q * (1 - eye) + Q.diagonal(dim1=-2, dim2=-1).real[..., None] * eye
+
+
+def csm_finish(Q: torch.Tensor, window: np.ndarray, sampling_rate_hz: int,
+               scaling: SpectrumScaling) -> tuple[np.ndarray, torch.Tensor]:
+    """`csm_welch`'s finish on the averaged pair spectra ``Q[f, a, b]``:
+    the physical scaling with halved edge bins, the per-pair root of the
+    amplitude scalings and the reference's Hermitian assembly. Returns
+    ``(f, csm (F, C, C))``."""
     if scaling.has_physical_units():
-        factor = scaling.get_scaling_factor(
-            window_length_samples, sampling_rate_hz, window
-        )
+        factor = scaling.get_scaling_factor(len(window), sampling_rate_hz, window)
         Q = Q * factor
         Q = Q * _edge(Q.shape[0], (0.5, 0.5), Q)[:, None, None]
     # parity: per-pair sqrt applies for every amplitude scaling (see welch)
     if scaling.is_amplitude_scaling():
         Q = _complex_sqrt(Q)
-
-    csm = _assemble_csm_reference_order(Q)
-    f = np.fft.rfftfreq(window_length_samples, 1 / sampling_rate_hz)
-    return f, csm
+    f = np.fft.rfftfreq(len(window), 1 / sampling_rate_hz)
+    return f, _assemble_csm_reference_order(Q)
 
 
 def csm_from_spectrum(

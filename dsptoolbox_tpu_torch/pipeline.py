@@ -57,7 +57,15 @@ and spectrogram parameters and its analysis window (hashed by value; a
 device window is fetched once per buffer and version, outside any
 capture). Each signature keeps its own graph and memory pool.
 
-Not ported: ``mesh=`` (raises `NotImplementedError`).
+``mesh`` (a `parallel.Mesh`): the runner places its inputs on the mesh's
+first device and captures the chain there, keyed on that device: meshes
+that share their first device share the captures.
+torch has no pass that partitions a captured chain over devices (the JAX
+package's XLA program is partitioned by GSPMD), and a chain such as
+`get_csm` mixes the channels, so the chain runs whole on that device: the
+JAX package's own behaviour for inputs whose channel count the mesh does
+not divide. ``partition`` is accepted for the JAX signature and changes
+nothing.
 """
 
 from __future__ import annotations
@@ -279,8 +287,13 @@ class Pipeline:
     """The runner `pipeline` returns: call it with the function's Signal
     arguments. ``captures`` maps each input signature to its `_Capture`."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, mesh=None, partition=None):
+        from .parallel import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
         self.fn = fn
+        self.mesh = mesh
         self.captures: dict = {}
         self.__name__ = f"pipeline({getattr(fn, '__name__', 'fn')})"
 
@@ -289,22 +302,19 @@ class Pipeline:
 
         if not signals or not all(isinstance(s, Signal) for s in signals):
             raise TypeError("pipeline runners take Signal positional arguments")
-        devices = {s.device for s in signals}
-        if len(devices) != 1:
-            raise ValueError(f"{self.__name__}: the signals lie on several devices {devices}")
-        dev = devices.pop()
+        dev = self._device(signals)
         if dev.type != "cuda":
             with _config.pipeline_context():
                 leaves: list = []
-                spec = _flatten_result(
-                    self.fn(*_shells(signals, [(s._x, s._x_imag) for s in signals])), leaves
-                )
+                planes = [(s._x.to(dev), None if s._x_imag is None else s._x_imag.to(dev))
+                          for s in signals]
+                spec = _flatten_result(self.fn(*_shells(signals, planes)), leaves)
             return _rebuild(spec, leaves)
-        key = tuple(_signal_signature(s) for s in signals)
+        key = self._key(signals)
         with torch.cuda.device(dev):
             cap = self.captures.get(key)
             if cap is None:
-                cap = self.captures[key] = self._capture(signals)
+                cap = self.captures[key] = self._capture(signals, dev)
             for (re, im), s in zip(cap.inputs, signals):
                 re.copy_(s._x)
                 if im is not None:
@@ -312,8 +322,24 @@ class Pipeline:
             cap.graph.replay()
             return _rebuild(cap.spec, [t.clone() for t in cap.leaves])
 
-    def _capture(self, signals) -> _Capture:
-        inputs = [(s._x.clone(), None if s._x_imag is None else s._x_imag.clone())
+    def _device(self, signals) -> torch.device:
+        """The device the chain runs on: the mesh's first, else the
+        signals' own."""
+        if self.mesh is not None:
+            return torch.device(self.mesh.devices.flat[0])
+        devices = {s.device for s in signals}
+        if len(devices) != 1:
+            raise ValueError(f"{self.__name__}: the signals lie on several devices {devices}")
+        return devices.pop()
+
+    def _key(self, signals) -> tuple:
+        """The capture cache's key: the target device and each signal's
+        signature."""
+        return (str(self._device(signals)),) + tuple(_signal_signature(s) for s in signals)
+
+    def _capture(self, signals, dev) -> _Capture:
+        inputs = [(s._x.to(dev, copy=True),
+                   None if s._x_imag is None else s._x_imag.to(dev, copy=True))
                   for s in signals]
 
         def run():
@@ -359,12 +385,10 @@ class Pipeline:
                    if tuple(seg.get("segment_pool_id", ())) in pools)
 
 
-def pipeline(fn, mesh=None) -> Pipeline:
+def pipeline(fn, mesh=None, partition=None) -> Pipeline:
     """Run a chain of public calls on Signals as one CUDA graph (see the
     module docstring): ``fn`` takes one or more `Signal` (or subclass)
     positional arguments; the returned runner has the same signature.
-    ``mesh`` (a device mesh, `dsptoolbox_tpu.pipeline`'s partitioned chain)
-    is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("pipeline(mesh=...) is not ported yet")
-    return Pipeline(fn)
+    ``mesh``: a `parallel.Mesh`; the chain then runs on its first device
+    (see the module docstring). ``partition`` is accepted and unused."""
+    return Pipeline(fn, mesh, partition)

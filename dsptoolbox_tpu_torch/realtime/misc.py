@@ -162,14 +162,42 @@ class StateVariableFilter(DeviceState, RealtimeFilter):
         ya = yl - res * yb + yh
         return torch.stack([v.T.to(x.dtype) for v in (yl, yh, yb, ya)])
 
+    def _process_host_f64(self, x: np.ndarray) -> np.ndarray:
+        """`process_sample`'s recursion on the host in float64, vectorised
+        over the channels of ``x (C, T)`` → ``(4, C, T)``: the float64 mode's
+        route, bit for bit `process_sample`
+        (`dsptoolbox_tpu/realtime/misc.py:173-196`)."""
+        g, res, iv = self.g, self.resonance, self.intermediate_value
+        s = self.state
+        out = np.empty((4,) + x.shape, np.float64)
+        for t in range(x.shape[1]):
+            xt = x[:, t]
+            yh = (xt - (res + g) * s[0] - s[1]) * iv
+            yb = g * yh + s[0]
+            s[0] = g * yh + yb
+            yl = g * yb + s[1]
+            s[1] = g * yb + yl
+            out[0, :, t] = yl
+            out[1, :, t] = yh
+            out[2, :, t] = yb
+            out[3, :, t] = yl - res * yb + yh
+        return out
+
     def filter_signal(self, signal):
         """→ MultiBandSignal with LP/HP/BP/AP bands
-        (`dsptoolbox_tpu/realtime/misc.py:198`), on the signal's device."""
+        (`dsptoolbox_tpu/realtime/misc.py:198`), on the signal's device; in
+        float64 mode on the CPU by the host loop `_process_host_f64`
+        (`classes.filter_helpers._oracle_exact_f64`)."""
+        from ..classes.filter_helpers import _oracle_exact_f64
         from ..classes.multibandsignal import MultiBandSignal
 
         if self.n_channels != signal.number_of_channels:
             self.set_n_channels(signal.number_of_channels)
-        out = self._process_device(signal._x)
+        if _oracle_exact_f64(signal.device):
+            out = torch.from_numpy(self._process_host_f64(
+                signal._x.cpu().numpy().astype(np.float64))).to(signal.device)
+        else:
+            out = self._process_device(signal._x)
         bands = [signal.copy_with_new_time_data(out[i].T) for i in range(4)]
         return MultiBandSignal(
             bands,

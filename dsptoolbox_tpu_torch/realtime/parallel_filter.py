@@ -85,7 +85,7 @@ class ParallelFilter(RealtimeFilter):
                  else ir.length_samples)
             sp = np.fft.rfft(td.real, axis=0, n=n, norm=scaling.fft_norm())
             return np.fft.rfftfreq(n, 1.0 / ir.sampling_rate_hz), sp
-        freqs, sp = ir.get_spectrum()
+        freqs, sp = ir.get_spectrum(return_device=True)
         return host_array(freqs), host_array(sp)
 
     def fit_to_ir(self, ir):

@@ -7,8 +7,9 @@ The per-channel fits and descriptors are host numpy decision logic: each
 entry point fetches a signal's data in one transfer (a MultiBandSignal's
 ``(bands, channels, T)`` planes at once) and loops over the channels on
 the host. The filters, convolutions, SVDs and the image-source lattice run
-on the data's device. Not ported: the float64 drop-in mode's scipy
-convolution in `convolve_rir_on_signal`.
+on the data's device; in float64 mode on the CPU `convolve_rir_on_signal`
+runs the reference's scipy convolution (`classes.filter_helpers.
+_oracle_exact_f64`).
 """
 
 from __future__ import annotations
@@ -118,7 +119,7 @@ def find_modes(
     )
     signal.spectrum_method = SpectrumMethod.FFT
     signal = pad_trim(signal, signal.sampling_rate_hz)
-    f, sp = signal.get_spectrum()
+    f, sp = signal.get_spectrum(return_device=True)
     ids = find_nearest_points_index_in_vector(f_range_hz, f)
     f = f[ids[0] : ids[1]]
     df = f[1] - f[0]
@@ -140,12 +141,31 @@ def convolve_rir_on_signal(
     keep_length: bool = True,
 ) -> Signal:
     """Convolve a single-channel RIR onto every channel
-    (`room_acoustics.py:108`), by FFT on the signal's device."""
+    (`room_acoustics.py:108`), by FFT on the signal's device; in float64
+    mode on the CPU by the reference's scipy dispatch
+    (`dsptoolbox_tpu/room_acoustics/room_acoustics.py:124-134`)."""
+    from ..classes.filter_helpers import _oracle_exact_f64
+
     assert rir.number_of_channels == 1, "RIR should not contain more than one channel."
     assert rir.sampling_rate_hz == signal.sampling_rate_hz, (
         "The sampling rates do not match"
     )
     x = signal._x  # (C, T)
+    if _oracle_exact_f64(x.device):
+        from scipy.signal import convolve, oaconvolve
+
+        xh = x.T.cpu().numpy()
+        h = rir._x.T.cpu().numpy()
+        ratio = signal.length_samples / rir.length_samples
+        if ratio < 15.0 or ratio < 1.0 / 15.0:
+            yh = oaconvolve(xh, h, axes=0, mode="full")
+        else:
+            yh = convolve(xh, h, mode="full")
+        if keep_length:
+            yh = yh[: x.shape[-1]]
+        if keep_peak_level:
+            yh = yh * (np.max(np.abs(xh), axis=0) / np.max(np.abs(yh), axis=0))[None]
+        return signal.copy_with_new_time_data(torch.from_numpy(yh).to(x.device))
     y = fft_convolve(x, rir._x[0].to(device=x.device), mode="full")
     if keep_length:
         y = y[..., : x.shape[-1]]

@@ -1,8 +1,7 @@
 """Room and ShoeboxRoom models (`dsptoolbox_tpu/room_acoustics/rooms.py`):
 Sabine checks, room modes, mixing time, detailed absorption (host numpy)
 and the analytical transfer function, whose modal sum over (modes ×
-frequencies) runs in torch on `_config.default_device()`. Not ported: the
-transfer function's plot.
+frequencies) runs in torch on `_config.default_device()`, with its plot.
 """
 
 from __future__ import annotations

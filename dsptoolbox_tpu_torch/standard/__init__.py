@@ -1,6 +1,6 @@
 """Standard functions acting on the container classes
-(`dsptoolbox_tpu/standard`). Not ported yet: ``load_pkl_object`` (with
-`io`)."""
+(`dsptoolbox_tpu/standard`), with ``load_pkl_object`` for the classes'
+pickles."""
 
 from .appending import append_filterbanks, append_signals, append_spectra
 from .enums import (

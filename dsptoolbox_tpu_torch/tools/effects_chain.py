@@ -211,8 +211,8 @@ def eq_target(clean: Signal, denoised: Signal, points: int = EQ_POINTS,
     (host float64, one fetch of the ratio), the range cut at 0.9 × Nyquist."""
     top = 0.45 * clean.sampling_rate_hz
     f_range_hz = (f_range_hz[0], min(f_range_hz[1], top))
-    f, pc = clean.get_spectrum()
-    _, pd = denoised.get_spectrum()
+    f, pc = clean.get_spectrum(return_device=True)
+    _, pd = denoised.get_spectrum(return_device=True)
     pc, pd = pc.reshape(len(f), -1), pd.reshape(len(f), -1)
     ratio = (10 * torch.log10(pc.double().mean(dim=-1) / pd.double().mean(dim=-1))).cpu().numpy()
     freqs = np.geomspace(*f_range_hz, points)

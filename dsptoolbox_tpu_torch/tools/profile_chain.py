@@ -259,7 +259,7 @@ def profile_das(dev, runs: int) -> None:
             return beam.get_beamformer_map(camera.CENTER_HZ, camera.OCTAVE_FRACTION)
 
         def csm_and_map():
-            sig.get_csm(force_computation=True)
+            sig.get_csm(force_computation=True, return_device=True)
             return one_map()
 
         label = f"DAS path {seconds} s x {fs} Hz x 64 mics"
@@ -446,16 +446,16 @@ def profile_c2(dev, runs: int) -> None:
     for C, seconds in (sc.SPEECH, sc.MINUTE):
         sig = sc.signal(C, seconds)
         label = f"config 2, {C} ch x {seconds:g} s"
-        _, _, S = sig.get_spectrogram()
+        _, _, S = sig.get_spectrogram(return_device=True)
         y = istft(S, original_signal=sig)
         steps = (
             ("whole chain", lambda: sc.run(sig)),
-            ("get_spectrogram (B1)", lambda: sig.get_spectrogram(force_computation=True)),
+            ("get_spectrogram (B1)", lambda: sig.get_spectrogram(force_computation=True, return_device=True)),
             ("istft", lambda: istft(S, original_signal=sig)),
-            ("get_spectrum, Welch (B1)", lambda: sig.get_spectrum()),
+            ("get_spectrum, Welch (B1)", lambda: sig.get_spectrum(return_device=True)),
             ("append_signals", lambda: append_signals([sig, y])),
             ("get_csm of the appended signal, Welch (B1)",
-             lambda: append_signals([sig, y]).get_csm()),
+             lambda: append_signals([sig, y]).get_csm(return_device=True)),
         )
         for what, fn in steps:
             profile_call(f"{label}: {what}, kernels", fn, runs, host_calls=10, event_calls=10)

@@ -48,12 +48,14 @@ def signal(channels: int, seconds: float, seed: int = 2) -> Signal:
 
 
 def run(sig: Signal):
-    """Config 2's chain: ``(y, Welch spectrum, CSM (F, 2C, 2C))``."""
-    t, f, S = sig.get_spectrogram(force_computation=True)
+    """Config 2's chain: ``(y, Welch spectrum, CSM (F, 2C, 2C))``, as
+    tensors (the getters with ``return_device``; the CSM is `get_csm`'s
+    cached complex tensor)."""
+    t, f, S = sig.get_spectrogram(force_computation=True, return_device=True)
     y = istft(S, original_signal=sig)
-    f2, sp = sig.get_spectrum(force_computation=True)
+    f2, sp = sig.get_spectrum(force_computation=True, return_device=True)
     two = append_signals([sig, y])
-    f3, C = two.get_csm(force_computation=True)
+    f3, C = two._csm()
     return y, sp, C
 
 

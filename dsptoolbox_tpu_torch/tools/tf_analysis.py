@@ -132,7 +132,7 @@ def ir_calls(ir, windowed, smoothed, trimmed, cycles: int = FDW_CYCLES,
             lambda n=norm: combine_ir_with_dirac(windowed, CROSSOVER_HZ, True, normalization=n))
     calls["spectral_difference"] = lambda: standard.spectral_difference(
         windowed.get_channels(0), windowed.get_channels(1), SMOOTHING)
-    calls["get_spectrum, smoothing"] = lambda: smooth.get_spectrum()
+    calls["get_spectrum, smoothing"] = lambda: smooth.get_spectrum(return_device=True)
     return calls
 
 

@@ -393,7 +393,7 @@ def average_irs(
         energies = (td**2).sum(dim=0)
         avg_sig.time_data = td * (energies / energies[0])
     if not time_average:
-        _, sp = signal.get_spectrum()
+        _, sp = signal.get_spectrum(return_device=True)
         mean_mag = sp.abs().mean(dim=1)
         mean_phase = unwrap(sp.angle(), dim=0).mean(dim=1)
         new_time_data = torch.fft.irfft(torch.polar(mean_mag, mean_phase),
@@ -863,7 +863,7 @@ def harmonic_distortion_analysis(
     pos_thd = len(thd)
     d: dict = {}
     quadratic = not ir2.spectrum_scaling.is_amplitude_scaling()
-    freqs, base_spectrum = ir2.get_spectrum()
+    freqs, base_spectrum = ir2.get_spectrum(return_device=True)
     d["1"] = Spectrum(freqs, base_spectrum**0.5 if quadratic else base_spectrum)
     sp_thd = np.zeros(len(freqs))
     if generate_plot:
@@ -873,7 +873,7 @@ def harmonic_distortion_analysis(
         if not passed_harmonics:
             harm[i] = window_ir(harm[i], len(harm[i]), constant_percentage=0.9)[0]
         harm[i].set_spectrum_parameters(**ir2._spectrum_parameters)
-        f, sp = harm[i].get_spectrum()
+        f, sp = harm[i].get_spectrum(return_device=True)
         inds = f < chirp_range_hz[-1]
         f = f[inds] / (i + 2)
         sp = sp[: int(inds.sum())]  # f ascends: the bins below the range's end
@@ -890,7 +890,7 @@ def harmonic_distortion_analysis(
     freqs_thd = freqs[:ind_end]
     thd_n = Signal(None, thd, ir2.sampling_rate_hz)
     thd_n.set_spectrum_parameters(**ir2._spectrum_parameters)
-    f_thd_n, sp_thd_n = thd_n.get_spectrum()
+    f_thd_n, sp_thd_n = thd_n.get_spectrum(return_device=True)
     if not quadratic:
         sp_thd_n = sp_thd_n.abs() ** 2.0
     if generate_plot:
@@ -964,7 +964,7 @@ def complex_smoothing(
     ``jnp.unwrap``) and smooth it: where the unwrapped phase is large
     (a late IR peak, many bins), float32 rounding of it is too."""
     assert octave_fraction > 0.0, "Octave fraction must be greater than 0"
-    f, sp = ir.get_spectrum()
+    f, sp = ir.get_spectrum(return_device=True)
     window_values = _smoothing_window(window, repr(window.extra_parameter))
 
     def smooth(x):

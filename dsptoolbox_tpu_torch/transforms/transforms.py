@@ -42,6 +42,7 @@ import torch
 
 from .._config import default_complex, default_device
 from ..classes import Filter, FilterBank, MultiBandSignal, Signal, Spectrum
+from ..classes.lazy_array import LazyHostArray
 from ..classes.signal import DeviceTimeData
 from ..helpers.ar_estimation import burg_ar, yule_walker_ar
 from ..helpers.frequency_conversion import hz2mel, mel2hz
@@ -217,7 +218,7 @@ def plot_waterfall(
     sig = sig.get_channels(channel)
     if stft_parameters is not None:
         sig.set_spectrogram_parameters(**stft_parameters)
-    t, f, S = sig.get_spectrogram()
+    t, f, S = sig.get_spectrogram(return_device=True)
     amplitude_scaling = sig.spectrum_scaling.is_amplitude_scaling()
     fig, ax = plt.subplots(figsize=(10, 8), subplot_kw=dict(projection="3d"))
     tt, ff = np.meshgrid(t, f)
@@ -291,7 +292,8 @@ def istft(
 ) -> Signal:
     """Inverse STFT with window² overlap-add (Griffin-Lim least squares;
     reference `transforms.py:444-588`). ``stft (F, frames, C)`` complex, a
-    tensor (or numpy, which goes to the default device). The parameters
+    tensor, a getter's `LazyHostArray` (its tensor, no host copy; the host
+    buffer once it was read there) or numpy (to the default device). The parameters
     come from ``original_signal`` (whose length the output is cut or padded
     to), from a ``parameters`` dict, or one by one.
 
@@ -329,7 +331,10 @@ def istft(
         parameters["window_type"], parameters["window_length_samples"], symmetric=False
     )
     scaling = parameters["scaling"]
-    if not torch.is_tensor(stft):
+    if isinstance(stft, LazyHostArray):
+        # a getter's lazy value: its tensor, or the host buffer once read
+        stft = stft.device_tensor()
+    elif not torch.is_tensor(stft):
         stft = torch.as_tensor(np.asarray(stft)).to(default_device(), default_complex())
 
     # (F, K, C) -> (C, K, F): a view; contiguous for a `get_spectrogram` result

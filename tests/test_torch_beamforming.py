@@ -25,7 +25,9 @@ from dsptoolbox_tpu_torch import _config
 from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.beamforming import beamforming as bfm
 from dsptoolbox_tpu_torch.classes import Signal
+from dsptoolbox_tpu_torch.classes.lazy_array import LazyHostArray
 from dsptoolbox_tpu_torch.ops import cuda_das
+from dsptoolbox_tpu_torch.parallel import device_mesh
 from dsptoolbox_tpu_torch.standard import backend
 from dsptoolbox_tpu_torch.standard.enums import SpectrumMethod, SpectrumScaling, Window
 
@@ -428,7 +430,9 @@ def test_signal_csm_matches_jax(params):
     js = JSignal(None, x, FS).set_spectrum_parameters(**jkw)
     ts = Signal(None, x, FS).set_spectrum_parameters(**tkw)
     f_j, c_j = js.get_csm()
-    f_t, c_t = ts.get_csm()
+    f_t, lazy = ts.get_csm()
+    assert isinstance(lazy, LazyHostArray) and not lazy.is_materialized
+    c_t = lazy.device_tensor()  # the cached tensor, without a host copy
     np.testing.assert_array_equal(f_t, f_j)
     assert c_t.shape == (len(f_t), 9, 9) and c_t.dtype == torch.complex64
     assert_close(c_t.numpy(), np.asarray(c_j), tol=2e-5, name="signal csm")
@@ -439,18 +443,23 @@ def test_signal_csm_matches_jax(params):
 
 def test_signal_csm_cache():
     ts = Signal(None, _noise(0.25, 5, channels=3), FS)
-    _, c1 = ts.get_csm()
-    assert ts.get_csm()[1] is c1
-    assert ts.get_csm(force_computation=True)[1] is not c1
-    _, c2 = ts.get_csm()
+
+    def cached(**kw):
+        """The cached CSM tensor behind `get_csm`'s lazy value."""
+        return ts.get_csm(**kw)[1].device_tensor()
+
+    c1 = cached()
+    assert cached() is c1 and ts._csm()[1] is c1
+    assert cached(force_computation=True) is not c1
+    c2 = cached()
     ts.set_spectrum_parameters(window_length_samples=512)
-    _, c3 = ts.get_csm()
+    c3 = cached()
     assert c3.shape[0] == 257 and c3 is not c2
     ts.time_data = _noise(0.25, 6, channels=3)
-    assert ts.get_csm()[1] is not c3
+    assert cached() is not c3
     ts.set_spectrum_parameters(method=SpectrumMethod.FFT)
     f, c4 = ts.get_csm()  # the FFT-method CSM, cached on the parameters too
-    assert c4.shape == (len(f), 3, 3) and ts.get_csm()[1] is c4
+    assert c4.shape == (len(f), 3, 3) and cached() is c4.device_tensor()
 
 
 def test_signal_time_data_rules_match_jax():
@@ -532,8 +541,9 @@ def test_public_das_map_on_cpu_launches_nothing_and_caches(setting):
     tb.get_beamformer_map(2000, 3)
     assert tb._amp_diff_dev is not cached
     assert cuda_das.launches == 0
-    with pytest.raises(NotImplementedError):
-        tb.get_beamformer_map(2000, 3, mesh=object())
+    # a one-device mesh takes the single-device path
+    torch.testing.assert_close(tb.get_beamformer_map(2000, 3, mesh=device_mesh(1)),
+                               tb.get_beamformer_map(2000, 3), rtol=0, atol=0)
     f, csm, h = tb._csm_and_steering(2000, 3)
     assert csm.shape == (len(f), 9, 9) and h.shape == (len(f), 9, 15)
 

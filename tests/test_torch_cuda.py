@@ -1297,3 +1297,55 @@ def test_compressor_gain_is_the_ema_kernel_average(dev):
     with _config.kernels_off():
         plain = comp.apply(s)._x
     assert _rel(got, plain) <= 2e-5
+
+
+def test_mesh_paths_launch_each_kernel_once_a_shard(dev):
+    """On a mesh of four shards of the card: the CSM (B1), the filter bank
+    (B3) and the DAS map (B5) launch their kernel once a shard and equal the
+    single-device calls bit for bit; float64 mode's `Filter` on a card
+    signal stays on the card in float64, meets scipy at the IIR bound and
+    launches no B2."""
+    from dsptoolbox_tpu_torch import parallel
+    from dsptoolbox_tpu_torch.classes import Filter
+    from dsptoolbox_tpu_torch.standard.enums import FilterPassType
+
+    devs = np.empty(4, dtype=object)
+    devs[:] = [dev] * 4
+    mesh = parallel.Mesh(devs, ("dp",))
+    x = torch.from_numpy(RNG.standard_normal((8, 48000)).astype(np.float32)).to(dev)
+    cuda_framing.launches = 0
+    f, csm = parallel.parallel_csm(x, mesh, sampling_rate_hz=48000)
+    assert cuda_framing.launches == 4
+    _, want = parallel.parallel_csm(x, parallel.device_mesh(1), sampling_rate_hz=48000)
+    assert _rel(csm, want) <= 2e-5
+    bank = np.stack([butter(4, fc, btype="lowpass", fs=48000, output="sos")
+                     for fc in (250, 500, 1000, 2000, 4000, 8000, 12000, 16000)])
+    cuda_iir_bank.launches = 0
+    got = parallel.parallel_filterbank(bank, x, mesh)
+    assert cuda_iir_bank.launches == 4
+    torch.testing.assert_close(got, parallel.parallel_filterbank(bank, x, parallel.device_mesh(1)),
+                               rtol=0, atol=0)
+    M, G, F = 16, 64, 9
+    amp = torch.rand((M, G), device=dev) + 0.5
+    diff = (torch.rand((M, G), device=dev) - 0.5) * 0.6
+    k = torch.linspace(10.0, 60.0, F, device=dev)
+    C = torch.randn((F, M, M), dtype=torch.complex64, device=dev)
+    C = (C + C.mH) / 2
+    cuda_das.launches = 0
+    got = parallel.parallel_das_map(amp, diff, k, C, mesh)
+    assert cuda_das.launches == 4
+    torch.testing.assert_close(
+        got, cuda_das.das_map(amp, diff, k, C.real.contiguous(), C.imag.contiguous()),
+        rtol=0, atol=0)
+    x64 = RNG.standard_normal((2, 48000))
+    filt = Filter.iir_filter(6, 200.0, FilterPassType.Lowpass, 48000)
+    cuda_iir.launches = 0
+    _config.set_default_float("float64")
+    try:
+        y = filt.filter_signal(Signal(None, x64.T, 48000, device=dev)).time_data
+    finally:
+        _config.set_default_float("float32")
+    assert cuda_iir.launches == 0
+    assert y.device.type == "cuda" and y.dtype == torch.float64
+    want = sosfilt(filt.sos, x64.T, axis=0)
+    assert np.abs(y.cpu().numpy() - want).max() <= 5e-6 * np.abs(want).max()

@@ -254,7 +254,7 @@ def test_errors():
         dsp.pipeline(lambda s: s)(np.zeros(16))
     with pytest.raises(AssertionError):  # the JAX package asserts instead
         jdsp.pipeline(lambda s: s)(np.zeros(16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         dsp.pipeline(lambda s: s, mesh=object())
     with pytest.raises(TypeError, match="Spectrum"):
         dsp.pipeline(lambda s: dsp.Spectrum.from_signal(s))(sig)

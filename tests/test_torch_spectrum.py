@@ -280,7 +280,7 @@ def test_signal_fft_spectrum_smoothing_and_scalings_match_jax(smoothing, scaling
     for sig, sc in ((p, scaling), (j, _j(scaling))):
         sig.set_spectrum_parameters(method=type(sig.spectrum_method).FFT, smoothing=smoothing,
                                     scaling=sc)
-    f, got = p.get_spectrum()
+    f, got = p.get_spectrum(return_device=True)
     jf, want = j.get_spectrum()
     np.testing.assert_array_equal(f, jf)
     name = f"{smoothing} {scaling.name}"

@@ -71,7 +71,7 @@ def test_spectrogram_and_istft_match_jax(case):
     kw, reconstructs = SPECTROGRAMS[case]
     s = Signal(None, X2, FS).set_spectrogram_parameters(**kw)
     js = jdsp.Signal(None, X2, FS).set_spectrogram_parameters(**_jax_kwargs(kw))
-    t, f, S = s.get_spectrogram()
+    t, f, S = s.get_spectrogram(return_device=True)
     jt, jf, jS = js.get_spectrogram()
     jS = np.asarray(jS)
     assert S.shape == jS.shape and S.is_complex()
@@ -108,28 +108,28 @@ def test_istft_takes_parameters_or_numpy_and_returns_untrimmed_length():
 
 def test_spectrogram_is_cached_on_its_parameters():
     s = Signal(None, X2, FS)
-    S1 = s.get_spectrogram()[2]
-    assert s.get_spectrogram()[2] is S1
-    assert s.get_spectrogram(force_computation=True)[2] is not S1
-    S2 = s.get_spectrogram()[2]
+    S1 = s.get_spectrogram(return_device=True)[2]
+    assert s.get_spectrogram(return_device=True)[2] is S1
+    assert s.get_spectrogram(force_computation=True, return_device=True)[2] is not S1
+    S2 = s.get_spectrogram(return_device=True)[2]
     s.set_spectrogram_parameters()  # unchanged: the cache stays
-    assert s.get_spectrogram()[2] is S2
+    assert s.get_spectrogram(return_device=True)[2] is S2
     s.set_spectrogram_parameters(window_length_samples=512)
-    assert s.get_spectrogram()[2].shape[0] == 257
+    assert s.get_spectrogram(return_device=True)[2].shape[0] == 257
     s.time_data = X2[:1000]
-    assert s.get_spectrogram()[2].shape == (257, 6, 2)
+    assert s.get_spectrogram(return_device=True)[2].shape == (257, 6, 2)
     # the STFT's channels-first tensor, read back without a copy
     assert S2.permute(2, 1, 0).is_contiguous()
 
 
 def test_spectrogram_masked_in_place_is_not_served_from_the_cache():
     s = Signal(None, X2, FS)
-    S = s.get_spectrogram()[2]
+    S = s.get_spectrogram(return_device=True)[2]
     clean = S.clone()
     istft(S, original_signal=s)  # reads S, modifies nothing: the cache stays
-    assert s.get_spectrogram()[2] is S
+    assert s.get_spectrogram(return_device=True)[2] is S
     S[:10] = 0  # the usual reason to take a spectrogram: a mask
-    S2 = s.get_spectrogram()[2]
+    S2 = s.get_spectrogram(return_device=True)[2]
     assert S2 is not S
     torch.testing.assert_close(S2, clean, rtol=0, atol=0)
     assert torch.count_nonzero(S[:10]) == 0  # the caller's tensor is theirs
@@ -336,7 +336,7 @@ def test_power_spectrogram_takes_the_fft_lengths_frequencies():
     assert P.shape[0] == len(f) == 513
     np.testing.assert_allclose(f, np.fft.rfftfreq(1024, 1 / FS16))
     assert s._get_power_spectrogram_device()[2] is P  # cached with the STFT
-    S = s.get_spectrogram()[2]
+    S = s.get_spectrogram(return_device=True)[2]
     torch.testing.assert_close(P, S.abs() ** 2, rtol=1e-5, atol=1e-9)
     with pytest.raises(Exception):
         jtf.log_mel_spectrogram(js, generate_plot=False)
@@ -552,7 +552,7 @@ def test_dft_matches_fft_bins_and_keeps_its_precision_with_length():
     f, sp = s.get_spectrum()
     got = tf.dft(s, np.asarray(f[20:40]))
     assert isinstance(got, np.ndarray) and got.shape == (20, 1)
-    np.testing.assert_allclose(got, sp[20:40].numpy(), atol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(sp)[20:40], atol=1e-3)
     rng = np.random.default_rng(44)  # tests/test_transforms.py:349-368
     for T in (4800, 480000):
         x = rng.standard_normal((T, 1))
