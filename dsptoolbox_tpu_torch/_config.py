@@ -38,6 +38,8 @@ from functools import lru_cache, wraps
 
 import torch
 
+from . import _trace
+
 _FLOAT = torch.float32
 _COMPLEX = torch.complex64
 
@@ -266,10 +268,12 @@ def retain(obj):
 
 def device_cache(maxsize: int):
     """`functools.lru_cache` for a builder of device constants whose every
-    result, cached or new, also goes through `retain`."""
+    result, cached or new, also goes through `retain`. A miss runs the
+    builder as `_trace.counted_build` (a ``dsp.build`` span, counted with
+    its host seconds in `_trace.builds`); a hit costs no more."""
 
     def wrap(fn):
-        cached = lru_cache(maxsize=maxsize)(fn)
+        cached = lru_cache(maxsize=maxsize)(_trace.counted_build(fn))
 
         @wraps(fn)
         def get(*args):

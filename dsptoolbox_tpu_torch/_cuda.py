@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from . import _trace
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -57,7 +59,8 @@ def build(src: Path, name: str, command: list) -> Path:
     """``_build/lib<name>-<hash>.so`` built from ``src`` with ``command``
     (the compiler and its flags; ``-o <out> <src>`` are appended) unless
     it exists: the hash covers the source, so an edited source is rebuilt.
-    The compiler's output and time go to `BUILD_LOG` under ``name``."""
+    The compiler's output and time go to `BUILD_LOG` under ``name``; the
+    compile is the span ``dsp.build.nvcc.<name>`` (`_trace`)."""
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if not out.exists():
@@ -67,7 +70,9 @@ def build(src: Path, name: str, command: list) -> Path:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run([*command, "-o", tmp, str(src)], capture_output=True, text=True)
+        with _trace.span("dsp.build.nvcc." + name):
+            proc = subprocess.run([*command, "-o", tmp, str(src)], capture_output=True,
+                                  text=True)
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(

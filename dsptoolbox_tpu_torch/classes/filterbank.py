@@ -26,6 +26,7 @@ import torch
 from .._config import in_pipeline
 from ..helpers.other import check_format_in_path
 from ..ops.iir_block import bank_device_operators, sosfilt_bank_apply_planes, stack_sos_bank
+from .._trace import spanned
 from .._enums import FilterBankMode
 from .filter import Filter
 from .filter_helpers import _replace_channels, impulse
@@ -290,6 +291,7 @@ class FilterBank:
         return self
 
     # ======== Filtering =====================================================
+    @spanned("dsp.entry.FilterBank.filter_signal")
     def filter_signal(
         self,
         signal: Signal,

@@ -63,6 +63,7 @@ from ..ops.fft_conv import next_fast_len
 from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import csm_from_spectrum, csm_welch, stft, welch
 from .._enums import MagnitudeNormalization, SpectrumMethod, SpectrumScaling, Window
+from .._trace import spanned
 from .lazy_array import LazyHostArray
 
 
@@ -216,6 +217,7 @@ class Signal:
         return td
 
     @time_data.setter
+    @spanned("dsp.entry.Signal.time_data")
     def time_data(self, new_time_data):
         peak = None
         if isinstance(new_time_data, tuple) and torch.is_tensor(new_time_data[0]):
@@ -609,6 +611,7 @@ class Signal:
             sp = sp.T
         return rfft_freqs(n, self.sampling_rate_hz), sp
 
+    @spanned("dsp.entry.Signal.get_spectrum")
     def get_spectrum(self, force_computation: bool = False, return_device: bool = False):
         """``(freqs, spectrum)`` per the spectrum parameters
         (`classes/signal.py:865-947`): the FFT method gives a complex ``(F,
@@ -652,6 +655,7 @@ class Signal:
                 self._data_versions())
 
     # ======== Cross-spectral matrix =========================================
+    @spanned("dsp.entry.Signal.get_csm")
     def get_csm(self, force_computation: bool = False, mesh=None, return_device: bool = False):
         """``(freqs, csm (F, C, C))``: the cross-spectral matrix
         (`classes/signal.py:1030-1126`), computed on the signal's device and
@@ -749,6 +753,7 @@ class Signal:
         return f, csm
 
     # ======== Spectrogram ===================================================
+    @spanned("dsp.entry.Signal.get_spectrogram")
     def get_spectrogram(self, force_computation: bool = False, return_device: bool = False):
         """``(t, f, S (F, frames, C))``: the complex STFT per the
         spectrogram parameters (`classes/signal.py:1210`), on the signal's

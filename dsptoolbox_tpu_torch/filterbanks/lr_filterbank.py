@@ -25,6 +25,7 @@ from ..classes.signal import Signal
 from ..ops.fft_conv import next_fast_len
 from ..ops.iir import sosfilt, sosfiltfilt
 from ..ops.iir_freq import decay_margin, sos_freq_response_host
+from .._trace import spanned
 from .._enums import FilterBankMode
 
 
@@ -121,6 +122,7 @@ class LRFilterBank:
         return self
 
     # ======== filtering =====================================================
+    @spanned("dsp.entry.LRFilterBank.filter_signal")
     def filter_signal(
         self,
         s: Signal,

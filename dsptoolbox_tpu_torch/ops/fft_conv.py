@@ -17,6 +17,7 @@ import torch
 from scipy.fft import next_fast_len as _scipy_next_fast_len
 
 from .._config import device_cache
+from .._trace import spanned
 
 
 def next_fast_len(n: int, real: bool = True) -> int:
@@ -101,6 +102,7 @@ def _poly_filter(up: int, down: int, beta: float, T: int, dtype: torch.dtype, de
     return torch.as_tensor(h_full, dtype=dtype, device=device), n_pre_remove, n_out
 
 
+@spanned("dsp.ops.fft_conv.resample_poly")
 def resample_poly(x: torch.Tensor, up: int, down: int, beta: float = 5.0) -> torch.Tensor:
     """Polyphase resampling of ``x (..., T)`` matching
     ``scipy.signal.resample_poly``'s defaults (a kaiser(5.0) anti-alias

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import _config
+from .._trace import spanned
 from . import cuda_iir_bank
 from .cuda_iir import MAX_STATES, sosfilt_lead, sosfilt_lead_plain, state_dtype
 from .cuda_iir_bank import MAX_LANES, sosfilt_bank_lead_cuda, sosfilt_bank_lead_plain
@@ -459,6 +460,7 @@ def lfilter_handover(b: np.ndarray, a: np.ndarray, x: torch.Tensor, zi, kept=Non
     return y, zf, (zf, zc_end)
 
 
+@spanned("dsp.ops.iir_block.stack_sos_bank")
 def stack_sos_bank(cascades) -> np.ndarray | None:
     """SOS cascades ``(S_b, 6)`` stacked ``(B, S_max, 6)``, shorter ones
     padded with identity sections; None when real and complex cascades mix
@@ -533,6 +535,7 @@ def _bank_kernel_stages(key: bytes, shape: tuple, np_dtype: str, T: int, L: int,
     return stage(bank[:, :per]), rest
 
 
+@spanned("dsp.ops.iir_block.bank_kernel_stages")
 def bank_kernel_stages(sos_bank: np.ndarray, T: int, device, block_size: int | None = None):
     """The bank's operators as the kernel runs them, on ``device``, built
     once per (bank, T, L, device) and cached: ``(first, rest)``.
@@ -601,6 +604,7 @@ def _kernel_route(stages: tuple, x2: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@spanned("dsp.ops.iir_block.sosfilt_bank_apply_planes")
 def sosfilt_bank_apply_planes(ops: dict, x: torch.Tensor):
     """Apply a bank of blocked SOS cascades to real ``x (..., T)`` (zero
     initial state) → ``(real, imag)``, each ``(B, ..., T)``; ``imag`` is

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .._config import device_cache
+from .._trace import spanned
 from .fft_conv import next_fast_len
 
 _DECAY_EPS = 1e-9  # relative tail level the margin must reach
@@ -177,6 +178,7 @@ def plan_nfft(sos, T: int) -> int | None:
     return next_fast_len(T + m, real=True)
 
 
+@spanned("dsp.ops.iir_freq.sosfilt_freq")
 def sosfilt_freq(
     sos: np.ndarray,
     x: torch.Tensor,

@@ -19,6 +19,7 @@ import torch
 
 from .._config import default_float, device_cache
 from .._enums import SpectrumScaling, Window
+from .._trace import spanned
 from .cuda_framing import windowed_frames
 from .windows import check_cola, get_window
 
@@ -36,6 +37,7 @@ def _device_window(data: bytes, dtype: torch.dtype, device: torch.device) -> tor
     )
 
 
+@spanned("dsp.ops.spectral._windowed_frames")
 def _windowed_frames(
     x: torch.Tensor,
     window: np.ndarray,
@@ -170,6 +172,7 @@ def welch_scale(
     return csd
 
 
+@spanned("dsp.ops.spectral.welch")
 def welch(
     x: torch.Tensor,
     y: torch.Tensor | None = None,
@@ -202,6 +205,7 @@ def welch(
                          average=average, scaling=scaling)
 
 
+@spanned("dsp.ops.spectral.stft")
 def stft(
     x: torch.Tensor,
     *,
@@ -240,6 +244,7 @@ def stft(
     return time_s, freqs_hz, S
 
 
+@spanned("dsp.ops.spectral.stft_plan")
 def stft_plan(
     window_length_samples: int, window_type: Window, overlap_percent: float
 ) -> tuple[np.ndarray, int, int]:
@@ -307,6 +312,7 @@ def _assemble_csm_reference_order(Q: torch.Tensor) -> torch.Tensor:
     return lower + torch.conj(lower.transpose(-1, -2))
 
 
+@spanned("dsp.ops.spectral.csm_welch")
 def csm_welch(
     time_data: torch.Tensor,
     *,

@@ -9,9 +9,11 @@ import torch
 from ..classes import FilterBank, MultiBandSignal, Signal, Spectrum
 from ..classes.signal import DeviceTimeData
 from ..ops.pad_trim import pad_trim_axis
+from .._trace import spanned
 from .enums import SpectrumType
 
 
+@spanned("dsp.entry.standard.append_signals")
 def append_signals(signals, allow_padding_trimming: bool = True, at_end: bool = True):
     """The channels of several signals as one (`appending.py:13`): every
     signal padded or trimmed to the first one's length (at its end, or at

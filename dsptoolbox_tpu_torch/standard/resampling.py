@@ -11,9 +11,11 @@ import numpy as np
 from ..classes.filter import Filter
 from ..classes.signal import Signal
 from ..ops.fft_conv import resample_poly
+from .._trace import spanned
 from .enums import FilterCoefficientsType
 
 
+@spanned("dsp.entry.standard.resample")
 def resample(sig: Signal, desired_sampling_rate_hz: int, rescaling: bool = False) -> Signal:
     """Polyphase resampling of the real part (`resampling.py:16`);
     ``rescaling`` multiplies by down/up."""

@@ -54,6 +54,7 @@ from ..ops.pad_trim import pad_trim_axis
 from ..ops.spectral import _device_window, _windowed_frames
 from ..ops.windows import get_window
 from ..plots.plots import _plt, general_matrix_plot
+from .._trace import spanned
 from .._enums import FilterBankMode, FilterCoefficientsType, FilterPassType, Window
 from ._backend import (
     MorletWavelet,
@@ -278,6 +279,7 @@ def mfcc(
     return time_s, f_mel, coeffs
 
 
+@spanned("dsp.entry.transforms.istft")
 def istft(
     stft,
     original_signal: Signal | None = None,
