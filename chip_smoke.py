@@ -945,7 +945,9 @@ def filterbank_phase(dev, rng) -> dict:
         lead = ops["n_full"] * ops["L"]
         out_k = torch.empty((P, len(bank), xin.shape[0], Tn), device=dev)
         out_p = torch.empty_like(out_k)
+        on_chip = cuda_iir_bank.state_on_chip
         s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, xin, out_k)
+        on_chip = cuda_iir_bank.state_on_chip - on_chip
         s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, xin, out_p)
         torch.cuda.synchronize()
         y_err = float((out_k[..., :lead] - out_p[..., :lead]).abs().max())
@@ -954,8 +956,11 @@ def filterbank_phase(dev, rng) -> dict:
         z_scale = max(1.0, float(s_p.abs().max()))
         print(f"B3 bank {label} (P, B, R, T) = {tuple(out_k.shape)}, "
               f"{ops['kernel']['lanes']} lanes, L = {ops['L']}, output pass "
-              f"{cuda_iir_bank.output_pass(ops['L'])}: |dy| {y_err:.3e} <= 1e-5*{y_scale:.3e}; "
-              f"|dzf| {z_err:.3e} <= 1e-6*{z_scale:.3e}")
+              f"{cuda_iir_bank.output_pass(ops['L'])}, state on chip {on_chip}: |dy| "
+              f"{y_err:.3e} <= 1e-5*{y_scale:.3e}; |dzf| {z_err:.3e} <= 1e-6*{z_scale:.3e}")
+        wide = cuda_iir_bank.keeps_state_on_chip(ops["L"], len(bank), ops["kernel"]["lanes"])
+        if on_chip != wide:
+            fail(f"the bank kernel took the wrong route ({label})")
         if not (y_err <= 1e-5 * y_scale and z_err <= 1e-6 * z_scale):
             fail(f"bank kernel disagrees with its plain version ({label})")
         b3_err = max(b3_err, y_err)
@@ -983,13 +988,17 @@ def filterbank_phase(dev, rng) -> dict:
                "banded": cuda_banded, "iir_bank": cuda_iir_bank}
     for m in modules.values():
         m.launches = 0
+    cuda_iir_bank.state_on_chip = 0
     out = fc.run(sig, lr, gt, third)
     torch.cuda.synchronize()
     launched = {name: m.launches for name, m in modules.items()}
+    on_chip = cuda_iir_bank.state_on_chip
     label = f"config-3 path {C} ch x {T} samples"
-    print(f"{label}: launches {launched}")
+    print(f"{label}: launches {launched}, B3 state on chip {on_chip}")
     if launched["iir_bank"] < 2:
         fail("the filter-bank path did not run the bank kernel for both banks")
+    if on_chip != 2:
+        fail("the filter-bank path's two banks did not keep their states on the chip")
     lr_b, gt_b, res, third_b = out
     shapes = (("LR", lr_b, 4, False), ("gammatone", gt_b, len(gt.filters), True),
               ("1/3 octave", third_b, len(third.filters), False))
@@ -1096,7 +1105,7 @@ def filterbank_phase(dev, rng) -> dict:
     return {"name": "sosfilt_bank", "route": "cuda",
             "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
             "replaces": "dsptoolbox_tpu/ops/pallas_iir_bank.py:267",
-            "launches": launched["iir_bank"], "max_abs_err": b3_err,
+            "launches": launched["iir_bank"], "state_on_chip": on_chip, "max_abs_err": b3_err,
             "ms": b3["ms"], "plain_ms": b3["plain_ms"], "bound_ms": b3_bound,
             "bound_by": b3_by, "library_ms": None, "bound_ms_ffma": b3_ffma,
             "ms_by_bank": {k: b3[f"ms_{k}"] for k in b3_ops}}
@@ -1926,15 +1935,18 @@ def features_phase(dev, session, irs, card: str) -> dict:
     lead = ops["n_full"] * ops["L"]
     y_k = torch.empty((1, len(bank), C, T), device=dev)
     y_p = torch.empty_like(y_k)
+    on_chip = cuda_iir_bank.state_on_chip
     cuda_iir_bank.sosfilt_bank_lead_cuda(ops, session._x, y_k)
+    on_chip = cuda_iir_bank.state_on_chip - on_chip
     cuda_iir_bank.sosfilt_bank_lead_plain(ops, session._x, y_p)
     torch.cuda.synchronize()
     b3_err = float((y_k[..., :lead] - y_p[..., :lead]).abs().max())
     scale = float(y_p[..., :lead].abs().max())
     print(f"features: B3 bank (B, R, T) = {(len(bank), C, T)}, {ops['kernel']['lanes']} lanes, "
-          f"L = {ops['L']}, {len(rest[0]) if rest else 0} more stages; |dy| {b3_err:.3e} "
-          f"<= 1e-5*{scale:.3e}")
-    if rest or not b3_err <= 1e-5 * scale:
+          f"L = {ops['L']}, {len(rest[0]) if rest else 0} more stages, state on chip "
+          f"{on_chip}; |dy| {b3_err:.3e} <= 1e-5*{scale:.3e}")
+    wide = cuda_iir_bank.keeps_state_on_chip(ops["L"], len(bank), ops["kernel"]["lanes"])
+    if rest or on_chip != wide or not b3_err <= 1e-5 * scale:
         fail("features: B3 disagrees with its plain version at the bank")
     k_ms, p_ms = time_pair(lambda: cuda_iir_bank.sosfilt_bank_lead_cuda(ops, session._x, y_k),
                            lambda: cuda_iir_bank.sosfilt_bank_lead_plain(ops, session._x, y_p),

@@ -23,7 +23,10 @@ the state before block 0 (`bank_form`). The kernel's passes: x·M on the
 fp64 tensor cores, the fp64 state chain cut into chunks of ~sqrt(K/2)
 blocks walked in parallel with one serial carry from ``s0`` over the chunk
 starts, and an output pass that writes y once (for L <= 128 on the tensor
-cores: x·h as three TF32 products of a hi/lo split, s·G in fp64). The plain
+cores: x·h as three TF32 products of a hi/lo split, s·G in fp64). A lead of
+`cuda_iir_bank.WIDE_LANES` states or more at L <= 128 takes the bank's wide
+route (`cuda_iir_bank.keeps_state_on_chip`), which keeps the block states on
+the chip and chains over tiles of 64 blocks. The plain
 version resolves the same chain with a log-depth doubling prefix of batched
 matmuls, as `dsptoolbox_tpu/ops/iir_block.py` does.
 
@@ -35,12 +38,17 @@ length and up to 32 states (16 sections).
 from __future__ import annotations
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from .. import _config
 from . import cuda_iir_bank
 
 # kernel launches since the last reset (read by run reports)
 launches = 0
+
+# the wide route's operators of each state operator A (the cached device
+# operators recur from call to call), dropped with A
+_tile_operators = WeakTensorKeyDictionary()
 
 # states the kernel's chain holds: one per lane of a warp
 MAX_STATES = cuda_iir_bank.MAX_LANES
@@ -85,13 +93,19 @@ def bank_form(H, G, A, M, xb, s0):
     ``ops`` holds the operators with a band axis of one and their real form
     (``h = H[0]``, G as one plane); ``x`` is ``xb`` as ``B`` rows of ``K·L``
     samples, ``s0`` the band's state ``(1, B, N)``. Views of the arguments
-    (``x`` a copy only if ``xb``'s blocks do not tile its rows).
+    (``x`` a copy only if ``xb``'s blocks do not tile its rows); where the
+    lead takes the wide route (`cuda_iir_bank.keeps_state_on_chip`), the
+    kernel's ``W`` too, built once per ``A``.
     """
     B, K, L = xb.shape
+    kops = {"h": H[None, :1], "G": G[None, None], "A": A[None], "M": M, "lanes": A.shape[0]}
+    if cuda_iir_bank.keeps_state_on_chip(L, 1, A.shape[0]):
+        W = _tile_operators.get(A)
+        if W is None:
+            W = _tile_operators[A] = cuda_iir_bank.tile_operators(kops["A"])
+        kops["W"] = W
     ops = {"HmatT": H[None], "GyT": G[None], "ALT": A[None], "MT": M[None],
-           "L": L, "n_full": K,
-           "kernel": {"h": H[None, :1], "G": G[None, None], "A": A[None], "M": M,
-                      "lanes": A.shape[0]}}
+           "L": L, "n_full": K, "kernel": kops}
     return ops, xb.reshape(B, K * L), s0[None]
 
 

@@ -29,9 +29,13 @@ Bound on the H100: the output bytes (the planes of every band) and the
 Toeplitz products; see the source for the three passes. The output pass
 runs on the tensor cores for blocks of up to `MMA_MAX_L` samples (x·h as
 3×TF32 m16n8k8 ``mma.sync``, s·G as fp64 m16n8k4) and on the CUDA cores
-(fp32 FFMA, fp64 FMA) for longer ones (`output_pass`). The same kernel,
-with one band and a start state, is the blocked-IIR lead (`cuda_iir`),
-through `launch`.
+(fp32 FFMA, fp64 FMA) for longer ones (`output_pass`). The wide banks
+(`keeps_state_on_chip`: blocks of up to `MMA_MAX_L`, at least
+`WIDE_LANES_A_BAND` lanes a band and `WIDE_LANES` in all) keep each block's
+state on the chip: only the
+state entering each tile of `TILE` blocks goes to device memory, and the
+output pass walks the tile itself. The same kernel, with one band and a
+start state, is the blocked-IIR lead (`cuda_iir`), through `launch`.
 
 `iir_block.sosfilt_bank_apply_planes` chooses: a CUDA tensor goes to
 `sosfilt_bank_lead_cuda` unless the switch (`_config.set_bank_kernel`) is
@@ -50,6 +54,9 @@ from .. import _cuda
 
 # kernel launches since the last reset (read by run reports)
 launches = 0
+# of those, the launches that kept the block states on the chip
+# (`keeps_state_on_chip`), counted by `launch`
+state_on_chip = 0
 
 # real state lanes the kernel's chain holds: one per lane of a warp
 MAX_LANES = 32
@@ -58,10 +65,20 @@ MAX_LANES = 32
 # tile of h's Toeplitz operator)
 MMA_MAX_L = 128
 
+# fewest band-lanes (bands x real state lanes) and fewest lanes a band that
+# keep the block states on the chip, and the blocks of a row per tile there
+# (the kernel's tile). Measured on the H100 (PERF.md §6): at 8 lanes a band
+# and 16 band-lanes or more the wide route was as fast as the three passes
+# or faster (to 0.55x); with 4-6 lanes a band, or one band of 8-12 lanes, it
+# was as fast or up to 19 % slower on many rows
+WIDE_LANES = 16
+WIDE_LANES_A_BAND = 8
+TILE = 64
+
 _c = ctypes.c_void_p
 _KERNEL = _cuda.Kernel(
     "iir_bank", "dsptb_iir_bank_f32",
-    [_c] * 10 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+    [_c] * 11 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                  ctypes.c_longlong, _c],
     "IIR bank kernel",
@@ -72,6 +89,17 @@ def _chunk(K: int) -> int:
     """Chunk length F of the kernel's state chain: serial depth ~2F + K/F,
     least at F = sqrt(K/2)."""
     return max(1, math.ceil(math.sqrt(K / 2)))
+
+
+def keeps_state_on_chip(L: int, n_bands: int, lanes: int) -> bool:
+    """Whether a launch at block length ``L`` over ``n_bands`` bands of
+    ``lanes`` real state lanes takes the kernel's wide route, which writes
+    no block state to device memory: blocks of up to `MMA_MAX_L` (the
+    tensor-core output pass), at least `WIDE_LANES_A_BAND` lanes a band and
+    `WIDE_LANES` in all (the filter banks, the chain's crossover, leads of 8
+    sections or more). Below that, each tile's walk has too little work
+    beside it, and the three passes' state buffer is small."""
+    return L <= MMA_MAX_L and lanes >= WIDE_LANES_A_BAND and n_bands * lanes >= WIDE_LANES
 
 
 def output_pass(L: int) -> str:
@@ -92,28 +120,13 @@ def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor,
     ``out (P, B, R, T)``. Returns the state after block K, ``(B, R, N)`` in
     the state dtype.
     """
-    HmatT, GyT, MT = ops["HmatT"], ops["GyT"], ops["MT"]  # (B,L,L) (B,N,L) (B,L,N)
+    HmatT, GyT = ops["HmatT"], ops["GyT"]  # (B,L,L) (B,N,L)
     L, n_full = ops["L"], ops["n_full"]
     R = x.shape[0]
     n_bands = HmatT.shape[0]
     xb = x[:, : n_full * L].reshape(R, n_full, L).to(HmatT.dtype)
     y_free = torch.einsum("rkl,blm->brkm", xb, HmatT)
-    X = torch.einsum("rkl,bln->brkn", xb.to(MT.dtype), MT)  # (B, R, K, N)
-    if s0 is not None:
-        # the start state rides through the prefix in the first injection
-        s0 = s0.to(X.dtype)
-        X[..., 0, :] += torch.einsum("brn,bnm->brm", s0, ops["ALT"])
-    # X_k = sum_{j<=k} A^{k-j} v_j: the log-depth doubling prefix
-    ALt_pow = ops["ALT"]  # (B, N, N)
-    shift = 1
-    while shift < n_full:
-        upd = torch.einsum("brkn,bnm->brkm", X[..., :-shift, :], ALt_pow)
-        X = torch.cat([X[..., :shift, :], X[..., shift:, :] + upd], dim=-2)
-        ALt_pow = torch.einsum("bnm,bmp->bnp", ALt_pow, ALt_pow)
-        shift *= 2
-    # block k sees X_{k-1}; block 0 the start state
-    first = torch.zeros_like(X[..., :1, :]) if s0 is None else s0.unsqueeze(-2)
-    s_starts = torch.cat([first, X[..., :-1, :]], dim=-2)
+    s_starts, s_end = block_states(ops, xb, s0)
     y = y_free.to(GyT.dtype) + torch.einsum("brkn,bnl->brkl", s_starts, GyT)
     y = y.to(HmatT.dtype).reshape(n_bands, R, n_full * L)
     lead = out[..., : n_full * L]
@@ -122,7 +135,32 @@ def sosfilt_bank_lead_plain(ops: dict, x: torch.Tensor, out: torch.Tensor,
         lead[1] = y.imag
     else:
         lead[0] = y
-    return X[..., -1, :]
+    return s_end
+
+
+def block_states(ops: dict, xb: torch.Tensor, s0: torch.Tensor | None = None) -> tuple:
+    """The states of `sosfilt_bank_lead_plain`'s blocks by the log-depth
+    doubling prefix: for blocks ``xb (R, K, L)`` and the start state ``s0
+    (B, R, N)`` (zero when None), ``(starts, end)``: the state entering
+    every block, ``(B, R, K, N)``, and the state after block K, ``(B, R,
+    N)``, in the state dtype."""
+    MT = ops["MT"]  # (B, L, N)
+    X = torch.einsum("rkl,bln->brkn", xb.to(MT.dtype), MT)  # (B, R, K, N)
+    if s0 is not None:
+        # the start state rides through the prefix in the first injection
+        s0 = s0.to(X.dtype)
+        X[..., 0, :] += torch.einsum("brn,bnm->brm", s0, ops["ALT"])
+    # X_k = sum_{j<=k} A^{k-j} v_j: the log-depth doubling prefix
+    ALt_pow = ops["ALT"]  # (B, N, N)
+    shift = 1
+    while shift < X.shape[-2]:
+        upd = torch.einsum("brkn,bnm->brkm", X[..., :-shift, :], ALt_pow)
+        X = torch.cat([X[..., :shift, :], X[..., shift:, :] + upd], dim=-2)
+        ALt_pow = torch.einsum("bnm,bmp->bnp", ALt_pow, ALt_pow)
+        shift *= 2
+    # block k sees X_{k-1}; block 0 the start state
+    first = torch.zeros_like(X[..., :1, :]) if s0 is None else s0.unsqueeze(-2)
+    return torch.cat([first, X[..., :-1, :]], dim=-2), X[..., -1, :]
 
 
 def kernel_operators(ops: dict) -> dict:
@@ -133,7 +171,9 @@ def kernel_operators(ops: dict) -> dict:
     response). A complex bank's state ``s = [Re s, Im s]`` gives
     ``A = [[Ar, Ai], [-Ai, Ar]]``, ``M = [Mr, Mi]`` and the planes
     ``G_re = [Gr; -Gi]``, ``G_im = [Gi; Gr]``. ``M`` is laid out
-    ``(L, B·Ns)``: column ``b·Ns + n`` is lane n of band b.
+    ``(L, B·Ns)``: column ``b·Ns + n`` is lane n of band b. Where the bank
+    keeps its states on the chip (`keeps_state_on_chip`), ``W`` holds its
+    `tile_operators`, and `launch` takes the wide route.
     """
     H, G, A, M = ops["HmatT"], ops["GyT"], ops["ALT"], ops["MT"]
     n_bands, L = H.shape[0], H.shape[-1]
@@ -146,13 +186,28 @@ def kernel_operators(ops: dict) -> dict:
     else:
         h, G = h[None], G[None]
     lanes = A.shape[-1]
-    return {
+    A, M = A.to(torch.float64).contiguous(), M.to(torch.float64)  # (B, Ns, Ns), (B, L, Ns)
+    kops = {
         "h": h.to(torch.float32).contiguous(),
         "G": G.to(torch.float64).contiguous(),
-        "A": A.to(torch.float64).contiguous(),
-        "M": M.to(torch.float64).permute(1, 0, 2).reshape(L, n_bands * lanes).contiguous(),
+        "A": A,
+        "M": M.permute(1, 0, 2).reshape(L, n_bands * lanes).contiguous(),
         "lanes": lanes,
     }
+    if keeps_state_on_chip(L, n_bands, lanes):
+        kops["W"] = tile_operators(A)
+    return kops
+
+
+def tile_operators(A: torch.Tensor) -> torch.Tensor:
+    """``W (B, 6·Ns, Ns)`` of the wide route for the real-form ``A (B, Ns,
+    Ns)`` float64: per band ``[A^3; A^2; A; I; A^4; A^64]``. The first four
+    take 4 blocks' injections to one super-block's, A^4 steps a super-block
+    and A^64 a tile of `TILE` blocks (the kernel's tile)."""
+    A2 = A @ A
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    return torch.cat([A2 @ A, A2, A, eye, A2 @ A2, torch.linalg.matrix_power(A, TILE)],
+                     1).contiguous()
 
 
 def launch(kops: dict, x: torch.Tensor, out: torch.Tensor, K: int,
@@ -161,22 +216,30 @@ def launch(kops: dict, x: torch.Tensor, out: torch.Tensor, K: int,
     for the first K blocks of ``x (R, ·)`` (unit time stride) into ``out
     (P, B, R, ·)`` (unit time stride, rows contiguous per plane and band),
     from ``s0 (B, R, Ns)`` float64 or zero. Returns zf ``(B, R, Ns)``
-    float64. Checks nothing and counts nothing: its callers do both."""
+    float64. The route is ``kops``': the wide one where it holds ``W``
+    (`tile_operators`), else the three passes. Checks nothing and counts
+    only `state_on_chip`: its callers check and count `launches`."""
+    global state_on_chip
     h, G, A, M, Ns = kops["h"], kops["G"], kops["A"], kops["M"], kops["lanes"]
+    W = kops.get("W")
     P, n_bands, L = h.shape
     R = x.shape[0]
-    F = _chunk(K)
+    on_chip = W is not None
+    F = TILE if on_chip else _chunk(K)
     # one float64 allocation (a call's host time is of the order of its
-    # device time): vs (R·K, B·Ns), carry (B·R, ceil(K/F), Ns), zf (B, R, Ns)
-    n_vs = R * K * n_bands * Ns
+    # device time): vs (R·K, B·Ns), none on the wide route; carry (B·R,
+    # ceil(K/F), Ns); zf (B, R, Ns)
+    n_vs = 0 if on_chip else R * K * n_bands * Ns
     n_carry = n_bands * R * -(-K // F) * Ns
     buf = torch.empty(n_vs + n_carry + n_bands * R * Ns, dtype=torch.float64, device=x.device)
     zf = buf[n_vs + n_carry:].view(n_bands, R, Ns)
     vs = buf.data_ptr()
     _KERNEL.launch(x.get_device(), x.data_ptr(), h.data_ptr(), M.data_ptr(), A.data_ptr(),
-                   G.data_ptr(), None if s0 is None else s0.data_ptr(), out.data_ptr(), vs,
-                   vs + 8 * n_vs, zf.data_ptr(), n_bands, R, K, L, Ns, P, F, x.stride(0),
-                   out.stride(2))
+                   G.data_ptr(), None if s0 is None else s0.data_ptr(), out.data_ptr(),
+                   None if on_chip else vs, vs + 8 * n_vs, zf.data_ptr(),
+                   W.data_ptr() if on_chip else None, n_bands, R, K, L, Ns, P, F,
+                   x.stride(0), out.stride(2))
+    state_on_chip += on_chip
     return zf
 
 

@@ -107,7 +107,9 @@ def test_framing_kernel_on_a_misaligned_x(dev, L, step):
 # N <= 8, 16, 32); K = 1 and 2 are the chunked chain's edge cases; L <= 128
 # takes the tensor-core output pass, L = 200 and 256 two column tiles of the
 # FFMA pass, L >= 512 more, with x·M over several l chunks; a zero start
-# state; the chain's shape (16 rows x 3000 blocks of 128, N = 8)
+# state; the chain's shape (16 rows x 3000 blocks of 128, N = 8); N = 18,
+# 24 and 32 at L = 128 take the wide route (tiles of 64 blocks: K = 200 is
+# three full tiles and a partial one, from a start state)
 @pytest.mark.parametrize(
     "order,L,B,K,out_pass,zi_scale",
     [(6, 128, 3, 40, "mma", 1), (4, 98, 2, 17, "mma", 1), (2, 64, 1, 300, "mma", 1),
@@ -115,7 +117,7 @@ def test_framing_kernel_on_a_misaligned_x(dev, L, step):
      (4, 128, 1, 1, "mma", 1), (4, 64, 2, 2, "mma", 1), (4, 3, 2, 50, "mma", 1),
      (8, 200, 2, 20, "ffma", 1), (8, 256, 3, 17, "ffma", 1), (6, 512, 2, 16, "ffma", 1),
      (32, 1024, 2, 16, "ffma", 1), (4, 1000, 1, 5, "ffma", 1), (4, 128, 2, 40, "mma", 0),
-     (8, 128, 16, 3000, "mma", 1)],
+     (8, 128, 16, 3000, "mma", 1), (24, 128, 3, 200, "mma", 1)],
 )
 def test_iir_lead_kernel_matches_plain(dev, order, L, B, K, out_pass, zi_scale):
     sos = butter(order, 0.2, output="sos")
@@ -131,9 +133,13 @@ def test_iir_lead_kernel_matches_plain(dev, order, L, B, K, out_pass, zi_scale):
     args = (ops["HmatT"], ops["GyT"], ops["ALT"], ops["MT"], xb,
             ops["zi"].reshape(B, -1))
     assert cuda_iir_bank.output_pass(L) == out_pass
-    before = (cuda_iir.launches, cuda_iir_bank.launches)
+    before = (cuda_iir.launches, cuda_iir_bank.launches, cuda_iir_bank.state_on_chip)
     yk, zk = cuda_iir.sosfilt_lead_cuda(*args)
-    assert (cuda_iir.launches, cuda_iir_bank.launches) == (before[0] + 1, before[1])
+    # a lead of 16 states or more at L <= 128 takes the wide route
+    wide = cuda_iir_bank.keeps_state_on_chip(L, 1, order)
+    assert wide == (order >= 16 and L <= 128)
+    assert (cuda_iir.launches, cuda_iir_bank.launches, cuda_iir_bank.state_on_chip) == (
+        before[0] + 1, before[1], before[2] + wide)
     yp, zp = cuda_iir.sosfilt_lead_plain(*args)
     torch.cuda.synchronize()
     assert yk.shape == (B, K, L) and zk.shape == (B, order)
@@ -577,11 +583,41 @@ def _real_bank(n_bands, sections):
     ])
 
 
+def _fb_banks() -> dict:
+    """The filter-bank cell's two banks at 44.1 kHz: the 16-band 500-4000 Hz
+    gammatone bank (complex, 16 lanes a band: 256 band-lanes) and the
+    28-band 1/3-octave bank (6 real sections, 12 lanes: 336)."""
+    from dsptoolbox_tpu_torch.classes.filterbank import _sos_bank_or_none
+    from dsptoolbox_tpu_torch.filterbanks import (
+        auditory_filters_gammatone, fractional_octave_bands,
+    )
+
+    return {
+        "gammatone": _sos_bank_or_none(
+            auditory_filters_gammatone([500.0, 4000.0], sampling_rate_hz=44100).filters),
+        "third": np.stack([f.sos for f in
+                           fractional_octave_bands([31.5, 16e3], 3, 6, 44100)[0].filters]),
+    }
+
+
+_FB_BANKS = _fb_banks()
+
 # (bank, R, T): B = 1 and 5 complex; R = 1 and 3; T = 3000 and 5000 (not
 # multiples of 128); a 16-section real bank (32 state lanes, the kernel's
 # widest); a 6-section complex bank (24 lanes); a 1-section real bank (2
 # lanes); the 4-band crossover of the headline chain; a short input (T =
-# 1000, 7 blocks)
+# 1000, 7 blocks); the filter-bank cell's two banks (the wide route, which
+# keeps the block states on the chip in tiles of 64 blocks) at K = 1, 63,
+# 64, 65 and 130 blocks of 128 and a 77-sample tail (one partial tile, one
+# exact, one and two straddled), and at one block of 100 (not a multiple
+# of 8); 8 bands of 8 lanes (an octave bank's shape, the wide route's
+# smallest compile-time state size) and 16 bands of 4 lanes (64 band-lanes
+# on the three passes: 4 lanes a band stay there) at K = 65. Of the first
+# cases, complex-B1 (16 band-lanes), complex-B2 (32), complex-B5 (80),
+# real16-B2 (64), complex6-B3 (72) and the crossover (32) take the wide
+# route too (8 lanes a band and 16 in all, or more); real1-B3 (2 lanes a
+# band) the three passes, which wide banks take at blocks above 128
+# (`test_bank_kernel_block_lengths`)
 _B3_CASES = {
     "real1-B3-R2-T3000": (_real_bank(3, 1), 2, 3000),
     "complex-B2-R2-T1000": (_complex_bank(2, 4), 2, 1000),
@@ -590,6 +626,11 @@ _B3_CASES = {
     "real16-B2-R3-T3000": (_real_bank(2, 16), 3, 3000),
     "complex6-B3-R1-T5000": (_complex_bank(3, 6), 1, 5000),
     "crossover-B4-R2-T5000": (headline._stacked_bank(48000), 2, 5000),
+    **{f"fb-{name}-R3-K{K}": (bank, 3, 128 * K + 77)
+       for name, bank in _FB_BANKS.items() for K in (1, 63, 64, 65, 130)},
+    "fb-gammatone-R3-T100": (_FB_BANKS["gammatone"], 3, 100),
+    "real2-B16-R3-K65": (_real_bank(16, 2), 3, 128 * 65 + 77),
+    "real4-B8-R3-K65": (_real_bank(8, 4), 3, 128 * 65 + 77),
 }
 
 
@@ -603,11 +644,18 @@ def test_bank_kernel_matches_plain(dev, case):
     lead = ops["n_full"] * ops["L"]
     out_k = torch.zeros((P, len(bank), R, T), device=dev)
     out_p = torch.zeros_like(out_k)
-    before = cuda_iir_bank.launches
+    before = (cuda_iir_bank.launches, cuda_iir_bank.state_on_chip)
     s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, out_k)
     s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_p)
     torch.cuda.synchronize()
-    assert cuda_iir_bank.launches == before + 1
+    # 8 lanes a band and 16 in all, or more, keep the states on the chip;
+    # the narrow cases do not
+    wide = cuda_iir_bank.keeps_state_on_chip(ops["L"], len(bank), ops["kernel"]["lanes"])
+    assert wide == (case not in ("real1-B3-R2-T3000", "real2-B16-R3-K65"))
+    if case.startswith("fb-"):
+        assert wide and len(bank) * ops["kernel"]["lanes"] in (256, 336)
+    assert (cuda_iir_bank.launches, cuda_iir_bank.state_on_chip) == (before[0] + 1,
+                                                                      before[1] + wide)
     yk, yp = out_k[..., :lead], out_p[..., :lead]
     # the kernel sums x·H in another order than cuBLAS (fp32) and walks the
     # fp64 state chain where the plain version doubles: B2's tolerances
@@ -721,19 +769,24 @@ def test_bank_kernel_block_lengths(dev, L):
     """Block lengths other than 128: below it on the tensor cores (13 and
     100 not multiples of 8: x and h zero-padded), two and three column
     tiles above it on the CUDA cores, where x's tile is streamed through
-    shared memory."""
-    bank = _complex_bank(2, 4)
+    shared memory. Two banks of 4 complex sections: 2 bands (32
+    band-lanes) and 5 (80); above 128 both take the three passes (x·M for
+    80 lanes in chunks of 64 on the CUDA cores), below it the wide route."""
     T = 17 * L + 9
     x = torch.from_numpy(RNG.standard_normal((2, T)).astype(np.float32)).to(dev)
-    ops = iir_block.operators_to_torch(
-        iir_block.sosfilt_bank_operators(bank, T, block_size=L), dev, torch.complex64)
-    out_k = torch.zeros((2, 2, 2, T), device=dev)
-    out_p = torch.zeros_like(out_k)
-    s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, out_k)
-    s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_p)
-    torch.cuda.synchronize()
-    assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
-    assert float((s_k - s_p).abs().max()) <= 1e-6 * max(1.0, float(s_p.abs().max()))
+    for n_bands in (2, 5):
+        ops = iir_block.operators_to_torch(
+            iir_block.sosfilt_bank_operators(_complex_bank(n_bands, 4), T, block_size=L), dev,
+            torch.complex64)
+        out_k = torch.zeros((2, n_bands, 2, T), device=dev)
+        out_p = torch.zeros_like(out_k)
+        before = cuda_iir_bank.state_on_chip
+        s_k = cuda_iir_bank.sosfilt_bank_lead_cuda(ops, x, out_k)
+        s_p = cuda_iir_bank.sosfilt_bank_lead_plain(ops, x, out_p)
+        torch.cuda.synchronize()
+        assert cuda_iir_bank.state_on_chip == before + (L <= 128)
+        assert float((out_k - out_p).abs().max()) <= 1e-5 * float(out_p.abs().max())
+        assert float((s_k - s_p).abs().max()) <= 1e-6 * max(1.0, float(s_p.abs().max()))
 
 
 def test_ism_lattice_on_card_matches_host_oracle(dev):

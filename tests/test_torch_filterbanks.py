@@ -170,6 +170,96 @@ def test_kernel_real_form_reproduces_the_plain_lead():
         assert float((s - s_end).abs().max()) <= 1e-9 * float(s_end.abs().max())
 
 
+def _tile_route_states(k: dict, x: torch.Tensor, K: int, s0=None) -> tuple:
+    """The state path of B3's wide route (`csrc/iir_bank.cu`, namespace
+    ``tiles``) in float64 torch on the kernel's real form ``k``, step by step
+    as the kernel takes it: x·M per block (zero input past block K); per
+    tile of `cuda_iir_bank.TILE` blocks, the injections of its 16
+    super-blocks of 4 blocks (V·P4) and their walk with A^4; the end state
+    of every full tile walked from zero; the carry S_{t+1} = S_t A^64 +
+    end_t over the tile starts from ``s0`` (zero when None); in each tile
+    the super-blocks walked from
+    S_t and the states inside them in three steps s_{4m+j} = s_{4m+j-1} A +
+    v_{4m+j-1}. Returns the state entering every block ``(B, R, K, Ns)``
+    and the state after block K ``(B, R, Ns)``."""
+    A, M, Ns = k["A"], k["M"], k["lanes"]
+    B, L, R, F = A.shape[0], M.shape[0], x.shape[0], cuda_iir_bank.TILE
+    P4, A4, A64 = k["W"][:, : 4 * Ns], k["W"][:, 4 * Ns: 5 * Ns], k["W"][:, 5 * Ns:]
+    n_tiles = -(-K // F)
+    v = (x[:, : K * L].reshape(R, K, L).double() @ M).reshape(R, K, B, Ns).permute(2, 0, 1, 3)
+    v = torch.cat([v, torch.zeros(B, R, n_tiles * F - K, Ns, dtype=torch.float64)], 2)
+    w4 = torch.einsum("brtmc,bcn->brtmn", v.reshape(B, R, n_tiles, F // 4, 4 * Ns), P4)
+
+    def walk(s, t):
+        """The state entering each super-block of tile t from s, and after."""
+        starts = []
+        for m in range(F // 4):
+            starts.append(s)
+            s = torch.einsum("brj,bjn->brn", s, A4) + w4[:, :, t, m]
+        return torch.stack(starts, 2), s
+
+    zero = torch.zeros(B, R, Ns, dtype=torch.float64)
+    ends = [walk(zero, t)[1] for t in range(n_tiles - 1)]
+    starts = [zero if s0 is None else s0]
+    for end in ends:
+        starts.append(torch.einsum("brj,bjn->brn", starts[-1], A64) + end)
+    tiles = []
+    for t, s in enumerate(starts):
+        rows, last = walk(s, t)
+        rows = [rows]
+        for j in range(1, 4):
+            rows.append(torch.einsum("brmj,bjn->brmn", rows[-1], A)
+                        + v[:, :, t * F + j - 1: (t + 1) * F: 4])
+        tiles.append(torch.stack(rows, 3).reshape(B, R, F, Ns))
+    states = torch.cat(tiles, 2)
+    return states[:, :, :K], states[:, :, K] if K < n_tiles * F else last
+
+
+@pytest.mark.parametrize(
+    "kind,K,with_s0",
+    [("complex", 63, True), ("complex", 130, False), ("complex", 201, True),
+     ("real", 65, True), ("real", 130, True), ("real", 193, False)],
+)
+def test_wide_route_tiles_reproduce_the_doubling_prefix(kind, K, with_s0):
+    """B3's wide route chunks the state chain by tiles of 64 blocks and
+    super-blocks of 4 (a walk from zero per tile, a carry over the tile
+    starts, a walk inside each tile from its start and the states inside
+    its super-blocks) where the plain version doubles: the same states
+    within 1e-12 of their scale, for the 16-band gammatone bank at 44.1 kHz
+    (complex, 256 band-lanes) and eight order-8 Butterworth bandpasses at 1-12
+    kHz (real, 64), at K not a multiple of 64 (one partial tile at K = 63)
+    and from a zero or a random start state. (On the 1/3-octave bank's
+    lowest bands any two float64 orders of the chain, the serial walk and
+    the doubling too, differ by up to ~5e-9 of the scale: a bound of the
+    operators' conditioning, not of the chunking.)"""
+    if kind == "complex":
+        bank = _sos_bank_or_none(filterbanks.auditory_filters_gammatone(
+            [500, 4000], sampling_rate_hz=FS).filters)
+    else:
+        bank = np.stack([butter(4, [f, f * 1.4], btype="bandpass", fs=48000, output="sos")
+                         for f in np.geomspace(1000.0, 12000.0, 8)])
+    R, T = 2, 128 * K + 33
+    x = torch.from_numpy(RNG.standard_normal((R, T)).astype(np.float32))
+    ops = iir_block.bank_device_operators(bank, T, torch.float32, "cpu")
+    k = cuda_iir_bank.kernel_operators(ops)
+    _, B, L = k["h"].shape
+    Ns = k["lanes"]
+    assert ops["n_full"] == K and cuda_iir_bank.keeps_state_on_chip(L, B, Ns)
+    s0 = s0_real = None
+    if with_s0:
+        s0_real = torch.from_numpy(RNG.standard_normal((B, R, Ns)))
+        s0 = s0_real if kind == "real" else torch.complex(s0_real[..., : Ns // 2],
+                                                          s0_real[..., Ns // 2:])
+    xb = x[:, : K * L].reshape(R, K, L).to(ops["HmatT"].dtype)
+    want = cuda_iir_bank.block_states(ops, xb, s0)
+    got = _tile_route_states(k, x, K, s0_real)
+    for g, w in zip(got, want):
+        if kind == "complex":
+            g = torch.complex(g[..., : Ns // 2], g[..., Ns // 2:])
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max())
+
+
 @pytest.mark.parametrize("bank", ["gammatone", "third_octave"])
 def test_plain_bank_matches_scipy_float64(bank):
     """Every band within 5e-6 of scipy's float64 sosfilt at 44.1 kHz: the
