@@ -196,7 +196,7 @@ WINDOW = 1024
 STEP = 512
 L_IIR = 128
 N_TIMED = 20
-KERNELS = ("framing", "das_map", "banded", "iir_bank", "ema")
+KERNELS = ("framing", "das_map", "banded", "iir_bank", "ema", "csm")
 # the DAS path: (seconds, sampling rate) of the two recordings
 CAMERA_RUNS = ((0.5, 16000), (10, 48000))
 # B5 at the full sweep (F, M, G) and two ragged shapes (Hermitian C), and
@@ -221,6 +221,9 @@ CONFIG5_BOUNDS = {"das": 1e-4, "mvdr": 1e-4, "mvdr_reference": 5e-3, "functional
 CONFIG5_TIMED = {"clean_sc": 2, "functional": 5, "orthogonal": 5, "mvdr_reference": 5}
 # the DAS path's 10 s x 48 kHz recording: (mics, samples) of its Welch CSM
 CSM_SHAPE = (64, 480000)
+# the Welch CSM's Gram kernel: X (C, K, F) of config 2's 32 appended
+# channels x 60 s and of the camera's 64 mics x 10 s (L = 1024, hop 512)
+CSM_GRAM_SHAPES = ((32, 5624, 513), (64, 936, 513))
 # B4 ragged shapes: (NB, TR, SPAN, C, F)
 BANDED_RAGGED = ((3, 128, 256, 5, 1000), (2, 50, 250, 33, 700))
 # H100 SXM peaks (NVIDIA data sheet): device memory, fp32 and fp64 outside
@@ -1497,6 +1500,7 @@ class AverageLaunches:
 def counted_modules() -> dict:
     from dsptoolbox_tpu_torch.ops import (
         cuda_banded,
+        cuda_csm,
         cuda_das,
         cuda_ema,
         cuda_framing,
@@ -1506,7 +1510,7 @@ def counted_modules() -> dict:
 
     return {"framing": cuda_framing, "iir_lead": cuda_iir, "das_map": cuda_das,
             "banded": cuda_banded, "iir_bank": cuda_iir_bank, "ema": cuda_ema,
-            "ema_carry": AverageLaunches(cuda_ema)}
+            "ema_carry": AverageLaunches(cuda_ema), "csm": cuda_csm}
 
 
 def counted_run(fn):
@@ -1522,6 +1526,62 @@ def counted_run(fn):
     return out, {name: m.launches for name, m in modules.items()}
 
 
+def csm_gram_phase(dev, card: str) -> dict:
+    """The Welch CSM's Gram kernel (`ops.cuda_csm`) at `CSM_GRAM_SHAPES`
+    on random complex X: against its plain version (fp32 sums of K
+    products in two orders: within 8·sqrt(K)·2^-24 of the largest mean
+    power), Hermitian with a real diagonal, two launches bit-equal; timed
+    with CUDA events against the plain version and, as the library
+    yardstick, the layout copy and `torch.matmul` alone. Bound: X's bytes
+    or the upper triangle's C(C+1)/2·K·F complex products (8 flop each) at
+    fp32 FFMA's 67 TFLOP/s."""
+    import torch
+
+    from dsptoolbox_tpu_torch.ops import cuda_csm
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    err, shapes = 0.0, []
+    for C, K, F in CSM_GRAM_SHAPES:
+        X = torch.randn((C, K, F), dtype=torch.complex64, device=dev, generator=gen)
+        before = cuda_csm.launches
+        got = cuda_csm.gram_mean(X)
+        want = cuda_csm.gram_mean_plain(X)
+        again = cuda_csm.gram_mean(X)
+        torch.cuda.synchronize()
+        scale = float(want.diagonal(dim1=-2, dim2=-1).real.max())
+        e = float((got - want).abs().max())
+        tol = 8 * K**0.5 * 2.0**-24 * scale
+        herm = torch.equal(got, got.mH) and not bool(
+            got.diagonal(dim1=-2, dim2=-1).imag.any())
+        same = torch.equal(got, again)
+        print(f"CSM Gram ({C}, {K}, {F}): {cuda_csm.launches - before} launches; max abs err "
+              f"vs plain {e:.3e} (tol {tol:.3e}); Hermitian, real diagonal {herm}; "
+              f"bit-equal launches {same}")
+        if cuda_csm.launches - before != 2 or not (e <= tol and herm and same):
+            fail(f"CSM Gram kernel at ({C}, {K}, {F}) disagrees with its plain version")
+        err = max(err, e)
+
+        def library(X=X):
+            Y = X.permute(2, 0, 1).contiguous()
+            return torch.matmul(Y, Y.mH)
+
+        del got, want, again
+        k_ms, p_ms, l_ms = time_pair(lambda: cuda_csm.gram_mean_cuda(X),
+                                     lambda: cuda_csm.gram_mean_plain(X), library)
+        b_ms, b_by = bound(X.numel() * 8 + F * C * C * 8, C * (C + 1) / 2 * K * F * 8,
+                           tensor_cores=False)
+        print(f"time CSM Gram ({C}, {K}, {F}) [{card}]: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, permute + torch.matmul {l_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}, {k_ms / b_ms:.2f}x)")
+        if C == 64 and not k_ms <= l_ms:
+            fail(f"CSM Gram kernel at ({C}, {K}, {F}) is slower than permute + torch.matmul")
+        shapes.append({"shape": [C, K, F], "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": e})
+        del X
+        torch.cuda.empty_cache()
+    return {"max_abs_err": err, "by_shape": shapes, "launches": 2 * len(CSM_GRAM_SHAPES)}
+
+
 def config2_phase(dev, card: str) -> dict:
     """Config 2 (`tools/speech_chain.py`: STFT → ISTFT, Welch spectrum,
     append, Welch CSM) at (a) the JAX package's size, 1 channel × 4 s, and
@@ -1530,8 +1590,9 @@ def config2_phase(dev, card: str) -> dict:
     ISTFT round trip within 1e-5 of the input; the FFT-method CSM too
     (at (b) on 2 channels and their reconstructions: all 32 would be 12 GB).
     Timed with CUDA events against the plain paths. Returns B1's launches,
-    its error against its plain version at the path's shapes, and the
-    60 s recording for the standard phase."""
+    its error against its plain version at the path's shapes, the CSM Gram
+    kernel's launches (one a run) and the 60 s recording for the standard
+    phase."""
     import numpy as np
     import torch
 
@@ -1542,7 +1603,7 @@ def config2_phase(dev, card: str) -> dict:
     from dsptoolbox_tpu_torch.standard.enums import SpectrumMethod, Window
     from dsptoolbox_tpu_torch.tools import speech_chain as sc
 
-    launches, b1_err, times = 0, 0.0, []
+    launches, gram_launches, b1_err, times = 0, 0, 0.0, []
     minute = None
     for name, (C, seconds) in (("(a)", sc.SPEECH), ("(b)", sc.MINUTE)):
         sig = sc.signal(C, seconds)
@@ -1557,7 +1618,11 @@ def config2_phase(dev, card: str) -> dict:
               "above the input")
         if launched["framing"] < 3:
             fail(f"{label}: the chain did not run B1 for the STFT, Welch and the CSM")
+        if launched["csm"] != 1:
+            fail(f"{label}: the Welch CSM launched the Gram kernel {launched['csm']} times, "
+                 "not once")
         launches += launched["framing"]
+        gram_launches += launched["csm"]
         F = sc.WINDOW // 2 + 1
         shapes = {"y": (T, C), "welch": (F,) if C == 1 else (F, C), "csm": (F, 2 * C, 2 * C)}
         outs = {"y": y.time_data, "welch": sp, "csm": csm}
@@ -1626,7 +1691,8 @@ def config2_phase(dev, card: str) -> dict:
         if name == "(b)":
             minute = sig
         del y, sp, csm, outs
-    return {"framing": launches, "framing_err": b1_err, "times": times, "minute": minute}
+    return {"framing": launches, "framing_err": b1_err, "times": times, "minute": minute,
+            "csm": gram_launches}
 
 
 def activity_mask_f64(x, threshold_dbfs: float, release: float):
@@ -4271,6 +4337,8 @@ def main() -> int:
                           "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
     del x_csm
     b1_ms, b1_plain = b1_shapes[0]["ms"], b1_shapes[0]["plain_ms"]
+    # ... and the Welch CSM's Gram kernel at config 2's and the camera's X
+    gram = csm_gram_phase(dev, card)
     b2_ms = b2_plain = 0.0
     for i, args in enumerate(lead_args):
         k_ms, p_ms = time_pair(
@@ -4603,6 +4671,19 @@ def main() -> int:
          "tf_analysis_times": tfa["times"],
          "mesh_times": {k: v for k, v in msh["times"].items()
                         if k in ("csm", "welch", "stft", "welch_time")}},
+        {"name": "csm_gram", "route": "cuda",
+         "source": "dsptoolbox_tpu_torch/csrc/csm.cu",
+         "replaces": "dsptoolbox_tpu/ops/spectral.py:285 (jnp.einsum, no Pallas kernel)",
+         "launches": gram["launches"] + c2["csm"] + pl_launches["csm"],
+         "launches_by_path": {"gram": gram["launches"], "config2": c2["csm"],
+                              "pipeline": pl_launches["csm"]},
+         "max_abs_err": gram["max_abs_err"], "ms": gram["by_shape"][0]["ms"],
+         "plain_ms": gram["by_shape"][0]["plain_ms"],
+         "bound_ms": gram["by_shape"][0]["bound_ms"],
+         "bound_by": gram["by_shape"][0]["bound_by"],
+         "library_ms": gram["by_shape"][0]["library_ms"],
+         "library": "permute + torch.matmul (cuBLAS complex fp32)",
+         "by_shape": gram["by_shape"]},
         {"name": "sosfilt_lead", "route": "cuda",
          "source": "dsptoolbox_tpu_torch/csrc/iir_bank.cu",
          "replaces": "dsptoolbox_tpu/ops/pallas_iir.py:154",

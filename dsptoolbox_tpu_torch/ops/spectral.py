@@ -20,6 +20,7 @@ import torch
 from .._config import default_float, device_cache
 from .._enums import SpectrumScaling, Window
 from .._trace import spanned
+from .cuda_csm import gram_mean
 from .cuda_framing import windowed_frames
 from .windows import check_cola, get_window
 
@@ -326,9 +327,9 @@ def csm_welch(
 ):
     """Cross-spectral matrix of ``time_data (C, T)`` via Welch.
 
-    Returns ``(f, csm)`` with ``csm (F, C, C)``. One batched outer product
-    replaces the reference's O(C²) per-pair `_welch` loop
-    (`_spectral_methods.py:351-369`).
+    Returns ``(f, csm)`` with ``csm (F, C, C)``. One Gram product of the
+    frame spectra (`cuda_csm.gram_mean`) replaces the reference's O(C²)
+    per-pair `_welch` loop (`_spectral_methods.py:351-369`).
     """
     window, step = welch_plan(window_length_samples, window_type, overlap_percent)
     norm = scaling.fft_norm()
@@ -336,12 +337,9 @@ def csm_welch(
     X = torch.fft.rfft(frames, dim=-1, norm=norm)  # (C, K, F)
 
     if average == "mean":
-        K = X.shape[-2]
-        # Q[f, a, b] = mean_k conj(X[a,k,f]) X[b,k,f] = (Y Yᴴ)[f, b, a] with
-        # Y = X as (F, C, K): one layout copy, and the batched product reads
-        # Yᴴ as a conjugate-transposed view
-        Y = X.permute(2, 0, 1).contiguous()
-        Q = real_diagonal(torch.matmul(Y, Y.mH).transpose(-1, -2) / K)
+        # Q[f, a, b] = mean_k conj(X[a,k,f]) X[b,k,f]: the Gram kernel on a
+        # complex64 CUDA X, read in place
+        Q = gram_mean(X)
     else:
         # median over frames needs the per-pair series; chunk over the first
         # channel axis so the peak buffer is (C, K, F), not (C, C, K, F)
@@ -355,14 +353,6 @@ def csm_welch(
         med = torch.stack(rows, dim=0)  # (A, B, F)
         Q = med.permute(2, 0, 1) / bias
     return csm_finish(Q, window, sampling_rate_hz, scaling)
-
-
-def real_diagonal(Q: torch.Tensor) -> torch.Tensor:
-    """The Gram product ``Q (F, C, C)`` with an exact-real diagonal, like
-    the reference's |X|² autospectrum branch: the product's diagonal is
-    Σ|y|² in its real part."""
-    eye = torch.eye(Q.shape[-1], dtype=Q.real.dtype, device=Q.device)
-    return Q * (1 - eye) + Q.diagonal(dim1=-2, dim2=-1).real[..., None] * eye
 
 
 def csm_finish(Q: torch.Tensor, window: np.ndarray, sampling_rate_hz: int,

@@ -29,8 +29,9 @@ import torch
 
 from .._config import default_float
 from .._enums import SpectrumScaling, Window
+from ..ops.cuda_csm import real_diagonal
 from ..ops.spectral import (
-    _windowed_frames, csm_finish, real_diagonal, stft_plan, stft_scale, welch_plan, welch_scale,
+    _windowed_frames, csm_finish, stft_plan, stft_scale, welch_plan, welch_scale,
 )
 from ..ops.spectral import welch as _welch
 from .mesh import Mesh

@@ -19,7 +19,8 @@ from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.classes import Signal
 from dsptoolbox_tpu_torch.classes import ImpulseResponse
 from dsptoolbox_tpu_torch.ops import (
-    banded, cuda_banded, cuda_das, cuda_framing, cuda_iir, cuda_iir_bank, iir_block,
+    banded, cuda_banded, cuda_csm, cuda_das, cuda_framing, cuda_iir, cuda_iir_bank, iir_block,
+    spectral,
 )
 from dsptoolbox_tpu_torch.standard.enums import Window
 from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
@@ -99,6 +100,78 @@ def test_framing_kernel_on_a_misaligned_x(dev, L, step):
     torch.cuda.synchronize()
     assert cuda_framing.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-6
+
+
+def _spectra(dev, C, K, F, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((C, K, F)) + 1j * rng.standard_normal((C, K, F))
+    return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+
+# (C, K, F) of the CSM's Gram kernel: every C of 1, 2, 16, 32, 33, 64, K of
+# 1, 7, 936, 5624 and F of 5, 513, 4097, with channels off the tile (8) and
+# super-tile (32) edges, bins off the warp's 32, and frames off the stage's
+# 4; the session's (32, 5624, 513) and the camera's (64, 936, 513)
+_GRAM_CASES = [(1, 1, 5), (2, 7, 513), (16, 936, 513), (32, 5624, 513), (33, 7, 4097),
+               (64, 936, 513), (64, 7, 4097), (33, 936, 5), (2, 5624, 4097), (1, 5624, 513),
+               (16, 1, 4097), (64, 1, 5)]
+
+
+@pytest.mark.parametrize("C,K,F", _GRAM_CASES)
+def test_csm_gram_kernel_matches_plain(dev, C, K, F):
+    """Both sides sum K fp32 products in their own order, each off by about
+    sqrt(K)·2^-24 of sum_k |x_a||x_b| / K, which is at most the largest mean
+    power (Cauchy-Schwarz): the tolerance is 8 times that."""
+    X = _spectra(dev, C, K, F, C * 7919 + K * 31 + F)
+    before = cuda_csm.launches
+    got = cuda_csm.gram_mean(X)
+    want = cuda_csm.gram_mean_plain(X)
+    torch.cuda.synchronize()
+    assert cuda_csm.launches == before + 1
+    assert got.shape == want.shape == (F, C, C)
+    scale = float(want.diagonal(dim1=-2, dim2=-1).real.max())
+    tol = 8 * K**0.5 * 2.0**-24 * scale
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("C,K,F", [(32, 936, 513), (3, 7, 33)])
+def test_csm_gram_kernel_on_a_misaligned_x(dev, C, K, F):
+    """X 8 bytes off 16 (a contiguous view one element into a buffer): every
+    row's bins start on the other half of a 16-byte span."""
+    base = _spectra(dev, 1, 1, C * K * F + 1, 8).reshape(-1)
+    X = base[1:].view(C, K, F)
+    got = cuda_csm.gram_mean_cuda(X)
+    want = cuda_csm.gram_mean_plain(X)
+    scale = float(want.diagonal(dim1=-2, dim2=-1).real.max())
+    assert float((got - want).abs().max()) <= 8 * K**0.5 * 2.0**-24 * scale
+
+
+@pytest.mark.parametrize("C,K,F", [(33, 936, 513), (64, 7, 4097), (2, 1, 5)])
+def test_csm_gram_kernel_is_hermitian_with_a_real_diagonal(dev, C, K, F):
+    Q = cuda_csm.gram_mean_cuda(_spectra(dev, C, K, F, 5))
+    assert torch.equal(Q, Q.mH)
+    assert torch.equal(Q.diagonal(dim1=-2, dim2=-1).imag, torch.zeros((F, C), device=dev))
+
+
+@pytest.mark.parametrize("C,K,F", [(32, 5624, 513), (64, 936, 513), (33, 7, 4097)])
+def test_csm_gram_kernel_repeats_bit_for_bit(dev, C, K, F):
+    X = _spectra(dev, C, K, F, 6)
+    assert torch.equal(cuda_csm.gram_mean_cuda(X), cuda_csm.gram_mean_cuda(X))
+
+
+def test_csm_welch_launches_the_gram_kernel_once_on_card_only(dev):
+    x = RNG.standard_normal((3, 20000)).astype(np.float32)
+    kw = dict(sampling_rate_hz=16000, window_length_samples=256)
+    before = cuda_csm.launches
+    _, got = spectral.csm_welch(torch.from_numpy(x).to(dev), **kw)
+    torch.cuda.synchronize()
+    assert cuda_csm.launches == before + 1
+    _, want = spectral.csm_welch(torch.from_numpy(x), **kw)
+    assert cuda_csm.launches == before + 1
+    assert _rel(got, want) <= 2e-5
+    # complex128 on the card takes the plain version
+    Q = cuda_csm.gram_mean(_spectra(dev, 3, 9, 17, 7).to(torch.complex128))
+    assert Q.dtype == torch.complex128 and cuda_csm.launches == before + 1
 
 
 # B2 runs on B3's kernel as one band (N = order lanes): N = 4, 8, 12 and 16

@@ -5,13 +5,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from conftest import assert_close
 from dsptoolbox_tpu.ops import framing as jframing
 from dsptoolbox_tpu.ops import spectral as jspec
 from dsptoolbox_tpu.ops.pallas_framing import windowed_frames_pallas
 from dsptoolbox_tpu.standard.enums import SpectrumScaling as JScaling
-from dsptoolbox_tpu_torch.ops import cuda_framing, framing, spectral
+from dsptoolbox_tpu_torch.ops import cuda_csm, cuda_framing, framing, spectral
 from dsptoolbox_tpu_torch.ops.pad_trim import pad_trim_axis
 from dsptoolbox_tpu_torch.standard.enums import SpectrumScaling
 
@@ -67,6 +68,42 @@ def test_csm_welch_matches_jax(average, scaling):
     f_j, C_j = jspec.csm_welch(jnp.asarray(X), scaling=JScaling[scaling], **kw)
     np.testing.assert_array_equal(f_t, f_j)
     assert_close(C_t.numpy(), np.asarray(C_j), name=f"csm-{average}")
+
+
+# (C, K, F): one channel, one frame, channels off the Gram kernel's tiles
+@pytest.mark.parametrize("C,K,F", [(1, 1, 5), (3, 7, 33), (9, 40, 17), (33, 5, 9)])
+def test_plain_gram_matches_jax_einsum(C, K, F):
+    """`cuda_csm.gram_mean` on a CPU tensor (its plain version, no launch)
+    against the JAX package's mean branch of `csm_welch`: the einsum at
+    HIGHEST precision over K, with the diagonal's real einsum."""
+    rng = np.random.default_rng(C * 1000 + K * 10 + F)
+    X = (rng.standard_normal((C, K, F)) + 1j * rng.standard_normal((C, K, F))).astype(
+        np.complex64)
+    before = cuda_csm.launches
+    got = cuda_csm.gram_mean(_t(X))
+    assert cuda_csm.launches == before
+    Xj = jnp.asarray(X)
+    hi = jax.lax.Precision.HIGHEST
+    Q = jnp.einsum("akf,bkf->fab", jnp.conjugate(Xj), Xj, precision=hi) / K
+    diag = jnp.einsum("akf,akf->fa", jnp.conjugate(Xj), Xj, precision=hi).real / K
+    eye = jnp.eye(C, dtype=Q.dtype)
+    want = Q * (1 - eye) + diag[..., None] * eye
+    assert_close(got.numpy(), np.asarray(want), name="gram")
+    assert np.all(got.diagonal(dim1=-2, dim2=-1).imag.numpy() == 0)
+
+
+@pytest.mark.parametrize("overlap", [50.0, 25.0])
+def test_csm_welch_median_branch_unchanged(overlap):
+    """The median branch keeps its per-pair medians: it matches the JAX
+    package and never reaches the Gram product."""
+    x = np.random.default_rng(4).standard_normal((4, 3000)).astype(np.float32)
+    kw = dict(sampling_rate_hz=FS, window_length_samples=128, overlap_percent=overlap,
+              average="median")
+    before = cuda_csm.launches
+    _, got = spectral.csm_welch(_t(x), **kw)
+    _, want = jspec.csm_welch(jnp.asarray(x), **kw)
+    assert cuda_csm.launches == before
+    assert_close(got.numpy(), np.asarray(want), name="csm-median")
 
 
 # (L, step): the STFT/Welch case, and L % step != 0 (outside the TPU
