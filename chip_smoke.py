@@ -1254,7 +1254,7 @@ def room_phase(dev, win, card: str) -> dict:
     planes_k, planes_p = _host_planes(bands), _host_planes(ref["bands"])
     bands64_32 = bands64.astype(np.float32)
     grid = [(b, c) for b in range(nb) for c in range(C)]
-    for mode in rm.RT_MODES:
+    for mode in rm.REVERB_TIMES:
         dk = [rbk.reverb_fit(planes_k[b, c], fs, mode)[2] for b, c in grid]
         k = out["rt"][mode.name].reshape(-1)
         for what, planes, want, tol_kept, tol_all in (
@@ -1320,10 +1320,10 @@ def room_phase(dev, win, card: str) -> dict:
     (fits_ms,) = time_pair(lambda: rm.band_reverb_times(bands), n=3, warm=1)
     step = profile_call(f"{label}: whole step", lambda: rm.measured_room(win, bank),
                         runs=1, host_calls=1, event_calls=2, warm=0)
-    n_fits = nb * C * len(rm.RT_MODES)
+    n_fits = nb * C * len(rm.REVERB_TIMES)
     print(f"time {label} [{card}]: octave bank (B3) {bank_ms:.4f} ms, plain "
           f"{bank_plain:.4f} ms; RT fits, {n_fits} ({nb} bands x {C} channels x "
-          f"{len(rm.RT_MODES)} modes) {fits_ms:.1f} ms ({fits_ms / n_fits:.3f} ms a fit); "
+          f"{len(rm.REVERB_TIMES)} modes) {fits_ms:.1f} ms ({fits_ms / n_fits:.3f} ms a fit); "
           f"whole step {step['events_ms']:.1f} ms; host {step['host_us']:.0f} us, wall "
           f"{step['wall_us']:.0f} us, device busy {step['busy_us']:.0f} us, idle share "
           f"{step['idle']:.4f}")

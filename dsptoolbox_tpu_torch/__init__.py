@@ -26,14 +26,8 @@ from ._config import (
     default_complex,
     default_device,
     default_float,
-    set_bank_kernel,
-    set_banded_kernel,
-    set_das_kernel,
     set_default_device,
     set_default_float,
-    set_framing_kernel,
-    set_ema_kernel,
-    set_iir_kernel,
 )
 from .standard import (
     activity_detector,
@@ -168,12 +162,6 @@ __all__ = [
     "default_complex",
     "default_device",
     "default_float",
-    "set_bank_kernel",
-    "set_banded_kernel",
-    "set_das_kernel",
     "set_default_device",
     "set_default_float",
-    "set_framing_kernel",
-    "set_ema_kernel",
-    "set_iir_kernel",
 ]

@@ -1,9 +1,8 @@
-"""Global numeric configuration and kernel switches.
+"""Global numeric configuration and the kernel-or-plain rule.
 
 Default dtypes are float32 / complex64, as in the JAX package; float64 mode
 (``set_default_float("float64")``) is for tight oracle comparisons and
-takes the plain PyTorch paths, since the CUDA kernels are fp32 only; on a
-CUDA tensor the filter bank raises for it unless its switch is "off". In
+takes the plain PyTorch paths wherever a kernel does not take float64. In
 float64 mode `Filter` runs its real IIR and zero-phase filters on a CPU
 signal through scipy, as the JAX package does (`classes.filter_helpers.
 _oracle_exact_f64`, off with ``DSPTB_F64_DEVICE_IIR=1``); a signal on a
@@ -17,12 +16,12 @@ keeps its own device. There is no fallback to the CPU: without a GPU,
 building from numpy without a device raises torch's own error unless
 ``set_default_device("cpu")`` was called.
 
-Each hand-written kernel sits behind a switch with three values:
-
-- ``"auto"`` (default): a CUDA tensor goes to the kernel, a CPU tensor takes
-  the plain PyTorch version;
-- ``"on"``: the kernel is required; a CPU tensor raises;
-- ``"off"``: always the plain PyTorch version.
+One rule chooses between each hand-written kernel and its plain PyTorch
+version: `use_kernel(name, x)` is true for a CUDA tensor of a dtype that
+`KERNEL_DTYPES[name]` lists, and false inside `kernels_off()`, the one
+seam through which tests and card checks run the plain versions. Every
+dispatcher asks it by its kernel's name; a new kernel adds one entry to the
+table.
 
 `in_pipeline` tells the class layer that a `pipeline` runner is running its
 function (`pipeline_context`): the paths that would read a value back to
@@ -99,87 +98,6 @@ def default_device() -> str:
     return _DEVICE
 
 
-_MODES = ("auto", "on", "off")
-_FRAMING_KERNEL = "auto"
-_IIR_KERNEL = "auto"
-_DAS_KERNEL = "auto"
-_BANDED_KERNEL = "auto"
-_BANK_KERNEL = "auto"
-_EMA_KERNEL = "auto"
-
-
-def _check_mode(mode: str) -> str:
-    if mode not in _MODES:
-        raise ValueError(f"kernel mode must be one of {_MODES}, got {mode!r}")
-    return mode
-
-
-def set_framing_kernel(mode: str) -> None:
-    """Switch for the fused framing kernel (`ops.cuda_framing`)."""
-    global _FRAMING_KERNEL
-    _FRAMING_KERNEL = _check_mode(mode)
-
-
-def framing_kernel() -> str:
-    return _FRAMING_KERNEL
-
-
-def set_iir_kernel(mode: str) -> None:
-    """Switch for the blocked-IIR lead kernel (`ops.cuda_iir`)."""
-    global _IIR_KERNEL
-    _IIR_KERNEL = _check_mode(mode)
-
-
-def iir_kernel() -> str:
-    return _IIR_KERNEL
-
-
-def set_das_kernel(mode: str) -> None:
-    """Switch for the fused DAS map kernel (`ops.cuda_das`); the port's
-    counterpart of the JAX package's ``set_pallas_das``."""
-    global _DAS_KERNEL
-    _DAS_KERNEL = _check_mode(mode)
-
-
-def das_kernel() -> str:
-    return _DAS_KERNEL
-
-
-def set_banded_kernel(mode: str) -> None:
-    """Switch for the banded smoothing-operator kernel (`ops.cuda_banded`);
-    the port's counterpart of the JAX package's Pallas dispatch in
-    ``banded_apply``."""
-    global _BANDED_KERNEL
-    _BANDED_KERNEL = _check_mode(mode)
-
-
-def banded_kernel() -> str:
-    return _BANDED_KERNEL
-
-
-def set_bank_kernel(mode: str) -> None:
-    """Switch for the IIR filter-bank kernel (`ops.cuda_iir_bank`), the
-    route of `ops.iir_block.sosfilt_bank_apply` on a CUDA tensor."""
-    global _BANK_KERNEL
-    _BANK_KERNEL = _check_mode(mode)
-
-
-def bank_kernel() -> str:
-    return _BANK_KERNEL
-
-
-def set_ema_kernel(mode: str) -> None:
-    """Switch for the attack/release EMA kernel (`ops.cuda_ema`), the route
-    of `helpers.smoothing.time_smoothing` with a release time on a CUDA
-    tensor."""
-    global _EMA_KERNEL
-    _EMA_KERNEL = _check_mode(mode)
-
-
-def ema_kernel() -> str:
-    return _EMA_KERNEL
-
-
 _CLEAN_SC_DEVICE = True
 
 
@@ -195,35 +113,37 @@ def clean_sc_on_device() -> bool:
     return _CLEAN_SC_DEVICE
 
 
+# the dtypes each hand-written kernel takes, by the name its dispatcher asks
+KERNEL_DTYPES = {
+    "framing": (torch.float32,),  # ops.cuda_framing.windowed_frames
+    "iir": (torch.float32,),  # ops.cuda_iir.sosfilt_lead
+    "bank": (torch.float32,),  # ops.iir_block.sosfilt_bank_apply_planes
+    "das": (torch.float32,),  # ops.cuda_das.das_map
+    "banded": (torch.float32,),  # ops.banded.banded_apply
+    "ema": (torch.float32, torch.float64),  # ops.cuda_ema's two forms
+    "csm": (torch.complex64,),  # ops.cuda_csm.gram_mean
+}
+
+_KERNELS_OFF = 0
+
+
 @contextmanager
 def kernels_off():
-    """Every kernel switch "off" inside the block (the plain PyTorch
-    paths); the previous modes are restored after it."""
-    global _FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL, _EMA_KERNEL
-    saved = (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL, _BANK_KERNEL,
-             _EMA_KERNEL)
-    _FRAMING_KERNEL = _IIR_KERNEL = _DAS_KERNEL = _BANDED_KERNEL = _BANK_KERNEL = "off"
-    _EMA_KERNEL = "off"
+    """Every dispatcher takes the plain PyTorch version inside the block;
+    blocks nest."""
+    global _KERNELS_OFF
+    _KERNELS_OFF += 1
     try:
         yield
     finally:
-        (_FRAMING_KERNEL, _IIR_KERNEL, _DAS_KERNEL, _BANDED_KERNEL,
-         _BANK_KERNEL, _EMA_KERNEL) = saved
+        _KERNELS_OFF -= 1
 
 
-def use_kernel(mode: str, x: torch.Tensor) -> bool:
-    """Whether a kernel behind switch ``mode`` runs on tensor ``x``: the
-    tensor's device decides under "auto"."""
-    if mode == "off":
-        return False
-    if x.is_cuda:
-        return True
-    if mode == "on":
-        raise ValueError(
-            "the CUDA kernel is switched 'on' but the tensor lies on "
-            f"{x.device}; move it to a CUDA device or use 'auto'"
-        )
-    return False
+def use_kernel(name: str, x) -> bool:
+    """Whether the kernel ``name`` (a key of `KERNEL_DTYPES`) runs on the
+    tensor ``x``: a CUDA tensor of a dtype the kernel takes, outside
+    `kernels_off`."""
+    return not _KERNELS_OFF and x.is_cuda and x.dtype in KERNEL_DTYPES[name]
 
 
 _PIPELINE = 0

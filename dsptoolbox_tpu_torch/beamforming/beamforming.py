@@ -569,8 +569,7 @@ def _quadratic_map(amp, diff, k, C):
     device, the steering ``h[f, m, g] = amp[m, g] e^{-i k_f diff[m, g]}``
     built from ``amp, diff (M, G)`` and ``k (F,)``: `ops.cuda_das.das_map` on
     C's real and imaginary parts, so the DAS map kernel on a float32 CUDA
-    tensor and its plain version on the CPU, under the kernel's switch
-    (`_config.set_das_kernel`). C need not be Hermitian: ``Re(h^H C h) =
+    tensor and its plain version otherwise (`_config.use_kernel`). C need not be Hermitian: ``Re(h^H C h) =
     Re(h^H (C + C^H) h) / 2`` for any C, and that is what the kernel sums."""
     return cuda_das.das_map(amp, diff, k, C.real, C.imag)
 

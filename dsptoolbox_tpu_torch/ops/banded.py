@@ -11,11 +11,10 @@ column offset of its band, grouped by band span.
 - `banded_matmul_plain`: the plain PyTorch version of one segment, a
   gather of each tile's x window and one batched matmul (the JAX package's
   ``banded_matmul_xla``); `banded_plan_plain` runs it over a plan;
-- `banded_apply`: the dispatcher over a plan. A float32 CUDA tensor goes
-  to the CUDA kernel (`ops.cuda_banded`, every segment in one launch)
-  unless the switch (`_config.set_banded_kernel`) is "off"; CPU tensors
-  take the plain version, float64 tensors too unless the switch is "on",
-  which raises;
+- `banded_apply`: the dispatcher over a plan, by `_config.use_kernel`
+  ("banded"). A float32 CUDA tensor goes to the CUDA kernel
+  (`ops.cuda_banded`, every segment in one launch) outside
+  `_config.kernels_off()`; CPU tensors and float64 take the plain version;
 - `plan_to_torch`: a host plan on a device, as a `DevicePlan`.
 """
 
@@ -56,15 +55,7 @@ def banded_apply(plan: list[dict], x_padded: torch.Tensor) -> torch.Tensor:
     version (see the module docstring). Where the JAX package dispatched
     each segment, padding C to 128 lanes on the TPU, the kernel takes the
     whole plan in one launch at any C."""
-    mode = _config.banded_kernel()
-    if mode != "off" and x_padded.dtype != torch.float32:
-        if mode == "on":
-            raise ValueError(
-                "the banded kernel is switched 'on' but takes float32 "
-                f"tensors, got {x_padded.dtype}"
-            )
-        return banded_plan_plain(plan, x_padded)
-    if _config.use_kernel(mode, x_padded):
+    if _config.use_kernel("banded", x_padded):
         return cuda_banded.banded_matmul_cuda(plan, x_padded)
     return banded_plan_plain(plan, x_padded)
 

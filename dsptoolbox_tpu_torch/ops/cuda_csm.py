@@ -18,8 +18,9 @@ SMs and their sums added by a second pass in a fixed order, so a call
 repeats bit for bit. The launch plan (`plan`) follows from the shape and
 the card alone.
 
-`gram_mean` dispatches: a complex64 CUDA tensor goes to the kernel (or
-raises); CPU tensors and complex128 take the plain version.
+`gram_mean` dispatches by `_config.use_kernel` ("csm"): a complex64 CUDA
+tensor goes to the kernel outside `_config.kernels_off()`; CPU tensors and
+complex128 take the plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import functools
 
 import torch
 
-from .. import _cuda
+from .. import _config, _cuda
 
 # calls of the kernel's entry point (a Gram pass and a reduce pass each)
 # since the last reset (read by run reports)
@@ -102,6 +103,6 @@ def gram_mean_cuda(X: torch.Tensor) -> torch.Tensor:
 def gram_mean(X: torch.Tensor) -> torch.Tensor:
     """``Q[f, a, b] = mean_k conj(X[a, k, f]) X[b, k, f]`` of ``X (C, K,
     F)`` → ``(F, C, C)``, with an exactly real diagonal."""
-    if X.is_cuda and X.dtype == torch.complex64:
+    if _config.use_kernel("csm", X):
         return gram_mean_cuda(X)
     return gram_mean_plain(X)

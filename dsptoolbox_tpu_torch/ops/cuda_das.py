@@ -58,9 +58,9 @@ The plain version (`das_map_plain`, the JAX package's `_das_map_core`)
 materialises the packed steering ``hp (F, G, 2M)`` (236 MB at the sizes
 above) and runs the quadratic form as a batched fp32 GEMM.
 
-`das_map` dispatches: a float32 CUDA tensor goes to the kernel unless the
-switch (`_config.set_das_kernel`) is "off"; CPU tensors take the plain
-version, float64 tensors too unless the switch is "on", which raises.
+`das_map` dispatches by `_config.use_kernel` ("das"): a float32 CUDA tensor
+goes to the kernel outside `_config.kernels_off()`; CPU tensors and float64
+take the plain version.
 """
 
 from __future__ import annotations
@@ -209,14 +209,6 @@ def das_map_cuda(amp, diff, k, csm_re, csm_im):
 def das_map(amp, diff, k, csm_re, csm_im):
     """DAS map ``(G, F)`` of steering factors ``amp, diff (M, G)``, wave
     numbers ``k (F,)`` and CSM parts ``(F, M, M)``."""
-    mode = _config.das_kernel()
-    if mode != "off" and csm_re.dtype != torch.float32:
-        if mode == "on":
-            raise ValueError(
-                "the DAS map kernel is switched 'on' but takes float32 "
-                f"tensors, got {csm_re.dtype}"
-            )
-        return das_map_plain(amp, diff, k, csm_re, csm_im)
-    if _config.use_kernel(mode, csm_re):
+    if _config.use_kernel("das", csm_re):
         return das_map_cuda(amp, diff, k, csm_re, csm_im)
     return das_map_plain(amp, diff, k, csm_re, csm_im)

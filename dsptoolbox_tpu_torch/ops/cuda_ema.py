@@ -20,9 +20,9 @@ memory while the warp stages the next chunk; each form with its scan's
 operations in their order, so kernel and plain loop agree bit for bit
 (float32, and float64 in the kernel's double instantiation).
 
-`ema_attack_release` and `ema_average` dispatch: a CUDA tensor goes to the
-kernel unless the switch (`_config.set_ema_kernel`) is "off"; a CPU tensor
-takes the plain loop. Each form counts its own launches (`launches`,
+`ema_attack_release` and `ema_average` dispatch by `_config.use_kernel`
+("ema"): a float32 or float64 CUDA tensor goes to the kernel outside
+`_config.kernels_off()`; a CPU tensor takes the plain loop. Each form counts its own launches (`launches`,
 `average_launches`).
 """
 
@@ -97,7 +97,7 @@ def ema_attack_release_cuda(x: torch.Tensor, alpha: float, beta: float) -> torch
 
 def ema_attack_release(x: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
     """Attack/release EMA of ``x (..., T)`` along the last axis."""
-    if _config.use_kernel(_config.ema_kernel(), x):
+    if _config.use_kernel("ema", x):
         return ema_attack_release_cuda(x, alpha, beta)
     return ema_attack_release_plain(x, alpha, beta)
 
@@ -152,6 +152,6 @@ def ema_average(x: torch.Tensor, carry: torch.Tensor, increase: float,
                 decrease: float) -> torch.Tensor:
     """The exponential average of ``x (..., T)`` along the last axis from
     ``carry (...)``."""
-    if _config.use_kernel(_config.ema_kernel(), x):
+    if _config.use_kernel("ema", x):
         return ema_average_cuda(x, carry, increase, decrease)
     return ema_average_plain(x, carry, increase, decrease)

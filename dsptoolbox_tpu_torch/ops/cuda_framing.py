@@ -24,9 +24,9 @@ chain (the chain is host-bound), so the wrapper does the checks, the
 output's allocation and the launch (`_cuda.Kernel`), and no other tensor
 work: a contiguous x is passed as it is.
 
-`windowed_frames` dispatches: a float32 CUDA tensor goes to the kernel unless
-the switch (`_config.set_framing_kernel`) is "off"; CPU tensors and other
-dtypes take the plain version.
+`windowed_frames` dispatches by `_config.use_kernel` ("framing"): a float32
+CUDA tensor goes to the kernel outside `_config.kernels_off()`; CPU tensors
+and other dtypes take the plain version.
 """
 
 from __future__ import annotations
@@ -132,8 +132,6 @@ def windowed_frames(
     """Windowed (optionally demeaned) frames of ``x (..., T)``, padded with
     ``pad`` zeros at both ends → ``(..., K, L)`` with the zero-padded tail
     of `frame_signal`."""
-    if x.dtype == torch.float32 and _config.use_kernel(
-        _config.framing_kernel(), x
-    ):
+    if _config.use_kernel("framing", x):
         return windowed_frames_cuda(x, window, step, detrend, pad)
     return windowed_frames_plain(x, window, step, detrend, pad)

@@ -30,9 +30,10 @@ the chip and chains over tiles of 64 blocks. The plain
 version resolves the same chain with a log-depth doubling prefix of batched
 matmuls, as `dsptoolbox_tpu/ops/iir_block.py` does.
 
-`sosfilt_lead` dispatches: a CUDA tensor goes to the kernel unless the
-switch (`_config.set_iir_kernel`) is "off". The kernel takes any block
-length and up to 32 states (16 sections).
+`sosfilt_lead` dispatches by `_config.use_kernel` ("iir"): a float32 CUDA
+tensor goes to the kernel outside `_config.kernels_off()`; CPU tensors and
+other dtypes take the plain version. The kernel takes any block length and
+up to 32 states (16 sections).
 """
 
 from __future__ import annotations
@@ -144,6 +145,6 @@ def sosfilt_lead_cuda(H, G, A, M, xb, s0):
 
 def sosfilt_lead(H, G, A, M, xb, s0):
     """Filter the full blocks ``xb (B, K, L)`` from state ``s0 (B, N)``."""
-    if _config.use_kernel(_config.iir_kernel(), xb):
+    if _config.use_kernel("iir", xb):
         return sosfilt_lead_cuda(H, G, A, M, xb, s0)
     return sosfilt_lead_plain(H, G, A, M, xb, s0)

@@ -37,10 +37,10 @@ state entering each tile of `TILE` blocks goes to device memory, and the
 output pass walks the tile itself. The same kernel, with one band and a
 start state, is the blocked-IIR lead (`cuda_iir`), through `launch`.
 
-`iir_block.sosfilt_bank_apply_planes` chooses: a CUDA tensor goes to
-`sosfilt_bank_lead_cuda` unless the switch (`_config.set_bank_kernel`) is
-"off"; a CPU tensor takes `sosfilt_bank_lead_plain` (the switch "on" makes
-it raise).
+`iir_block.sosfilt_bank_apply_planes` chooses by `_config.use_kernel`
+("bank"): a float32 CUDA tensor goes to `sosfilt_bank_lead_cuda` outside
+`_config.kernels_off()`; CPU tensors and other dtypes take
+`sosfilt_bank_lead_plain`.
 """
 
 from __future__ import annotations

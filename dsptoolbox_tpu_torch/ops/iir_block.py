@@ -35,7 +35,7 @@ import torch
 from .. import _config
 from .._trace import spanned
 from . import cuda_iir_bank
-from .cuda_iir import MAX_STATES, sosfilt_lead, sosfilt_lead_plain, state_dtype
+from .cuda_iir import MAX_STATES, sosfilt_lead, state_dtype
 from .cuda_iir_bank import MAX_LANES, sosfilt_bank_lead_cuda, sosfilt_bank_lead_plain
 
 
@@ -191,9 +191,7 @@ def _run_blocks(key: tuple, x: torch.Tensor, s0: torch.Tensor, L: int):
     rem = T - n_full * L
     if n_full > 0:
         xb = x[:, : n_full * L].reshape(B, n_full, L)
-        # the kernel takes float32 only
-        lead = sosfilt_lead if x.dtype == torch.float32 else sosfilt_lead_plain
-        y, s_end = lead(H, G, A, M, xb, s0)
+        y, s_end = sosfilt_lead(H, G, A, M, xb, s0)
         y = y.reshape(B, n_full * L)
     else:
         s_end = s0
@@ -613,23 +611,18 @@ def sosfilt_bank_apply_planes(ops: dict, x: torch.Tensor):
 
     ``ops`` comes from `sosfilt_bank_operators`, as numpy arrays or already
     converted by `operators_to_torch`. Same math as `sosfilt_block` with a
-    leading band axis. Route: on a CUDA tensor (switch
-    `_config.set_bank_kernel` not "off") every full block goes through the
-    bank kernel, on the operators of `bank_kernel_stages`; the input must
-    then be float32. Otherwise the whole bank's operators run through the
-    kernel's plain version. The remainder tail is one more block product.
+    leading band axis. Route: where `_config.use_kernel` ("bank") allows, a
+    float32 CUDA tensor, every full block goes through the bank kernel, on
+    the operators of `bank_kernel_stages`. Otherwise the whole bank's
+    operators run through the kernel's plain version. The remainder tail is
+    one more block product.
     """
     if x.is_complex():
         raise TypeError("the bank filters real input")
     batch, T = x.shape[:-1], x.shape[-1]
     R = math.prod(batch)
     x2 = x.reshape(R, T).contiguous()
-    if _config.use_kernel(_config.bank_kernel(), x):
-        if x.dtype != torch.float32:
-            raise TypeError(
-                f"the bank kernel takes float32 input, got {x.dtype}; switch it "
-                "'off' (`set_bank_kernel`) to filter other dtypes on the card"
-            )
+    if _config.use_kernel("bank", x):
         out = _kernel_route(bank_kernel_stages(ops["sos"], T, x.device, ops["L"]), x2)
     else:
         complex_ops = (

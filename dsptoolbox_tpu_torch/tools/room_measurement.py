@@ -40,7 +40,7 @@ from ..standard.enums import FilterBankMode
 
 OCTAVE_RANGE_HZ = (125, 4000)
 OCTAVE_ORDER = 6
-RT_MODES = (ReverbTime.T20, ReverbTime.T30, ReverbTime.EDT, ReverbTime.Adaptive)
+REVERB_TIMES = (ReverbTime.T20, ReverbTime.T30, ReverbTime.EDT, ReverbTime.Adaptive)
 CHANNEL_DESCRIPTORS = (
     RoomAcousticsDescriptor.D50,
     RoomAcousticsDescriptor.C80,
@@ -50,7 +50,7 @@ CHANNEL_DESCRIPTORS = (
 BATTERY_FS = 16000
 BATTERY_RIRS = 1000
 BATTERY_LENGTH = BATTERY_FS // 2
-BATTERY_MODES = ("T20", "EDT", "T30")
+BATTERY_TIMES = ("T20", "EDT", "T30")
 
 ROOM_DIMENSIONS_M = (6.07, 5.13, 3.01)
 ROOM_T60_S = 0.5
@@ -72,8 +72,8 @@ def octave_bands(irs, bank):
 
 
 def band_reverb_times(bands) -> dict:
-    """``{mode name: (bands, channels) seconds}`` for `RT_MODES`."""
-    return {mode.name: reverb_time(bands, mode)[0] for mode in RT_MODES}
+    """``{mode name: (bands, channels) seconds}`` for `REVERB_TIMES`."""
+    return {mode.name: reverb_time(bands, mode)[0] for mode in REVERB_TIMES}
 
 
 def channel_descriptors(irs) -> dict:
@@ -110,7 +110,7 @@ def battery(rirs) -> dict:
     """(b): ``{"d50", "c80", "center_time_s", "T20", "EDT", "T30"}``, each
     ``(B,)``, of a fleet at `BATTERY_FS`."""
     out = dict(batch_descriptors(rirs, BATTERY_FS))
-    for mode in BATTERY_MODES:
+    for mode in BATTERY_TIMES:
         out[mode] = batch_reverb_times(rirs, BATTERY_FS, mode)
     return out
 

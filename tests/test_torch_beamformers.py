@@ -179,9 +179,9 @@ def _das_time64(td, ma, grid):
 # ---------------------------------------------------------------- dispatch
 
 
-def test_quadratic_map_dispatch():
+def test_quadratic_map_dispatch(monkeypatch):
     """`_quadratic_map` is B5's plain version on a CPU tensor (no launch),
-    raises under "on", and takes the plain version for complex128."""
+    asks for the DAS kernel, and takes the plain version for complex128."""
     rng = np.random.default_rng(1)
     M, G, F = 6, 11, 3
     amp = torch.from_numpy(rng.uniform(0.5, 1.0, (M, G)).astype(np.float32))
@@ -198,12 +198,10 @@ def test_quadratic_map_dispatch():
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5 * np.abs(want).max())
     assert bfm._quadratic_map(amp.double(), diff.double(), k.double(),
                               C.to(torch.complex128)).dtype == torch.float64
-    _config.set_das_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            bfm._quadratic_map(amp, diff, k, C)
-    finally:
-        _config.set_das_kernel("auto")
+    asked = []
+    monkeypatch.setattr(_config, "use_kernel", lambda name, x: asked.append(name) or False)
+    assert torch.equal(bfm._quadratic_map(amp, diff, k, C), got)
+    assert asked == ["das"]
     assert cuda_das.launches == 0
 
 

@@ -196,31 +196,22 @@ def test_packed_quadratic_gf_matches_complex_form():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10)
 
 
-def test_das_dispatch_on_cpu():
+def test_das_dispatch_on_cpu(monkeypatch):
     args = [torch.from_numpy(a) for a in _das_inputs(9, 20, 13)]
     cuda_das.launches = 0
     want = cuda_das.das_map_plain(*args)
     assert torch.equal(cuda_das.das_map(*args), want)
     assert cuda_das.launches == 0
-    _config.set_das_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            cuda_das.das_map(*args)
-        with pytest.raises(ValueError, match="float32"):
-            cuda_das.das_map(*(a.double() for a in args))
-    finally:
-        _config.set_das_kernel("auto")
-    _config.set_das_kernel("off")
-    try:
+    with _config.kernels_off():
         assert torch.equal(cuda_das.das_map(*args), want)
-    finally:
-        _config.set_das_kernel("auto")
-    # float64 under "auto" takes the plain version
+    # float64 takes the plain version
     got64 = cuda_das.das_map(*(a.double() for a in args))
     assert got64.dtype == torch.float64
     assert cuda_das.launches == 0
-    with pytest.raises(ValueError):
-        _config.set_das_kernel("fast")
+    asked = []
+    monkeypatch.setattr(_config, "use_kernel", lambda name, x: asked.append(name) or False)
+    assert torch.equal(cuda_das.das_map(*args), want)
+    assert asked == ["das"]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_das.das_map_cuda(*args)
 

@@ -19,8 +19,8 @@ from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.classes import Signal
 from dsptoolbox_tpu_torch.classes import ImpulseResponse
 from dsptoolbox_tpu_torch.ops import (
-    banded, cuda_banded, cuda_csm, cuda_das, cuda_framing, cuda_iir, cuda_iir_bank, iir_block,
-    spectral,
+    banded, cuda_banded, cuda_csm, cuda_das, cuda_ema, cuda_framing, cuda_iir, cuda_iir_bank,
+    iir_block, spectral,
 )
 from dsptoolbox_tpu_torch.standard.enums import Window
 from dsptoolbox_tpu_torch.transfer_functions import SmoothingDomain, complex_smoothing
@@ -275,15 +275,42 @@ def test_chain_on_card_matches_cpu(dev):
 
 
 def test_switch_off_takes_plain_path_on_card(dev):
-    x = torch.zeros(2, 4096, device=dev)
+    """Inside `kernels_off` a call through each of the seven dispatchers on
+    float32 (complex64) card tensors launches none of the kernels; the same
+    calls outside it launch each once."""
+    x = torch.from_numpy(RNG.standard_normal((2, 4096)).astype(np.float32)).to(dev)
     win = torch.ones(64, device=dev)
-    before = cuda_framing.launches
-    _config.set_framing_kernel("off")
-    try:
-        cuda_framing.windowed_frames(x, win, 32, False)
-    finally:
-        _config.set_framing_kernel("auto")
-    assert cuda_framing.launches == before
+    sos = butter(4, [250.0, 1000.0], btype="bandpass", fs=48000, output="sos")
+    bank_ops = iir_block.bank_device_operators(
+        np.stack([sos, butter(4, [500.0, 2000.0], btype="bandpass", fs=48000, output="sos")]),
+        4096, torch.float32, dev)
+    das = _das_args(5, 9, 20, dev)
+    seg = _segment(1, 128, 128, 256, dev)
+    sig = Signal(None, RNG.standard_normal((4096, 3)).astype(np.float32), 16000, device=dev)
+    calls = {
+        cuda_framing: lambda: cuda_framing.windowed_frames(x, win, 32, False),
+        cuda_iir: lambda: iir_block.sosfilt_block(sos, x),
+        cuda_iir_bank: lambda: iir_block.sosfilt_bank_apply(bank_ops, x),
+        cuda_das: lambda: cuda_das.das_map(*das),
+        cuda_banded: lambda: banded.banded_apply([seg], x.T[:256].contiguous()),
+        cuda_ema: lambda: (cuda_ema.ema_attack_release(x, 0.3, 0.01),
+                           cuda_ema.ema_average(x, torch.zeros(2, device=dev), 0.3, 0.01)),
+        cuda_csm: lambda: sig.get_csm(force_computation=True),
+    }
+
+    def counts():
+        return [m.launches for m in calls] + [cuda_ema.average_launches]
+
+    before = counts()
+    with _config.kernels_off():
+        for fn in calls.values():
+            fn()
+    torch.cuda.synchronize()
+    assert counts() == before
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    assert all(after > b for after, b in zip(counts(), before))
 
 
 def _das_args(F, M, G, dev, dtype=torch.float32, rng=None, hermitian=False):
@@ -358,19 +385,10 @@ def test_das_kernel_design_on_card(dev):
 def test_das_kernel_float64_and_switch_on_card(dev):
     args = _das_args(5, 9, 20, dev, torch.float64)
     before = cuda_das.launches
-    got = cuda_das.das_map(*args)  # float64 under "auto": plain version
+    got = cuda_das.das_map(*args)  # float64: the plain version
     assert got.dtype == torch.float64 and cuda_das.launches == before
-    _config.set_das_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="float32"):
-            cuda_das.das_map(*args)
-    finally:
-        _config.set_das_kernel("auto")
-    _config.set_das_kernel("off")
-    try:
+    with _config.kernels_off():
         cuda_das.das_map(*(a.float() for a in args))
-    finally:
-        _config.set_das_kernel("auto")
     assert cuda_das.launches == before
 
 
@@ -603,22 +621,10 @@ def test_banded_switch_on_card(dev):
     seg = _segment(1, 128, 128, 256, dev)
     x = torch.ones(256, 2, device=dev)
     before = cuda_banded.launches
-    _config.set_banded_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            banded.banded_apply([{k: (v.cpu() if torch.is_tensor(v) else v)
-                                  for k, v in seg.items()}], x.cpu())
-        with pytest.raises(ValueError, match="float32"):
-            banded.banded_apply([dict(seg, slab=seg["slab"].double())], x.double())
-    finally:
-        _config.set_banded_kernel("auto")
-    _config.set_banded_kernel("off")
-    try:
+    with _config.kernels_off():
         out = banded.banded_apply([seg], x)
-    finally:
-        _config.set_banded_kernel("auto")
     assert cuda_banded.launches == before and out.is_cuda
-    # float64 under "auto": the plain version
+    # float64: the plain version
     banded.banded_apply([dict(seg, slab=seg["slab"].double())], x.double())
     assert cuda_banded.launches == before
 
@@ -760,7 +766,7 @@ def test_bank_split_on_card_matches_scipy(dev, bank):
 def test_bank_apply_on_card_matches_scipy_and_cpu(dev):
     """The 1/3-octave bank's lowest bands at 44.1 kHz (poles within 2e-3 of
     the unit circle) against scipy's float64 sosfilt; planes are views of
-    one buffer; "on" refuses a CPU tensor and "off" launches nothing."""
+    one buffer; `kernels_off` launches nothing."""
     from dsptoolbox_tpu_torch.filterbanks import fractional_octave_bands
 
     fb = fractional_octave_bands([31.5, 100.0], 3, 6, 44100)[0]
@@ -772,14 +778,6 @@ def test_bank_apply_on_card_matches_scipy_and_cpu(dev):
     assert cuda_iir_bank.launches == before + 1 and im is None
     for b in range(len(bank)):
         assert _rel(re[b], sosfilt(bank[b], x.astype(np.float64))) < 5e-6
-    _config.set_bank_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            iir_block.sosfilt_bank_apply(
-                iir_block.bank_device_operators(bank, x.shape[-1], torch.float32, "cpu"),
-                torch.from_numpy(x))
-    finally:
-        _config.set_bank_kernel("auto")
     with _config.kernels_off():
         off = iir_block.sosfilt_bank_apply(ops, torch.from_numpy(x).to(dev))
     assert cuda_iir_bank.launches == before + 1
@@ -809,8 +807,8 @@ def test_third_octave_bank_on_card_matches_scipy(dev):
 
 def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev):
     """On the card every float32 input runs B3, however few its blocks (a
-    1024-sample impulse response of a FilterBank); a float64 input raises
-    unless the switch is "off"."""
+    1024-sample impulse response of a FilterBank); a float64 input takes the
+    plain version, with the CPU's float64 result."""
     from dsptoolbox_tpu_torch.classes import Filter, FilterBank
     from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
 
@@ -825,14 +823,9 @@ def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev)
     bank = headline._stacked_bank(48000)
     x = torch.from_numpy(RNG.standard_normal((2, 3000))).to(dev)
     ops = iir_block.sosfilt_bank_operators(bank, 3000)
-    with pytest.raises(TypeError, match="float32"):
-        iir_block.sosfilt_bank_apply(ops, x)
-    _config.set_bank_kernel("off")
-    try:
-        y = iir_block.sosfilt_bank_apply(ops, x)
-    finally:
-        _config.set_bank_kernel("auto")
-    assert y.dtype == torch.float64 and cuda_iir_bank.launches == before + 1
+    y = iir_block.sosfilt_bank_apply(ops, x)
+    assert y.is_cuda and y.dtype == torch.float64 and cuda_iir_bank.launches == before + 1
+    assert _rel(y, iir_block.sosfilt_bank_apply(ops, x.cpu())) < 1e-9
     for b in range(len(bank)):
         assert _rel(y[b], sosfilt(bank[b], x.cpu().numpy())) < 1e-9
 

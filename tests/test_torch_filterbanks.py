@@ -327,22 +327,19 @@ def test_long_cascades_split_beyond_the_kernels_lanes(monkeypatch):
             assert _rel(staged[b], want) < 5e-6
 
 
-def test_bank_switch_and_kernels_off():
+def test_bank_switch_and_kernels_off(monkeypatch):
     bank = _butter_bank()
     x = torch.from_numpy(RNG.standard_normal((2, 4096)).astype(np.float32))
     ops = iir_block.sosfilt_bank_operators(bank, 4096)
-    _config.set_bank_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            iir_block.sosfilt_bank_apply(ops, x)
-        with _config.kernels_off():
-            assert _config.bank_kernel() == "off"
-            iir_block.sosfilt_bank_apply(ops, x)
-        assert _config.bank_kernel() == "on"
-    finally:
-        _config.set_bank_kernel("auto")
-    with pytest.raises(ValueError):
-        _config.set_bank_kernel("fast")
+    want = iir_block.sosfilt_bank_apply(ops, x)
+    for b in range(len(bank)):
+        assert _rel(want[b], sosfilt(bank[b], x.numpy().astype(np.float64), axis=-1)) < 5e-6
+    with _config.kernels_off():
+        assert torch.equal(iir_block.sosfilt_bank_apply(ops, x), want)
+    asked = []
+    monkeypatch.setattr(_config, "use_kernel", lambda name, t: asked.append(name) or False)
+    assert torch.equal(iir_block.sosfilt_bank_apply(ops, x), want)
+    assert asked == ["bank"]
     with pytest.raises(TypeError):
         iir_block.sosfilt_bank_apply_planes(ops, x.to(torch.complex64))
 

@@ -2,11 +2,13 @@
 switches, and no kernel launch for CPU tensors."""
 
 import ast
+import inspect
 import os
 import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ import torch
 import dsptoolbox_tpu_torch as dtt
 from dsptoolbox_tpu_torch import _config, headline
 from dsptoolbox_tpu_torch.classes import ImpulseResponse, Signal, Spectrum
-from dsptoolbox_tpu_torch.ops import banded, cuda_banded, cuda_das, cuda_framing, cuda_iir
+from dsptoolbox_tpu_torch.ops import (
+    banded, cuda_banded, cuda_csm, cuda_das, cuda_ema, cuda_framing, cuda_iir, iir_block,
+)
 from dsptoolbox_tpu_torch.tools import camera
 from dsptoolbox_tpu_torch.transfer_functions import (
     SmoothingDomain,
@@ -28,6 +32,16 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "dsptoolbox_tpu_torch"
+
+
+def kernels_asked(fn) -> set:
+    """The kernel names that ``fn()`` asks `_config.use_kernel` about, each
+    answered "no" (the plain version)."""
+    names = set()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(_config, "use_kernel", lambda name, x: names.add(name) or False)
+        fn()
+    return names
 
 
 def test_import_leaves_jax_out_and_needs_no_triton():
@@ -227,42 +241,57 @@ def test_cpu_tensors_never_launch_kernels():
     assert cuda_banded.launches == 0
 
 
-def test_switch_on_refuses_cpu_tensor():
-    x = torch.zeros(2, 4096)
-    win = torch.ones(64)
-    _config.set_framing_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            cuda_framing.windowed_frames(x, win, 32, False)
-    finally:
-        _config.set_framing_kernel("auto")
-    seg = {"rows": 128, "span": 128, "offsets": torch.zeros(1, dtype=torch.int32),
-           "slab": torch.ones(1, 128, 128)}
-    _config.set_banded_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            banded.banded_apply([seg], torch.ones(256, 2))
-        with pytest.raises(ValueError, match="float32"):
-            banded.banded_apply([dict(seg, slab=seg["slab"].double())],
-                                torch.ones(256, 2, dtype=torch.float64))
-    finally:
-        _config.set_banded_kernel("auto")
-    with pytest.raises(ValueError):
-        dtt.set_iir_kernel("fast")
-
-
 def test_kernels_off_restores_every_switch():
-    _config.set_iir_kernel("on")
-    try:
+    """Nested `kernels_off` blocks turn every kernel off and restore the
+    seam on the way out, also through an exception."""
+    def taken():
+        return {_config.use_kernel(name, SimpleNamespace(is_cuda=True, dtype=dtypes[0]))
+                for name, dtypes in _config.KERNEL_DTYPES.items()}
+
+    assert taken() == {True}
+    with _config.kernels_off():
+        assert taken() == {False}
         with _config.kernels_off():
-            assert (_config.framing_kernel(), _config.iir_kernel(),
-                    _config.das_kernel(), _config.banded_kernel(),
-                    _config.ema_kernel()) == ("off",) * 5
-        assert (_config.framing_kernel(), _config.iir_kernel(),
-                _config.das_kernel(), _config.banded_kernel(), _config.ema_kernel()) == (
-                    "auto", "on", "auto", "auto", "auto")
-    finally:
-        _config.set_iir_kernel("auto")
+            assert taken() == {False}
+        assert taken() == {False}
+    assert taken() == {True}
+    with pytest.raises(RuntimeError):
+        with _config.kernels_off():
+            raise RuntimeError
+    assert taken() == {True}
+
+
+# each kernel's name, the dtypes it takes and its dispatchers
+DISPATCHERS = {
+    "framing": ((torch.float32,), [cuda_framing.windowed_frames]),
+    "iir": ((torch.float32,), [cuda_iir.sosfilt_lead]),
+    "bank": ((torch.float32,), [iir_block.sosfilt_bank_apply_planes]),
+    "das": ((torch.float32,), [cuda_das.das_map]),
+    "banded": ((torch.float32,), [banded.banded_apply]),
+    "ema": ((torch.float32, torch.float64),
+            [cuda_ema.ema_attack_release, cuda_ema.ema_average]),
+    "csm": ((torch.complex64,), [cuda_csm.gram_mean]),
+}
+
+
+@pytest.mark.parametrize("name", list(DISPATCHERS))
+def test_use_kernel_rule(name):
+    """`_config.use_kernel`: a CUDA tensor of a dtype the kernel takes, and
+    nothing inside `kernels_off`; the table names every dispatcher, and each
+    asks by its own name."""
+    taken_dtypes, dispatchers = DISPATCHERS[name]
+    assert set(_config.KERNEL_DTYPES) == set(DISPATCHERS)
+    assert set(_config.KERNEL_DTYPES[name]) == set(taken_dtypes)
+    for fn in dispatchers:
+        assert f'_config.use_kernel("{name}", ' in inspect.getsource(inspect.unwrap(fn))
+    dtypes = (torch.float16, torch.float32, torch.float64, torch.complex64,
+              torch.complex128, torch.int32)
+    for dtype in dtypes:
+        taken = dtype in taken_dtypes
+        assert _config.use_kernel(name, SimpleNamespace(is_cuda=True, dtype=dtype)) is taken
+        assert not _config.use_kernel(name, SimpleNamespace(is_cuda=False, dtype=dtype))
+        with _config.kernels_off():
+            assert not _config.use_kernel(name, SimpleNamespace(is_cuda=True, dtype=dtype))
 
 
 def test_default_dtypes_and_float64_mode():
@@ -306,11 +335,10 @@ def test_default_device_is_cuda_and_numpy_follows_it():
 WAITING: dict = {}
 WAITING_ROOT: dict = {**WAITING}
 # the port's own exports: the steering factors as tensors on a device; at
-# the root, the device and kernel switches of `_config`
+# the root, the default device of `_config`
 PORT_ONLY = {
     "beamforming": {"amp_diff_to_torch"},
-    "": {"default_device", "set_default_device", "set_framing_kernel", "set_iir_kernel",
-         "set_das_kernel", "set_banded_kernel", "set_bank_kernel", "set_ema_kernel"},
+    "": {"default_device", "set_default_device"},
 }
 
 
@@ -385,8 +413,7 @@ def test_config2_and_standard_paths_launch_no_kernel_on_cpu_tensors():
 def test_new_beamformers_launch_no_kernel_on_cpu_tensors():
     """The config-5 maps (`camera.map_calls`: MVDR in both forms, Functional,
     CLEAN-SC, Orthogonal, DAS) and the time-domain DAS on CPU tensors: the
-    plain versions, no launch; under the DAS kernel's "on" the maps that
-    reach it raise."""
+    plain versions, no launch; the maps that reach the DAS kernel ask for it."""
     cuda_framing.launches = 0
     cuda_das.launches = 0
     line = np.arange(-0.3, 0.3, 0.1)
@@ -400,20 +427,15 @@ def test_new_beamformers_launch_no_kernel_on_cpu_tensors():
     assert out.number_of_channels == 36 and out.device.type == "cpu"
     assert cuda_framing.launches == 0
     assert cuda_das.launches == 0
-    _config.set_das_kernel("on")
-    try:
-        for name in ("das", "mvdr_reference", "functional", "clean_sc"):
-            with pytest.raises(ValueError, match="CUDA"):
-                calls[name]()
-    finally:
-        _config.set_das_kernel("auto")
+    for name in ("das", "mvdr_reference", "functional", "clean_sc"):
+        assert kernels_asked(calls[name]) == {"das"}, name
 
 
 def test_transfer_function_analysis_launches_no_kernel_on_cpu_tensors():
     """The transfer-function analysis path (`tools.tf_analysis`: the
     estimators, the IR tools, FDW and the harmonic analysis) on CPU tensors
-    at a small size: the plain versions, no launch; under the framing
-    kernel's "on" the estimators raise."""
+    at a small size: the plain versions, no launch; the estimators ask for
+    the framing kernel."""
     from dsptoolbox_tpu_torch.tools import tf_analysis
 
     cuda_framing.launches = 0
@@ -440,11 +462,8 @@ def test_transfer_function_analysis_launches_no_kernel_on_cpu_tensors():
         distorted, sweep, length_s = tf_analysis.distorted_recording()
         harmonic = tf_analysis.harmonic_analysis(distorted, sweep, length_s)[2]
         assert harmonic["thd"].spectral_data.device.type == "cpu"
-        _config.set_framing_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            tf_analysis.estimators(rec, noise, 1024)
+        assert kernels_asked(lambda: tf_analysis.estimators(rec, noise, 1024)) == {"framing"}
     finally:
-        _config.set_framing_kernel("auto")
         _config.set_default_device(old)
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
@@ -455,8 +474,8 @@ def test_feature_chain_launches_no_kernel_on_cpu_tensors():
     """`tools.feature_chain`'s steps (the STFT features, Hilbert, the DFT,
     the filter-bank spectrum in both phases, CWT, VQT, LPC, warping and
     Laguerre) on CPU tensors at a small size: the plain versions, no
-    launch; under the framing kernel's "on" the STFT features and `lpc`
-    raise, under the bank's "on" the filter-bank spectrum."""
+    launch; the STFT features and `lpc` ask for the framing kernel, the
+    filter-bank spectrum for the bank's."""
     from dsptoolbox_tpu_torch import transforms
     from dsptoolbox_tpu_torch.ops import cuda_iir_bank
     from dsptoolbox_tpu_torch.tools import feature_chain, speech_chain
@@ -474,19 +493,13 @@ def test_feature_chain_launches_no_kernel_on_cpu_tensors():
         out = feature_chain.run(session, feature_chain.music(seconds=0.2),
                                 feature_chain.lpc_signal(session), irs)
         assert len(out) == 16
-        _config.set_framing_kernel("on")
         for fn in (lambda: transforms.mfcc(session, generate_plot=False),
                    lambda: transforms.lpc(session, 8, 512)):
             session._cache.clear()
-            with pytest.raises(ValueError, match="CUDA"):
-                fn()
-        _config.set_framing_kernel("auto")
-        _config.set_bank_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            transforms.spectrum_via_filterbank(session, [500.0, 1000.0], 1 / 3)
+            assert "framing" in kernels_asked(fn)
+        assert "bank" in kernels_asked(
+            lambda: transforms.spectrum_via_filterbank(session, [500.0, 1000.0], 1 / 3))
     finally:
-        _config.set_framing_kernel("auto")
-        _config.set_bank_kernel("auto")
         _config.set_default_device(old)
     assert cuda_framing.launches == 0
     assert cuda_iir.launches == 0
@@ -498,14 +511,12 @@ def test_session_files_path_launches_no_kernel_on_cpu_tensors(tmp_path):
     calibration, the stateful ``(b, a)`` streamed in blocks and in one
     call, both zero phases, the SPL plot's smoothing and the attack/release
     smoothing, the save/load round trips) on CPU tensors at a small size:
-    the plain versions, no launch; under the IIR kernel's "on" the
-    streamed filter raises, under the EMA kernel's "on" the attack/release
-    smoothing."""
+    the plain versions, no launch; the streamed filter asks for the IIR
+    kernel, the attack/release smoothing for the EMA kernel."""
     import matplotlib
 
     matplotlib.use("Agg")
     from dsptoolbox_tpu_torch.classes import Filter, FilterBank
-    from dsptoolbox_tpu_torch.ops import cuda_ema
     from dsptoolbox_tpu_torch.tools import session_files as sf
 
     cuda_iir.launches = 0
@@ -530,16 +541,9 @@ def test_session_files_path_launches_no_kernel_on_cpu_tensors(tmp_path):
                                  "bank": FilterBank([filt, filt]),
                                  "spectrum": Spectrum(*wav.get_spectrum())}, str(tmp_path))
         assert torch.equal(back["session"].time_data, wav.time_data)
-        _config.set_iir_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            sf.stream(wav, b, a)
-        _config.set_iir_kernel("auto")
-        _config.set_ema_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            sf.attack_release(wav._x**2)
+        assert "iir" in kernels_asked(lambda: sf.stream(wav, b, a))
+        assert kernels_asked(lambda: sf.attack_release(wav._x**2)) == {"ema"}
     finally:
-        _config.set_iir_kernel("auto")
-        _config.set_ema_kernel("auto")
         _config.set_default_device(old)
     assert smoothed.shape == wav._x.shape
     assert cuda_iir.launches == 0
@@ -550,7 +554,6 @@ def test_realtime_chain_launches_no_kernel_on_cpu_tensors():
     """The filter-design and streaming path (`tools.realtime_chain`) on CPU
     tensors takes the plain versions: B2 and the EMA kernel's average form
     count no launch."""
-    from dsptoolbox_tpu_torch.ops import cuda_ema
     from dsptoolbox_tpu_torch.tools import realtime_chain as rc
 
     old = _config.default_device()
@@ -580,10 +583,9 @@ def test_effects_chain_launches_no_kernel_on_cpu_tensors():
     compressor, the rack, the scores with fwSNRseg's gammatone bank, the EQ
     fit through `Filter` and `sosfilt_diff`) on CPU tensors takes the plain
     versions: B1, B2, B3 and the EMA kernel's average form count no launch;
-    under the EMA kernel's "on" the compressor raises, under the bank's
-    "on" fwSNRseg."""
+    the compressor asks for the EMA kernel, fwSNRseg for the bank's."""
     from dsptoolbox_tpu_torch import distances
-    from dsptoolbox_tpu_torch.ops import cuda_ema, cuda_iir_bank
+    from dsptoolbox_tpu_torch.ops import cuda_iir_bank
     from dsptoolbox_tpu_torch.tools import effects_chain as ec
 
     old = _config.default_device()
@@ -602,14 +604,8 @@ def test_effects_chain_launches_no_kernel_on_cpu_tensors():
         assert all(r.device.type == "cpu" for r in out["rack"])
         assert (cuda_framing.launches, cuda_iir.launches, cuda_iir_bank.launches,
                 cuda_ema.average_launches) == (0, 0, 0, 0)
-        _config.set_ema_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            ec.compress(out["adaptive"])
-        _config.set_ema_kernel("auto")
-        _config.set_bank_kernel("on")
-        with pytest.raises(ValueError, match="CUDA"):
-            distances.fw_snr_seg(clean, out["adaptive"], f_range_hz=[100, 4000])
+        assert "ema" in kernels_asked(lambda: ec.compress(out["adaptive"]))
+        assert "bank" in kernels_asked(
+            lambda: distances.fw_snr_seg(clean, out["adaptive"], f_range_hz=[100, 4000]))
     finally:
-        _config.set_ema_kernel("auto")
-        _config.set_bank_kernel("auto")
         _config.set_default_device(old)

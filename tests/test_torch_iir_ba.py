@@ -376,7 +376,7 @@ def test_time_smoothing_matches_jax_and_float64(descending):
     np.testing.assert_array_equal(got_t.numpy(), got.numpy().T)
 
 
-def test_ema_plain_loop_is_the_scan_and_the_switch_holds():
+def test_ema_plain_loop_is_the_scan_and_the_switch_holds(monkeypatch):
     x = torch.from_numpy((X[:2, :3000] ** 2).astype(np.float32))
     y = cuda_ema.ema_attack_release_plain(x, 0.3, 0.01)
     assert torch.equal(y[:, 0], x[:, 0])
@@ -386,9 +386,7 @@ def test_ema_plain_loop_is_the_scan_and_the_switch_holds():
     before = cuda_ema.launches
     assert torch.equal(cuda_ema.ema_attack_release(x, 0.3, 0.01), y)
     assert cuda_ema.launches == before
-    _config.set_ema_kernel("on")
-    try:
-        with pytest.raises(ValueError, match="CUDA"):
-            cuda_ema.ema_attack_release(x, 0.3, 0.01)
-    finally:
-        _config.set_ema_kernel("auto")
+    asked = []
+    monkeypatch.setattr(_config, "use_kernel", lambda name, t: asked.append(name) or False)
+    assert torch.equal(cuda_ema.ema_attack_release(x, 0.3, 0.01), y)
+    assert asked == ["ema"] and cuda_ema.launches == before

@@ -42,7 +42,7 @@ torch.set_num_threads(1)
 warnings.filterwarnings("ignore", message="Correlation coefficient")
 warnings.filterwarnings("ignore", message="Signal was over 0 dBFS")
 
-RT_MODES = ["T20", "T30", "T60", "EDT", "Adaptive"]
+REVERB_TIMES = ["T20", "T30", "T60", "EDT", "Adaptive"]
 ROOM = ([6.07, 5.13, 3.01], 0.5)
 SOURCE, RECEIVER = [1.23, 2.17, 1.31], [4.29, 1.17, 1.63]
 
@@ -181,7 +181,7 @@ def test_pad_trim_matches_jax():
 # ---- reverberation time, descriptors, IR start ------------------------------
 
 
-@pytest.mark.parametrize("mode", RT_MODES)
+@pytest.mark.parametrize("mode", REVERB_TIMES)
 def test_reverb_time_matches_jax(mode):
     """The same float32 IR: the same host float fits, rtol 1e-9."""
     j, p = _both_irs(_decaying_irs(), 16000)
@@ -192,7 +192,7 @@ def test_reverb_time_matches_jax(mode):
 
 
 @pytest.mark.parametrize("ir_start", [None, 5, [5, 6, 7]])
-@pytest.mark.parametrize("mode", RT_MODES)
+@pytest.mark.parametrize("mode", REVERB_TIMES)
 def test_reverb_time_multiband_matches_jax(mode, ir_start):
     """A MultiBandSignal of IRs (octave bands filtered by scipy, the same
     float32 data on both sides), with ``ir_start`` given and not: rtol
@@ -224,7 +224,7 @@ def test_banked_bands_fetch_and_fit_like_single_irs():
         ra.reverb_time(MultiBandSignal([Signal(None, _decaying_irs(), 16000)]))
 
 
-@pytest.mark.parametrize("mode", RT_MODES)
+@pytest.mark.parametrize("mode", REVERB_TIMES)
 def test_reverb_fit_decisions_are_the_jax_fits(mode):
     """`_backend.reverb_fit`'s decisions (trimming stop, IR start, EDC
     length, fit range) are those of the JAX package's fit on the same
@@ -599,7 +599,7 @@ def test_measured_room_small():
     for f, band in zip(bank.filters, out["bands"].bands):
         want = sosfilt(f.sos, x.astype(np.float64), axis=0)
         assert np.max(np.abs(band.time_data.numpy() - want)) <= 5e-6 * np.max(np.abs(want))
-    for mode in rm.RT_MODES:
+    for mode in rm.REVERB_TIMES:
         np.testing.assert_array_equal(out["rt"][mode.name],
                                       ra.reverb_time(out["bands"], mode)[0])
         assert out["rt"][mode.name].shape == (6, 2)
