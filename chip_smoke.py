@@ -61,10 +61,11 @@ drives the port's paths:
   config 3: 64 channels × 10 s at 44.1 kHz through an LR crossover, the
   16-band gammatone bank, resampling to fs/3 and the 28-band 1/3-octave
   bank): the filter-bank kernel (B3) is held against its plain version at
-  both banks' shapes and ragged shapes (each case prints which output pass
-  it took: the tensor cores for blocks up to 128), every band against
-  scipy's float64 sosfilt on 4 channels, the path and a gammatone
-  reconstruction against the plain paths;
+  the three banks' shapes (the crossover's composite cascades included)
+  and ragged shapes (each case prints which output pass it took: the
+  tensor cores for blocks up to 128), the path launches it once a bank,
+  every band against scipy's float64 sosfilt on 4 channels, the path and
+  a gammatone reconstruction against the plain paths;
 - room acoustics (`dsptoolbox_tpu_torch.tools.room_measurement`): (a) the
   measurement path's 16 windowed IRs through the 6-band octave bank (B3),
   `reverb_time` in T20, T30, EDT and Adaptive, D50, C80, centre time and the
@@ -933,9 +934,9 @@ def filterbank_phase(dev, rng) -> dict:
           f"{time.perf_counter() - t0:.3f} s")
     x = sig._x  # (C, T) float32
 
-    # 16. B3 vs plain at the path's two banks (64 x 441,000) and ragged
+    # 16. B3 vs plain at the path's three banks (64 x 441,000) and ragged
     # shapes. Tolerance: B2's (fp32 Toeplitz sums in two orders, fp64 state)
-    banks = {"gammatone": _sos_bank_or_none(gt.filters),
+    banks = {"lr": lr._cascade_bank, "gammatone": _sos_bank_or_none(gt.filters),
              "third_octave": _sos_bank_or_none(third.filters)}
     b3_err = 0.0
     b3_ops = {}
@@ -998,10 +999,10 @@ def filterbank_phase(dev, rng) -> dict:
     on_chip = cuda_iir_bank.state_on_chip
     label = f"config-3 path {C} ch x {T} samples"
     print(f"{label}: launches {launched}, B3 state on chip {on_chip}")
-    if launched["iir_bank"] < 2:
-        fail("the filter-bank path did not run the bank kernel for both banks")
-    if on_chip != 2:
-        fail("the filter-bank path's two banks did not keep their states on the chip")
+    if launched["iir_bank"] != 3:
+        fail("the filter-bank path did not run the bank kernel once for each of its three banks")
+    if on_chip != 3:
+        fail("the filter-bank path's three banks did not keep their states on the chip")
     lr_b, gt_b, res, third_b = out
     shapes = (("LR", lr_b, 4, False), ("gammatone", gt_b, len(gt.filters), True),
               ("1/3 octave", third_b, len(third.filters), False))
@@ -1020,7 +1021,7 @@ def filterbank_phase(dev, rng) -> dict:
     x64 = x[ch].double().cpu().numpy()
     t0 = time.perf_counter()
     worst = {}
-    for name, mb, bank in (("gammatone", gt_b, banks["gammatone"]),
+    for name, mb, bank in (("LR", lr_b, banks["lr"]), ("gammatone", gt_b, banks["gammatone"]),
                            ("1/3 octave", third_b, banks["third_octave"])):
         for b, band in enumerate(mb.bands):
             got = band._x[ch]
@@ -1070,7 +1071,7 @@ def filterbank_phase(dev, rng) -> dict:
     if not (err <= 2e-4 and finite):
         fail("the gammatone reconstruction disagrees with the plain paths")
 
-    # 19. times: B3 and its plain version at the path's two banks; the
+    # 19. times: B3 and its plain version at the path's three banks; the
     # chain through the kernels and on the plain paths
     b3 = {"ms": 0.0, "plain_ms": 0.0}
     n_bytes = fp32 = fp64 = fp64_mm = 0.0
@@ -1096,7 +1097,7 @@ def filterbank_phase(dev, rng) -> dict:
         del buf
     b3_bound, b3_by = bound(n_bytes, 0.0, fp64, fp64_mm, fp32)
     b3_ffma, b3_ffma_by = bound(n_bytes, 0.0, fp64, fp64_mm, fp32, tensor_cores=False)
-    print(f"bound B3 two banks: x·h as 3×TF32 {b3_bound:.4f} ms ({b3_by}, "
+    print(f"bound B3 three banks: x·h as 3×TF32 {b3_bound:.4f} ms ({b3_by}, "
           f"{b3['ms'] / b3_bound:.2f}×), x·h on FFMA {b3_ffma:.4f} ms ({b3_ffma_by}, "
           f"{b3['ms'] / b3_ffma:.2f}×)")
     k_ms, p_ms = time_pair(lambda: fc.run(sig, lr, gt, third),
@@ -4644,7 +4645,7 @@ def main() -> int:
     b5_bound, b5_by = das_bound(F, M, G)
     print(f"bounds (H100 SXM peaks): B1 {b1_bound:.4f} ms ({b1_by}), B2 four "
           f"bands {b2_bound:.4f} ms ({b2_by}), B5 {b5_bound:.4f} ms ({b5_by}), "
-          f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']}), B3 two banks "
+          f"B4 {b4['bound_ms']:.4f} ms ({b4['bound_by']}), B3 three banks "
           f"{b3['bound_ms']:.4f} ms ({b3['bound_by']})")
 
     report = {"kernels": [

@@ -2,7 +2,10 @@
 (`dsptoolbox_tpu/filterbanks/lr_filterbank.py`).
 
 The band-split cascade with allpass phase correction runs batched over
-channels on the signal's device. Zero-state splits whose decay margin
+channels on the signal's device. On a float32 CUDA signal the zero-state
+split is one parallel bank of the bands' composite SOS cascades (each
+crossover's low + high pass summed into one all-pass cascade), one launch of
+the filter-bank kernel B3. Elsewhere, zero-state splits whose decay margin
 allows it go through the composite band responses (one rfft, one batched
 irfft: exact frequency sampling, `ops.iir_freq`); the others through the
 `sosfilt` chain (the blocked IIR, kernel B2). The per-channel ``zi`` path
@@ -13,17 +16,20 @@ ported: saving and copies.
 
 from __future__ import annotations
 
+from functools import cached_property
 from warnings import warn
 
 import numpy as np
 import torch
 from scipy.signal import butter, sosfilt_zi
 
+from .. import _config
 from .._config import retain
 from ..classes.multibandsignal import MultiBandSignal
 from ..classes.signal import Signal
 from ..ops.fft_conv import next_fast_len
 from ..ops.iir import sosfilt, sosfiltfilt
+from ..ops.iir_block import bank_device_operators, sosfilt_bank_apply_planes, stack_sos_bank
 from ..ops.iir_freq import decay_margin, sos_freq_response_host
 from .._trace import spanned
 from .._enums import FilterBankMode
@@ -40,6 +46,24 @@ def _get_2nd_order_linkwitz_riley(freq: float, fs: int):
     b_lp = np.array([K**2 * q / denom, 2 * K**2 * q / denom, K**2 * q / denom])
     b_hp = np.array([q / denom, -2 * q / denom, q / denom])
     return np.hstack([b_lp, a])[None, :], np.hstack([-b_hp, a])[None, :]
+
+
+def _allpass(lp: np.ndarray, order: int) -> np.ndarray | None:
+    """LP + HP of one crossover as one all-pass cascade, or None for an odd
+    (not Linkwitz-Riley) order.
+
+    An LR crossover of order 4k is a Butterworth of order 2k, squared:
+    ``LP + HP = B(−s) / B(s)``, so each section ``[1, a1, a2]`` of the
+    Butterworth half (the first half of ``lp``'s rows) gives the all-pass
+    section ``[a2, a1, 1] / [1, a1, a2]``. The Sallen-Key LR2 has ``a = (1 +
+    p z⁻¹)²`` and ``LP + HP = (p + z⁻¹) / (1 + p z⁻¹)``."""
+    if order == 2:
+        p = lp[0, 4] / 2
+        return np.array([[p, 1.0, 0.0, 1.0, p, 0.0]])
+    if order % 4:
+        return None
+    a = lp[: len(lp) // 2, 3:]
+    return np.hstack([a[:, ::-1], a])
 
 
 class LRFilterBank:
@@ -196,6 +220,22 @@ class LRFilterBank:
         nfft = next_fast_len(T + max(margins), real=True)
         return nfft if nfft <= 4 * T else None
 
+    @cached_property
+    def _cascade_bank(self) -> np.ndarray | None:
+        """The bands' composite SOS cascades stacked ``(B, S, 6)``, built
+        once in float64: band cn is HP₀ … HP_{cn−1} · LP_cn · the all-pass
+        LP + HP of every higher crossover (`_allpass`), the last band every
+        HP; None when a crossover of odd order has no all-pass form. The
+        lowest crossover's all-pass is in no band."""
+        allpass = [None] + [_allpass(pair[0], order)
+                            for pair, order in zip(self.sos[1:], self.order[1:])]
+        if any(ap is None for ap in allpass[1:]):
+            return None
+        hp = [pair[1] for pair in self.sos]
+        bands = [np.vstack(hp[:cn] + [self.sos[cn][0]] + allpass[cn + 1 :])
+                 for cn in range(self.number_of_cross)]
+        return stack_sos_bank(bands + [np.vstack(hp)])
+
     def _composite_band_responses(self, nfft: int, device) -> torch.Tensor:
         """Per-band composite crossover and allpass responses on the rfft
         grid, evaluated on the host in float64 and kept on ``device`` as
@@ -232,6 +272,9 @@ class LRFilterBank:
                 x = sosfiltfilt(self.sos[cn][1][:valid], x)
             outs.append(x)
             return torch.stack(outs)
+        if _config.use_kernel("bank", x) and self._cascade_bank is not None:
+            ops = bank_device_operators(self._cascade_bank, T, x.dtype, x.device)
+            return sosfilt_bank_apply_planes(ops, x)[0]
         nfft = self._freq_nfft(T)
         if nfft is not None:
             resp = self._composite_band_responses(nfft, x.device)

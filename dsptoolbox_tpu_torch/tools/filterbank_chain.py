@@ -11,7 +11,9 @@ Hz, harmonics up to 4 kHz) over noise at −40 dB.
 `run` applies, to one `Signal`:
 
 - ``linkwitz_riley_crossovers([250, 1000, 4000], [4, 4, 4])`` in Parallel
-  mode (4 bands, frequency sampling of the composite responses);
+  mode (4 bands of 6 composite sections: on a CUDA device one launch of
+  B3's real route, elsewhere frequency sampling of the composite
+  responses);
 - ``auditory_filters_gammatone([500, 4000])`` in Parallel mode (16 complex
   bands: the complex route of the filter-bank kernel B3 on a CUDA device);
 - ``resample(sig, fs // 3)``;

@@ -14,6 +14,7 @@ import pytest
 import torch
 from scipy.signal import butter, sosfilt, sosfilt_zi
 
+from crossover_chain import lr_chain
 from dsptoolbox_tpu_torch import _config, headline
 from dsptoolbox_tpu_torch import beamforming as bf
 from dsptoolbox_tpu_torch.classes import Signal
@@ -803,6 +804,41 @@ def test_third_octave_bank_on_card_matches_scipy(dev):
     assert cuda_iir_bank.launches == before + 1
     for b in range(len(bank)):
         assert _rel(y[b], sosfilt(bank[b], x.astype(np.float64))) < 5e-6, f"band {b}"
+
+
+@pytest.mark.parametrize("freqs", [(250.0, 1000.0, 4000.0), (1000.0,)],
+                         ids=["config3-wide", "one-crossover-narrow"])
+def test_lr_split_on_card_is_one_bank_launch(dev, freqs):
+    """The Linkwitz-Riley split (LR4, 8 × 441,000 float32 at 44.1 kHz) is
+    one B3 launch in Parallel and in Summed mode: config 3's four bands (12
+    lanes a band) on the wide route, one crossover's two bands (4 lanes a
+    band, `combine_ir_with_dirac`'s bank) on the three passes. Every band is
+    within 1e-5 of its peak of scipy's float64 LP/HP/all-pass chain and of
+    the `kernels_off` route (frequency sampling); the sum within 1e-5 of
+    the chain's."""
+    from dsptoolbox_tpu_torch.filterbanks import linkwitz_riley_crossovers
+    from dsptoolbox_tpu_torch.standard.enums import FilterBankMode
+
+    lr = linkwitz_riley_crossovers(list(freqs), [4] * len(freqs), 44100)
+    x = (RNG.standard_normal((441000, 8)) * 0.3).astype(np.float32)
+    sig = Signal(None, x, 44100, device=dev)
+    wide = len(freqs) == 3
+    got = {}
+    for mode in (FilterBankMode.Parallel, FilterBankMode.Summed):
+        before = (cuda_iir_bank.launches, cuda_iir_bank.state_on_chip, cuda_iir.launches)
+        got[mode] = lr.filter_signal(sig, mode)
+        torch.cuda.synchronize()
+        assert (cuda_iir_bank.launches, cuda_iir_bank.state_on_chip, cuda_iir.launches) == (
+            before[0] + 1, before[1] + wide, before[2])
+    with _config.kernels_off():
+        off = lr.filter_signal(sig, FilterBankMode.Parallel)
+    want = lr_chain(lr, x.T.astype(np.float64))
+    bands = got[FilterBankMode.Parallel].bands
+    assert len(bands) == len(want) == len(freqs) + 1
+    for b, (band, band_off, w) in enumerate(zip(bands, off.bands, want)):
+        assert _rel(band.time_data.T, w) <= 1e-5, f"band {b} vs scipy"
+        assert _rel(band.time_data, band_off.time_data) <= 1e-5, f"band {b} vs kernels_off"
+    assert _rel(got[FilterBankMode.Summed].time_data.T, np.sum(want, axis=0)) <= 1e-5
 
 
 def test_bank_route_takes_the_kernel_at_any_length_and_refuses_other_dtypes(dev):

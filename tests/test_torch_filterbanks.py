@@ -16,6 +16,7 @@ from scipy.signal import butter, resample_poly, sosfilt, sosfiltfilt, upfirdn
 
 import jax.numpy as jnp
 from conftest import assert_close
+from crossover_chain import lr_chain
 import dsptoolbox_tpu as jdsp
 from dsptoolbox_tpu.ops import iir_block as jblock
 from dsptoolbox_tpu.ops.pallas_iir_bank import bank_dense_operators, sosfilt_bank_pallas
@@ -499,6 +500,59 @@ def test_lr_filterbank_zero_phase_and_state_match_jax(mode):
     if mode == "zi":
         np.testing.assert_allclose(lr.channels_zi[1][0][0][0], jlr.channels_zi[1][0][0][0],
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "freqs,orders,fs",
+    [([250, 1000, 4000], [4, 4, 4], FS), ([500, 1500], [4, 2], 8000), ([1000], [8], 48000),
+     ([100, 1000], [8, 8], 48000), ([500, 2000], [4, 2], 8000)],
+    ids=["lr4-44k1", "lr4-lr2-8k", "lr8-one-crossover", "lr8-low-allpass", "lr2-at-fs4"],
+)
+def test_lr_cascade_bank_matches_the_chain(monkeypatch, freqs, orders, fs):
+    """The bands' composite SOS cascades (`LRFilterBank._cascade_bank`, the
+    split's route on a float32 CUDA signal) through scipy's float64
+    ``sosfilt`` equal the sequential LP/HP/all-pass chain to 1e-9 of each
+    band's peak. The bank's plain version in float32, through
+    `filter_signal` on that route (the kernel replaced by its plain
+    version), is within 5e-6 of it, one bank call a split, Parallel and
+    Summed. LR8 at 100 Hz puts the all-pass's poles close to DC; the LR2
+    at fs/4 has the pure delay z⁻¹ as its all-pass."""
+    lr = filterbanks.linkwitz_riley_crossovers(freqs, orders, fs)
+    bank = lr._cascade_bank
+    assert bank.shape[0] == lr.number_of_bands
+    x = (RNG.standard_normal((6000, 2)) * 0.3).astype(np.float32)
+    want = lr_chain(lr, x.T.astype(np.float64))
+    for b, w in enumerate(want):
+        assert _rel(sosfilt(bank[b], x.T.astype(np.float64), axis=-1), w) <= 1e-9
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return cuda_iir_bank.sosfilt_bank_lead_plain(*args)
+
+    monkeypatch.setattr(iir_block, "sosfilt_bank_lead_cuda", counted)
+    monkeypatch.setattr(_config, "use_kernel", lambda name, t: name == "bank")
+    par = lr.filter_signal(Signal(None, x, fs), FilterBankMode.Parallel)
+    summed = lr.filter_signal(Signal(None, x, fs), FilterBankMode.Summed)
+    assert len(calls) == 2
+    for band, w in zip(par.bands, want, strict=True):
+        assert _rel(band.time_data.numpy().T, w) <= 5e-6
+    assert _rel(summed.time_data.numpy().T, np.sum(want, axis=0)) <= 5e-6
+
+
+def test_lr_odd_orders_keep_frequency_sampling(monkeypatch):
+    """Odd orders (not Linkwitz-Riley) have no all-pass cascade: the bank is
+    None and the split keeps frequency sampling where the kernel rule
+    holds, with no bank call, equal to the route outside it."""
+    lr = filterbanks.linkwitz_riley_crossovers([500, 2000], [3, 3], 16000)
+    assert lr._cascade_bank is None
+    x = (RNG.standard_normal((4000, 2)) * 0.3).astype(np.float32)
+    want = lr.filter_signal(Signal(None, x, 16000), FilterBankMode.Parallel)
+    monkeypatch.setattr(iir_block, "sosfilt_bank_lead_cuda", lambda *a: pytest.fail("bank call"))
+    monkeypatch.setattr(_config, "use_kernel", lambda name, t: name == "bank")
+    got = lr.filter_signal(Signal(None, x, 16000), FilterBankMode.Parallel)
+    for g, w in zip(got.bands, want.bands, strict=True):
+        np.testing.assert_array_equal(g.time_data, w.time_data)
 
 
 @pytest.mark.parametrize("fs,rng_hz", [(5000, [500, 1000]), (FS, [500, 4000]),
